@@ -1,0 +1,124 @@
+"""Reference checkpoint I/O and the JAX variable bridge (counterpart of
+vpt_tpu/checkpoint/torch_import.py).
+
+  * ``.model``: a plain pickle with the architecture kwargs at
+    ``["model"]["args"]["net"]["args"]`` and head options at
+    ``["model"]["args"]["pi_head_opts"]``;
+  * ``.weights``: a ``torch.save``'d state_dict, loaded ``strict=False``.
+
+The port's modules carry the reference's torch names, so a ``.weights``
+state_dict loads as it is.  ``from_jax_variables`` carries a ``vpt_tpu``
+flax variable tree (nested dicts of numpy arrays) into the same names,
+with the layout transposes of the JAX converter: Linear (I,O)→(O,I),
+Conv2d (kh,kw,I,O)→(O,I,kh,kw), Conv3d (kt,kh,kw,I,O)→(O,I,kt,kh,kw),
+norm ``scale``→``weight``, ``blocks_0``→``blocks.0``, and the EWMA stats
+under ``normalizer``.
+"""
+
+from __future__ import annotations
+
+import pickle
+import re
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_LIST_SEG = re.compile(r"^(.*)_(\d+)$")
+_EWMA_LEAVES = ("running_mean", "running_mean_sq", "debiasing_term")
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    """Stubs unknown globals: ``.model`` files may reference classes that are
+    not needed to read the kwargs."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            return type(name, (), {"__module__": module})
+
+
+def load_model_parameters(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Read a ``.model`` pickle → (policy_kwargs, pi_head_kwargs), with the
+    reference's float() coercion of temperature (behavioural_cloning.py:41-47)."""
+    with open(path, "rb") as f:
+        agent_parameters = _TolerantUnpickler(f).load()
+    policy_kwargs = agent_parameters["model"]["args"]["net"]["args"]
+    pi_head_kwargs = agent_parameters["model"]["args"]["pi_head_opts"]
+    if "temperature" in pi_head_kwargs:
+        pi_head_kwargs["temperature"] = float(pi_head_kwargs["temperature"])
+    return policy_kwargs, pi_head_kwargs
+
+
+def load_weights(path: str) -> Dict[str, torch.Tensor]:
+    """Read a ``.weights`` file (a torch.save'd state_dict) onto the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _torch_leaf(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    if name == "kernel":
+        if value.ndim == 2:
+            return "weight", value.transpose(1, 0)
+        if value.ndim == 4:
+            return "weight", value.transpose(3, 2, 0, 1)
+        if value.ndim == 5:
+            return "weight", value.transpose(4, 3, 0, 1, 2)
+        raise ValueError(f"unsupported kernel ndim {value.ndim}")
+    if name == "scale":
+        return "weight", value
+    return name, value
+
+
+def _leaves(tree: Mapping, path=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (str(key),))
+        else:
+            yield path + (str(key),), value
+
+
+def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A ``vpt_tpu`` variable tree ``{"params": ..., "stats": ...}`` of numpy
+    arrays → a torch-layout state_dict of CPU tensors."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "stats"):
+        if collection not in variables:
+            continue
+        for segs, value in _leaves(variables[collection]):
+            leaf = segs[-1]
+            name, arr = _torch_leaf(leaf, np.asarray(value))
+            body = []
+            for s in segs[:-1]:
+                m = _LIST_SEG.match(s)
+                if m and m.group(1) in ("blocks", "stacks"):
+                    body.extend([m.group(1), m.group(2)])
+                else:
+                    body.append(s)
+            if collection == "stats" and leaf in _EWMA_LEAVES:
+                body.append("normalizer")
+            out[".".join(body + [name])] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return out
+
+
+def load_state_dict_report(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> Dict[str, list]:
+    """``load_state_dict(strict=False)`` that also skips shape mismatches.
+
+    :returns: {"unexpected": [...], "missing": [...], "shape_mismatch": [...]}
+    """
+    own = model.state_dict()
+    usable, mismatch = {}, []
+    for key, value in state_dict.items():
+        if key in own and tuple(own[key].shape) != tuple(value.shape):
+            if own[key].numel() == value.numel() == 1:
+                value = value.reshape(own[key].shape)  # 0-d scalars saved as (1,)
+            else:
+                mismatch.append((key, tuple(own[key].shape), tuple(value.shape)))
+                continue
+        usable[key] = value
+    result = model.load_state_dict(usable, strict=False)
+    return {
+        "unexpected": list(result.unexpected_keys),
+        "missing": list(result.missing_keys),
+        "shape_mismatch": mismatch,
+    }

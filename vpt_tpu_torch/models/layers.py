@@ -1,0 +1,180 @@
+"""Building-block layers (counterpart of vpt_tpu/models/layers.py).
+
+Naming contract: submodules carry the reference torch names (``layer`` and
+``norm`` inside FanInInitLayer, ``q_layer`` etc. in the attention layer), so a
+reference state_dict loads with ``load_state_dict(strict=False)``.
+
+Precision contract, as in the JAX package: parameters are stored float32; a
+dense or conv layer casts its input and parameters to the module's compute
+``dtype``; norms compute and return float32.
+
+Init contract: the reference's fan-in init renormalises each output unit's
+weight vector to L2 norm ``init_scale`` (reference: lib/util.py:67-73,
+lib/torch_util.py:68-82).  Every module that owns parameters has
+``reset_parameters(generator=None)``; ``init_parameters`` draws a whole model
+from one explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LN_EPS = 1e-5  # torch LayerNorm/GroupNorm default epsilon
+
+
+@torch.no_grad()
+def fan_in_normed_(weight: torch.Tensor, scale: float, generator: Optional[torch.Generator] = None):
+    """Fill ``weight`` (output axis first) with gaussian rows of L2 norm ``scale``."""
+    w = torch.randn(weight.shape, generator=generator, device=weight.device, dtype=torch.float32)
+    norm = w.flatten(1).norm(dim=1).clamp_min(1e-12)
+    weight.copy_(scale * w / norm.view(-1, *([1] * (w.dim() - 1))))
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every parameter of ``model`` from ``generator``, module by
+    module in registration order."""
+    for m in model.modules():
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator=generator)
+    return model
+
+
+class NormedLinear(nn.Module):
+    """Dense layer with fan-in-normalised init and zero bias (reference
+    NormedLinear, lib/torch_util.py:68-82), computing in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, scale: float = 1.0,
+                 bias: bool = True, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.scale = scale
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        self.bias = nn.Parameter(torch.empty(out_features, device=device)) if bias else None
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        fan_in_normed_(self.weight, self.scale, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def normed_dense(in_features: int, out_features: int, *, scale: float, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None) -> NormedLinear:
+    """Counterpart of ``vpt_tpu.models.layers.normed_dense``."""
+    return NormedLinear(in_features, out_features, scale=scale, bias=use_bias, dtype=dtype, device=device)
+
+
+class LayerNorm(nn.Module):
+    """torch-compatible LayerNorm (eps 1e-5) computing and returning float32."""
+
+    def __init__(self, size: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(size, device=device))
+        self.bias = nn.Parameter(torch.zeros(size, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, LN_EPS)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW computing and returning float32."""
+
+    def __init__(self, groups: int, channels: int, device=None):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.groups, self.weight, self.bias, LN_EPS)
+
+
+class FanInInitLayer(nn.Module):
+    """norm → layer → ReLU with fan-in-renormalised init.
+
+    Mirrors FanInInitReLULayer (reference: lib/util.py:23-82): the norm is
+    applied to the *input*, the layer has a bias only when there is no norm,
+    and the activation is optional.  ``layer_type`` ∈ {linear, conv}; conv
+    layers take NCHW.  (The reference's batch norm and conv3d, used by no
+    policy on this path, are not ported yet.)
+    """
+
+    def __init__(
+        self,
+        inchan: int,
+        outchan: int,
+        layer_type: str = "conv",
+        init_scale: float = 1.0,
+        batch_norm: bool = False,
+        group_norm_groups: Optional[int] = None,
+        layer_norm: bool = False,
+        use_activation: bool = True,
+        kernel_size: int = 3,
+        padding: int = 1,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ):
+        super().__init__()
+        if batch_norm:
+            raise NotImplementedError("batch_norm FanInInitLayer is not ported")
+        self.layer_type = layer_type
+        self.init_scale = init_scale
+        self.use_activation = use_activation
+        self.padding = padding
+        self.dtype = dtype
+        self.norm = None
+        if group_norm_groups is not None:
+            self.norm = GroupNorm(group_norm_groups, inchan, device=device)
+        elif layer_norm:
+            self.norm = LayerNorm(inchan, device=device)
+        has_bias = self.norm is None
+        if layer_type == "linear":
+            shape = (outchan, inchan)
+        elif layer_type == "conv":
+            shape = (outchan, inchan, kernel_size, kernel_size)
+        else:
+            raise NotImplementedError(layer_type)
+        self.layer = nn.Module()
+        self.layer.weight = nn.Parameter(torch.empty(shape, device=device))
+        self.layer.bias = nn.Parameter(torch.empty(outchan, device=device)) if has_bias else None
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        fan_in_normed_(self.layer.weight, self.init_scale, generator)
+        if self.layer.bias is not None:
+            self.layer.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm is not None:
+            x = self.norm(x)
+        dt = self.dtype
+        w = self.layer.weight.to(dt)
+        b = None if self.layer.bias is None else self.layer.bias.to(dt)
+        if self.layer_type == "linear":
+            x = F.linear(x.to(dt), w, b)
+        else:
+            x = F.conv2d(x.to(dt), w, b, padding=self.padding)
+        return F.relu(x) if self.use_activation else x

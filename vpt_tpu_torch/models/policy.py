@@ -1,0 +1,166 @@
+"""The VPT agent policy graph (counterpart of vpt_tpu/models/policy.py;
+reference lib/policy.py).
+
+Flow (reference policy.py:193-218):
+    uint8 frames (B, T, H, W, C) → ImgPreprocessing (/255) → ImpalaCNN →
+    linear → hidsize → [pre_lstm_ln] → n × ResidualRecurrentBlock →
+    ReLU → lastlayer (LN → linear → ReLU) → final LayerNorm →
+    {pi_head (dict of categoricals), value_head (ScaledMSE)}
+
+The recurrent state (per-block KV caches and state masks) is an explicit
+argument and return value, as in the JAX package.  Module and parameter
+names follow the reference's torch state_dict.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vpt_tpu_torch.config import PolicyConfig
+from vpt_tpu_torch.device import torch_dtype
+from vpt_tpu_torch.models.heads import DictActionHead, HeadSpec, ScaledMSEHead, dict_logprob, dict_sample
+from vpt_tpu_torch.models.impala import ImpalaCNN
+from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm
+from vpt_tpu_torch.models.transformer import (
+    ResidualRecurrentBlocks,
+    masked_attention_initial_state,
+    ring_initial_state,
+)
+
+
+class ImgPreprocessing(nn.Module):
+    """uint8 → float32, scaled by 1/255 or normalised by dataset statistics
+    (reference: policy.py:21-45).  ``img_statistics`` is an npz with full
+    ``mean``/``std`` images, held as the buffers ``img_mean``/``img_std``."""
+
+    def __init__(self, scale_img: bool = True, img_statistics: Optional[str] = None, device=None):
+        super().__init__()
+        self.scale_img = scale_img
+        self.has_stats = img_statistics is not None
+        if self.has_stats:
+            with np.load(img_statistics) as stats:
+                mean, std = stats["mean"], stats["std"]
+            self.register_buffer("img_mean", torch.as_tensor(mean, dtype=torch.float32, device=device))
+            self.register_buffer("img_std", torch.as_tensor(std, dtype=torch.float32, device=device))
+
+    def forward(self, img):
+        x = img.float()
+        if self.has_stats:
+            return (x - self.img_mean) / self.img_std
+        return x / (255.0 if self.scale_img else 1.0)
+
+
+class ImgObsProcess(nn.Module):
+    """ImpalaCNN followed by a linear projection to hidsize
+    (reference: policy.py:48-80)."""
+
+    def __init__(self, cfg: PolicyConfig, device=None):
+        super().__init__()
+        dtype = torch_dtype(cfg.compute_dtype)
+        if cfg.batch_norm:
+            raise NotImplementedError("batch_norm policies are not ported")
+        self.cnn = ImpalaCNN(
+            inshape=cfg.img_shape, chans=cfg.chans, outsize=cfg.obs_processing_width,
+            nblock=cfg.impala_nblock, post_pool_groups=cfg.impala_post_pool_groups,
+            group_norm_groups=cfg.group_norm_groups, first_conv_norm=cfg.first_conv_norm,
+            dense_layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device,
+        )
+        self.linear = FanInInitLayer(cfg.obs_processing_width, cfg.hidsize, layer_type="linear",
+                                     layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)
+
+    def forward(self, x):
+        return self.linear(self.cnn(x))
+
+
+class MinecraftPolicy(nn.Module):
+    """Latent trunk: vision → recurrence → pi/vf latents
+    (reference: policy.py:83-224)."""
+
+    def __init__(self, cfg: PolicyConfig, device=None):
+        super().__init__()
+        if cfg.recurrence_type != "transformer":
+            raise NotImplementedError(f"recurrence_type {cfg.recurrence_type!r} is not ported")
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.compute_dtype)
+        self.img_preprocess = ImgPreprocessing(cfg.scale_input_img, cfg.img_statistics, device)
+        self.img_process = ImgObsProcess(cfg, device)
+        self.pre_lstm_ln = LayerNorm(cfg.hidsize, device=device) if cfg.use_pre_lstm_ln else None
+        self.recurrent_layer = ResidualRecurrentBlocks(
+            cfg.hidsize, cfg.timesteps, n_block=cfg.n_recurrence_layers,
+            is_residual=cfg.recurrence_is_residual, recurrence_type=cfg.recurrence_type,
+            use_pointwise_layer=cfg.use_pointwise_layer, pointwise_ratio=cfg.pointwise_ratio,
+            pointwise_use_activation=cfg.pointwise_use_activation,
+            attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
+            attention_mask_style=cfg.attention_mask_style, dtype=dtype, device=device,
+        )
+        self.lastlayer = FanInInitLayer(cfg.hidsize, cfg.hidsize, layer_type="linear",
+                                        layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)
+        self.final_ln = LayerNorm(cfg.hidsize, device=device)
+
+    def forward(self, img, first, state):
+        x = self.img_process(self.img_preprocess(img))
+        if self.pre_lstm_ln is not None:
+            x = self.pre_lstm_ln(x)
+        x, state_out = self.recurrent_layer(x, first, state)
+        x = self.lastlayer(F.relu(x))
+        return self.final_ln(x), state_out
+
+
+class MinecraftAgentPolicy(nn.Module):
+    """Trunk + action head + value head (reference: policy.py:227-269)."""
+
+    def __init__(self, cfg: PolicyConfig, head_specs: Tuple[HeadSpec, ...],
+                 temperature: float = 1.0, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.head_specs = head_specs
+        dtype = torch_dtype(cfg.compute_dtype)
+        self.net = MinecraftPolicy(cfg, device)
+        self.value_head = ScaledMSEHead(cfg.hidsize, output_size=1, norm_axes=2,
+                                        dtype=dtype, device=device)
+        self.pi_head = DictActionHead(cfg.hidsize, head_specs, temperature, dtype, device)
+
+    def forward(self, img, first, state, action_mask: Optional[Dict] = None):
+        """:param img: (B, T, H, W, C) uint8; first: (B, T) bool
+        :returns: ({"pi_logits": dict, "vpred_raw": (B, T, 1), "vpred":
+            denormalised (B, T, 1)}, state_out)"""
+        latent, state_out = self.net(img, first, state)
+        vpred_raw = self.value_head(latent)
+        return {
+            "pi_logits": self.pi_head(latent, mask=action_mask),
+            "vpred_raw": vpred_raw,
+            "vpred": self.value_head.denormalize(vpred_raw),
+        }, state_out
+
+    def act(self, img, first, state, stochastic: bool = True,
+            generator: Optional[torch.Generator] = None):
+        """One observation per stream (reference MinecraftAgentPolicy.act,
+        policy.py:307-328).
+
+        :param img: (B, H, W, C); first: (B,)
+        :returns: (action dict, state_out, {"log_prob": (B,), "vpred": (B,)})
+        """
+        out, state_out = self(img[:, None], first[:, None], state)
+        logits = {k: v[:, 0] for k, v in out["pi_logits"].items()}
+        action = dict_sample(logits, self.head_specs, deterministic=not stochastic,
+                             generator=generator)
+        log_prob = dict_logprob(logits, action, self.head_specs)
+        return action, state_out, {"log_prob": log_prob, "vpred": out["vpred"][:, 0, 0]}
+
+
+def policy_initial_state(cfg: PolicyConfig, batchsize: int, ring: bool = False, device=None):
+    """Initial recurrent state, a function of the config alone.  ``ring=True``
+    gives the rotating-cache state of the t=1 stepped rollout."""
+    if cfg.recurrence_type != "transformer":
+        raise NotImplementedError(f"recurrence_type {cfg.recurrence_type!r} is not ported")
+    dtype = torch_dtype(cfg.compute_dtype)
+    if ring:
+        return [ring_initial_state(batchsize, cfg.maxlen, cfg.hidsize, dtype, cfg.attention_heads, device)
+                for _ in range(cfg.n_recurrence_layers)]
+    return [masked_attention_initial_state(batchsize, cfg.maxlen, cfg.hidsize, dtype, device)
+            for _ in range(cfg.n_recurrence_layers)]

@@ -1,0 +1,278 @@
+"""Recurrent core: fixed-window causal transformer blocks (counterpart of
+vpt_tpu/models/transformer.py; reference lib/xf.py, lib/masked_attention.py,
+lib/util.py:91-229).
+
+State layout per block, as in the JAX package:
+    linear cache {"state_mask": (B, maxlen) bool, "k": (B, maxlen, E), "v": (B, maxlen, E)}
+    ring cache   {"state_mask", "k": (B, H, maxlen, d), "v": (B, H, maxlen, d), "idx": int}
+The chunked path (``SelfAttentionLayer.forward``) attends through kernel B1
+(ops/windowed_attention.py) on CUDA tensors, at every t including the t=1
+step of the linear cache.  The t=1 ring step stays plain PyTorch, as the JAX
+one stays plain XLA.  Unlike the JAX package's pure functions, ``ring_step``
+writes its slot into the ring tensors in place: the state passed in is
+updated, which saves a copy of the whole cache per block and step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm, normed_dense
+from vpt_tpu_torch.ops.attention import NEG_BIAS, attention_alpha, merge_heads, split_heads
+from vpt_tpu_torch.ops.masks import clipped_causal_mask, initial_state_mask
+from vpt_tpu_torch.ops.windowed_attention import windowed_attention_fwd
+
+# Init scale constants (reference: lib/xf.py:219-226)
+Q_SCALE = 0.1
+K_SCALE = 0.2
+V_SCALE = 1.0
+PROJ_SCALE = 1.0
+R_SCALE = 0.1
+B_SCALE = 0.2
+N_BASIS = 10  # relattn basis functions (reference: lib/xf.py:260)
+
+
+class SelfAttentionLayer(nn.Module):
+    """Residual windowed self-attention with KV cache and relative bias:
+    output = x + proj(attend(q(x), cache ⊕ k(x), cache ⊕ v(x)))
+    (reference: lib/xf.py:289-397)."""
+
+    def __init__(self, x_size: int, heads: int, maxlen: int, init_scale: float = 1.0,
+                 relattn: bool = True, use_muP_factor: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        s = math.sqrt(init_scale)
+        self.heads = heads
+        self.maxlen = maxlen
+        self.relattn = relattn
+        self.use_muP_factor = use_muP_factor
+        kw = dict(dtype=dtype, device=device)
+        self.q_layer = normed_dense(x_size, x_size, scale=Q_SCALE, use_bias=True, **kw)
+        self.k_layer = normed_dense(x_size, x_size, scale=K_SCALE, use_bias=False, **kw)
+        self.v_layer = normed_dense(x_size, x_size, scale=V_SCALE * s, use_bias=False, **kw)
+        self.proj_layer = normed_dense(x_size, x_size, scale=PROJ_SCALE * s, use_bias=True, **kw)
+        if relattn:
+            self.r_layer = normed_dense(x_size, N_BASIS * heads, scale=R_SCALE, use_bias=True, **kw)
+            self.b_nd = nn.Parameter(torch.empty(N_BASIS, maxlen, device=device))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if self.relattn:
+            self.b_nd.copy_(B_SCALE * torch.randn(
+                self.b_nd.shape, generator=generator, device=self.b_nd.device))
+
+    def _relattn_coeffs(self, X: torch.Tensor) -> Optional[torch.Tensor]:
+        if not self.relattn:
+            return None
+        return split_heads(self.r_layer(X).float(), self.heads)  # (B, H, t, n)
+
+    def forward(self, x_bte: torch.Tensor, kv_cache: Tuple[torch.Tensor, torch.Tensor],
+                mask_btT: Optional[torch.Tensor]):
+        X = x_bte
+        Q = self.q_layer(X)
+        K = self.k_layer(X)
+        V = self.v_layer(X)
+        k_cache, v_cache = kv_cache
+        if self.maxlen > 0:
+            K_full = torch.cat([k_cache.to(K.dtype), K], dim=1)
+            V_full = torch.cat([v_cache.to(V.dtype), V], dim=1)
+            new_cache = (K_full[:, -self.maxlen:], V_full[:, -self.maxlen:])
+        else:
+            K_full, V_full = K, V
+            new_cache = (k_cache, v_cache)
+        R = self._relattn_coeffs(X)
+        A = windowed_attention_fwd(
+            split_heads(Q, self.heads).contiguous(),
+            split_heads(K_full, self.heads).contiguous(),
+            split_heads(V_full, self.heads).contiguous(),
+            mask_btT,
+            None if R is None else R.contiguous(),
+            self.b_nd if self.relattn else None,
+            self.use_muP_factor,
+        )
+        out = self.proj_layer(merge_heads(A))
+        return x_bte + out, new_cache
+
+    def ring_step(self, x_b1e, k_ring, v_ring, idx: int, valid_bM):
+        """Single-step decode against a rotating head-split cache.
+
+        The new K/V go into slot ``idx`` of ``k_ring``/``v_ring`` (in place);
+        attention runs over all ``maxlen`` slots, with slot ages
+        ``(idx - s) mod maxlen`` driving the relative bias and ``valid_bM``
+        masking unwritten and pre-reset slots.  Numerically the linear path's
+        step: its oldest column is band-masked anyway.
+
+        :returns: (out_b1e, k_ring, v_ring, valid) with slot idx now valid.
+        """
+        X = x_b1e
+        Q = self.q_layer(X)
+        K = self.k_layer(X)
+        V = self.v_layer(X)
+        maxlen = self.maxlen
+        k_ring[:, :, idx] = split_heads(K, self.heads)[:, :, 0].to(k_ring.dtype)
+        v_ring[:, :, idx] = split_heads(V, self.heads)[:, :, 0].to(v_ring.dtype)
+        valid = valid_bM.clone()
+        valid[:, idx] = True
+
+        qh = split_heads(Q, self.heads)  # (B, H, 1, d)
+        alpha = attention_alpha(qh.shape[-1], self.use_muP_factor)
+        logits = torch.matmul(qh.float(), k_ring.float().transpose(-1, -2)) * alpha
+        if self.relattn:
+            ages = (idx - torch.arange(maxlen, device=x_b1e.device)) % maxlen
+            D = self.b_nd.float()[:, ages]  # (n, M) bias by slot age
+            logits = logits + torch.einsum("bhtn,nM->bhtM", self._relattn_coeffs(X), D)
+        logits = logits + torch.where(valid[:, None, None, :], 0.0, NEG_BIAS)
+        w = torch.softmax(logits, dim=-1).to(v_ring.dtype)
+        A = torch.matmul(w, v_ring)
+        out = self.proj_layer(merge_heads(A))
+        return x_b1e + out, k_ring, v_ring, valid
+
+
+class MaskedAttention(nn.Module):
+    """Windowed attention + episode-boundary masking (reference:
+    lib/masked_attention.py:97-178).  ``mask_style`` "clipped_causal" builds
+    the band mask with state carry; "none" attends everywhere."""
+
+    def __init__(self, input_size: int, memory_size: int, heads: int, timesteps: int,
+                 mask_style: str = "clipped_causal", init_scale: float = 1.0,
+                 use_muP_factor: bool = True, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        assert mask_style in ("none", "clipped_causal")
+        self.maxlen = memory_size - timesteps
+        assert self.maxlen > 0 or mask_style == "none", (
+            f"attention_memory_size ({memory_size}) must exceed timesteps "
+            f"({timesteps}) for clipped_causal attention"
+        )
+        self.mask_style = mask_style
+        self.orc_block = SelfAttentionLayer(
+            input_size, heads, self.maxlen, init_scale=init_scale, relattn=True,
+            use_muP_factor=use_muP_factor, dtype=dtype, device=device,
+        )
+
+    def forward(self, x_bte: torch.Tensor, first_bt: torch.Tensor, state: Dict):
+        t = x_bte.shape[1]
+        if "idx" in state:
+            assert t == 1 and self.mask_style == "clipped_causal", (
+                "ring cache supports single-step clipped_causal decode only"
+            )
+            valid = state["state_mask"] & ~first_bt[:, 0:1].bool()
+            out, k, v, valid = self.orc_block.ring_step(x_bte, state["k"], state["v"], state["idx"], valid)
+            return out, {"state_mask": valid, "k": k, "v": v, "idx": (state["idx"] + 1) % self.maxlen}
+        mask = None
+        new_state_mask = state["state_mask"]
+        if self.mask_style == "clipped_causal":
+            mask, new_state_mask = clipped_causal_mask(
+                first_bt, state["state_mask"], t, t + self.maxlen, self.maxlen)
+        out, (k, v) = self.orc_block(x_bte, (state["k"], state["v"]), mask)
+        return out, {"state_mask": new_state_mask, "k": k, "v": v}
+
+
+def masked_attention_initial_state(batchsize: int, maxlen: int, input_size: int,
+                                   dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
+    """Zero KV cache + all-invalid state mask (reference: xf.py:393-397,
+    masked_attention.py:153-159)."""
+    return {
+        "state_mask": initial_state_mask(batchsize, maxlen, device),
+        "k": torch.zeros((batchsize, maxlen, input_size), dtype=dtype, device=device),
+        "v": torch.zeros((batchsize, maxlen, input_size), dtype=dtype, device=device),
+    }
+
+
+def ring_initial_state(batchsize: int, maxlen: int, input_size: int, dtype: torch.dtype,
+                       heads: int, device=None) -> Dict:
+    """Ring-buffer decode state: one slot written per step, stored head-split
+    (B, H, maxlen, d) so the slot write is contiguous along d."""
+    if input_size % heads != 0:
+        raise ValueError(f"ring cache needs hidsize divisible by heads: {input_size} % {heads} != 0")
+    d = input_size // heads
+    return {
+        "state_mask": initial_state_mask(batchsize, maxlen, device),
+        "k": torch.zeros((batchsize, heads, maxlen, d), dtype=dtype, device=device),
+        "v": torch.zeros((batchsize, heads, maxlen, d), dtype=dtype, device=device),
+        "idx": 0,
+    }
+
+
+def ring_state_to_linear(block_state: Dict) -> Dict[str, torch.Tensor]:
+    """One block's ring state → the linear chunk layout: linear slot p holds
+    ring slot (idx + p) mod maxlen (oldest first), heads merged back."""
+    idx = int(block_state["idx"])
+    return {
+        "state_mask": torch.roll(block_state["state_mask"], -idx, dims=1),
+        "k": merge_heads(torch.roll(block_state["k"], -idx, dims=2)),
+        "v": merge_heads(torch.roll(block_state["v"], -idx, dims=2)),
+    }
+
+
+class ResidualRecurrentBlock(nn.Module):
+    """pre-LN → attention → residual → pointwise-MLP residual
+    (reference: lib/util.py:132-211).  Only ``recurrence_type="transformer"``
+    is ported."""
+
+    def __init__(self, hidsize: int, timesteps: int, init_scale: float = 1.0,
+                 recurrence_type: str = "transformer", is_residual: bool = True,
+                 use_pointwise_layer: bool = True, pointwise_ratio: int = 4,
+                 pointwise_use_activation: bool = False, attention_heads: int = 8,
+                 attention_memory_size: int = 2048, attention_mask_style: str = "clipped_causal",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if recurrence_type != "transformer":
+            raise NotImplementedError(f"recurrence_type {recurrence_type!r} is not ported")
+        s = init_scale
+        if use_pointwise_layer and is_residual:
+            s *= 2 ** -0.5  # two residual branches per block
+        self.is_residual = is_residual
+        self.use_pointwise_layer = use_pointwise_layer
+        self.dtype = dtype
+        if use_pointwise_layer:
+            self.mlp0 = FanInInitLayer(hidsize, hidsize * pointwise_ratio, layer_type="linear",
+                                       init_scale=1.0, layer_norm=True, dtype=dtype, device=device)
+            self.mlp1 = FanInInitLayer(hidsize * pointwise_ratio, hidsize, layer_type="linear",
+                                       init_scale=s, use_activation=pointwise_use_activation,
+                                       dtype=dtype, device=device)
+        self.pre_r_ln = LayerNorm(hidsize, device=device)
+        self.r = MaskedAttention(hidsize, attention_memory_size, attention_heads, timesteps,
+                                 mask_style=attention_mask_style, init_scale=s,
+                                 use_muP_factor=True, dtype=dtype, device=device)
+
+    def forward(self, x, first, state):
+        x = self.pre_r_ln(x).to(self.dtype)
+        # quirk preserved: the attention's residual adds the *post-pre_r_ln*
+        # activations, not the block input (reference lib/util.py:196-204
+        # with xf.py:358-360)
+        x, state_out = self.r(x, first, state)
+        if self.use_pointwise_layer:
+            residual = x
+            x = self.mlp1(self.mlp0(x))
+            if self.is_residual:
+                x = x + residual
+        return x, state_out
+
+
+class ResidualRecurrentBlocks(nn.Module):
+    """Stack of n residual recurrent blocks (reference: lib/util.py:91-129)."""
+
+    def __init__(self, hidsize: int, timesteps: int, n_block: int = 2, is_residual: bool = True,
+                 **block_kwargs):
+        super().__init__()
+        init_scale = n_block ** -0.5 if is_residual else 1.0
+        self.blocks = nn.ModuleList([
+            ResidualRecurrentBlock(hidsize, timesteps, init_scale=init_scale,
+                                   is_residual=is_residual, **block_kwargs)
+            for _ in range(n_block)
+        ])
+
+    def forward(self, x, first, state: List[Dict]):
+        assert len(state) == len(self.blocks), (
+            f"Length of state {len(state)} did not match length of blocks {len(self.blocks)}"
+        )
+        state_out = []
+        for block, s in zip(self.blocks, state):
+            x, s = block(x, first, s)
+            state_out.append(s)
+        return x, state_out
