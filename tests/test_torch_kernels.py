@@ -1,13 +1,18 @@
-"""Kernel B1 (csrc/windowed_attention_fwd.cu) against its plain PyTorch
-version on the card.  These tests need CUDA and nvcc and skip elsewhere;
-the file imports neither JAX nor vpt_tpu, so on a machine with a card it
-runs without the suite's conftest:
+"""Kernels B1 (csrc/windowed_attention_fwd.cu) and B2
+(csrc/windowed_attention_bwd.cu) against their plain PyTorch versions on the
+card.  These tests need CUDA and nvcc and skip elsewhere; the file imports
+neither JAX nor vpt_tpu, so on a machine with a card it runs without the
+suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
-Tolerance: float32 rtol/atol 1e-4 (f32 sums in another order); bfloat16
-rtol/atol 3e-2 (the softmax weights and the output each round to bf16, and
-a weight near a rounding boundary may round the other way)."""
+Tolerances.  B1: float32 rtol/atol 1e-4 (f32 sums in another order);
+bfloat16 rtol/atol 3e-2 (the softmax weights and the output each round to
+bf16, and a weight near a rounding boundary may round the other way).
+B2, per gradient tensor, on max-abs error: float32 1e-4 * (1 + max|ref|)
+(f32 sums over up to 512 keys or all rows in another order); bfloat16
+3e-2 * (1 + max|ref|) (both sides compute in f32 from the same bf16 inputs
+and round dq, dk, dv to bf16 once; an entry may round the other way)."""
 
 import numpy as np
 import pytest
@@ -17,10 +22,18 @@ from vpt_tpu_torch.ops import windowed_attention as wa
 from vpt_tpu_torch.ops.masks import clipped_causal_mask
 
 
+@pytest.fixture(autouse=True)
+def _grad_mode():
+    """Autograd on: another module of the suite turns grad mode off when it
+    is imported, and pytest imports every module of a run in each worker."""
+    with torch.enable_grad():
+        yield
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernel B1 has no CPU or interpret mode")
+        pytest.skip("needs a CUDA device: kernels B1 and B2 have no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -83,3 +96,87 @@ def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((ValueError, TypeError)):
         wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
+
+
+def _b2_close(got, expect, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for name, g, e in zip(("dq", "dk", "dv", "dR", "db_nd"), got, expect):
+        if e is None:
+            assert g is None, name
+            continue
+        assert g.dtype == e.dtype and g.shape == e.shape, name
+        assert torch.isfinite(g).all(), name
+        err = (g.float() - e.float()).abs().max().item()
+        bound = tol * (1 + e.float().abs().max().item())
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("t,maxlen", [(128, 128), (1, 128), (37, 64), (128, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False)])
+def test_b2_kernel_matches_plain(cuda, d, t, maxlen, dtype, use_mask, use_rel, muP):
+    dtype = getattr(torch, dtype)
+    q, k, v, mask, R, b_nd = _inputs(cuda, 2, 3, t, maxlen, d, dtype, d + t + 1)
+    mask = mask if use_mask else None
+    R, b_nd = (R, b_nd) if use_rel else (None, None)
+    dO = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(t), device=cuda).to(dtype)
+    before = wa.bwd_launches
+    got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, muP)
+    torch.cuda.synchronize()
+    assert wa.bwd_launches == before + 1
+    _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, muP), dtype)
+
+
+@pytest.mark.cuda
+def test_b2_kernel_fully_masked_row(cuda):
+    q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 40, 8, 64, torch.float32, 2)
+    mask[:, 3] = False
+    mask[:, 35] = False
+    dO = torch.randn_like(q)
+    got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+    _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_autograd_through_kernels_matches_plain_forward(cuda, d):
+    """windowed_attention_fwd under autograd on CUDA (B1 forward, B2
+    backward) gives the plain forward's gradients in all five inputs."""
+    q, k, v, mask, R, b_nd = _inputs(cuda, 2, 4, 64, 64, d, torch.float32, 5)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, R, b_nd)]
+    g = torch.randn_like(q)
+    f0, b0 = wa.launches, wa.bwd_launches
+    out = wa.windowed_attention_fwd(leaves[0], leaves[1], leaves[2], mask, leaves[3], leaves[4], True)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (wa.launches, wa.bwd_launches) == (f0 + 1, b0 + 1)
+    out = wa.windowed_attention_fwd_plain(leaves[0], leaves[1], leaves[2], mask, leaves[3], leaves[4], True)
+    expect = torch.autograd.grad(out, leaves, g)
+    _b2_close(got, expect, torch.float32)
+
+
+@pytest.mark.cuda
+def test_no_grad_launches_b1_alone(cuda):
+    q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 8, 8, 64, torch.float32, 6)
+    q.requires_grad_(True)
+    f0, b0 = wa.launches, wa.bwd_launches
+    with torch.no_grad():
+        out = wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
+    assert out.grad_fn is None and (wa.launches, wa.bwd_launches) == (f0 + 1, b0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["shape", "dtype", "contiguity"])
+def test_b2_kernel_rejects_bad_output_grad(cuda, bad):
+    q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 8, 8, 64, torch.float32, 7)
+    dO = torch.randn_like(q)
+    if bad == "shape":
+        dO = dO[:, :, :4].contiguous()
+    elif bad == "dtype":
+        dO = dO.bfloat16()
+    else:
+        dO = dO.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError):
+        wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)

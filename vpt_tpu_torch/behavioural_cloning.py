@@ -1,0 +1,43 @@
+"""Fine-tune a VPT policy on contractor recordings with the PyTorch port
+(counterpart of the root behavioural_cloning.py; reference
+behavioural_cloning.py):
+
+    python -m vpt_tpu_torch.behavioural_cloning --data-dir DIR --in-model M.model \\
+        --in-weights M.weights --out-weights OUT.weights [--batch-size 8] [--chunk-len 128] \\
+        [--epochs 2] [--compute-dtype float32] [--device cuda]
+
+Runs on CUDA unless ``--device cpu`` is given.
+"""
+
+from argparse import ArgumentParser
+
+from vpt_tpu_torch.training.bc import BCHyperparams, BCTrainer
+
+
+def behavioural_cloning_train(data_dir, in_model, in_weights, out_weights, batch_size=8, chunk_len=128,
+                              epochs=2, compute_dtype="float32", device=None):
+    hp = BCHyperparams(batch_size=batch_size, chunk_len=chunk_len, epochs=epochs)
+    trainer = BCTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, device=device)
+    steps = trainer.train(data_dir, out_weights)
+    print(f"Finished: {steps} optimizer steps → {out_weights}")
+
+
+def main(argv=None):
+    parser = ArgumentParser()
+    parser.add_argument("--data-dir", type=str, required=True, help="Path to the directory containing recordings to be trained on")
+    parser.add_argument("--in-model", required=True, type=str, help="Path to the .model file to be finetuned")
+    parser.add_argument("--in-weights", required=True, type=str, help="Path to the .weights file to be finetuned")
+    parser.add_argument("--out-weights", required=True, type=str, help="Path where finetuned weights will be saved")
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--chunk-len", type=int, default=128, help="Sequence window length (1 = reference single-step mode)")
+    parser.add_argument("--epochs", type=int, default=2)
+    parser.add_argument("--compute-dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    behavioural_cloning_train(args.data_dir, args.in_model, args.in_weights, args.out_weights,
+                              batch_size=args.batch_size, chunk_len=args.chunk_len, epochs=args.epochs,
+                              compute_dtype=args.compute_dtype, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,6 +3,8 @@ from vpt_tpu_torch.checkpoint.torch_import import (
     load_model_parameters,
     load_state_dict_report,
     load_weights,
+    save_model_parameters,
+    save_weights,
 )
 
 __all__ = [
@@ -10,4 +12,6 @@ __all__ = [
     "load_model_parameters",
     "load_state_dict_report",
     "load_weights",
+    "save_model_parameters",
+    "save_weights",
 ]

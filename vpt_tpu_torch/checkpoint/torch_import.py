@@ -4,7 +4,9 @@ vpt_tpu/checkpoint/torch_import.py).
   * ``.model``: a plain pickle with the architecture kwargs at
     ``["model"]["args"]["net"]["args"]`` and head options at
     ``["model"]["args"]["pi_head_opts"]``;
-  * ``.weights``: a ``torch.save``'d state_dict, loaded ``strict=False``.
+  * ``.weights``: a ``torch.save``'d state_dict, loaded ``strict=False``;
+    ``save_weights`` writes one from a model, ``save_model_parameters`` a
+    ``.model`` from kwargs.
 
 The port's modules carry the reference's torch names, so a ``.weights``
 state_dict loads as it is.  ``from_jax_variables`` carries a ``vpt_tpu``
@@ -51,9 +53,23 @@ def load_model_parameters(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     return policy_kwargs, pi_head_kwargs
 
 
+def save_model_parameters(path: str, policy_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any]) -> None:
+    """Write a reference-layout ``.model`` pickle (the inverse of
+    ``load_model_parameters``)."""
+    blob = {"model": {"args": {"net": {"args": dict(policy_kwargs)}, "pi_head_opts": dict(pi_head_kwargs)}}}
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+
+
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """Read a ``.weights`` file (a torch.save'd state_dict) onto the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_weights(path: str, model: torch.nn.Module) -> None:
+    """Write ``model``'s state_dict (reference names, CPU tensors) as a
+    ``.weights`` file."""
+    torch.save({k: v.detach().cpu().clone() for k, v in model.state_dict().items()}, path)
 
 
 def _torch_leaf(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:

@@ -120,6 +120,8 @@ FOUNDATION_POLICY_KWARGS: Dict[str, Any] = dict(
 
 FOUNDATION_PI_HEAD_KWARGS: Dict[str, Any] = dict(temperature=2.0)
 
+AGENT_RESOLUTION = (128, 128)  # (width, height) of the agent's frames (reference: agent.py:14)
+
 # Camera quantizer settings (reference: agent.py:40-45)
 ACTION_TRANSFORMER_KWARGS: Dict[str, Any] = dict(
     camera_binsize=2,

@@ -1,0 +1,299 @@
+"""Contractor-data pipeline: mp4 + jsonl → sequence-chunked training batches
+(counterpart of vpt_tpu/data/loader.py ``trajectory_steps`` and
+``SequenceDataLoader``).
+
+Every fixup branch of the reference loader (data_loader.py:48-128):
+stuck-attack detection, scroll-wheel hotbar tracking, jsonl step → env
+action, null-action skipping, cursor compositing onto GUI frames at the
+recorded mouse position, and the cv2-exact resize to the agent resolution
+(the last two in the native library, data/video.py).
+
+``SequenceDataLoader`` yields B parallel streams of contiguous T-step
+windows with the actions already factored into the joint categorical space.
+Each stream has one worker process that owns whole trajectories.  Workers
+start from the forkserver (or spawn) context, never by forking the parent:
+a parent that has initialised CUDA cannot be forked safely.  Under spawn
+the program that builds a loader must be importable (a script with an
+``if __name__ == "__main__"`` guard).
+
+Not ported yet: the single-step ``DataLoader``, IDM pseudo-label steps
+(``labels_dir``), shards (``shard_id``/``num_shards``) and the resume cursor
+(``resume_state``/``state()``).
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import multiprocessing
+import os
+import queue as queue_mod
+import random
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from vpt_tpu_torch.actions.buttons import Buttons
+from vpt_tpu_torch.actions.json_actions import json_action_to_env_action
+from vpt_tpu_torch.actions.mapping import CameraHierarchicalMapping
+from vpt_tpu_torch.actions.transformer import ActionTransformer
+from vpt_tpu_torch.config import ACTION_TRANSFORMER_KWARGS, AGENT_RESOLUTION
+from vpt_tpu_torch.data.cursor import default_cursor
+
+try:
+    _mp = multiprocessing.get_context("forkserver")
+except ValueError:  # platform without forkserver
+    _mp = multiprocessing.get_context("spawn")
+
+# seconds a queue get may wait; raise it on slow or contended hosts
+QUEUE_TIMEOUT = float(os.environ.get("VPT_QUEUE_TIMEOUT", 10))
+
+MINEREC_ORIGINAL_HEIGHT_PX = 720  # reference: data_loader.py:21
+DECODE_BATCH = 64  # frames per native decode/composite/resize call
+
+# The reference defines GUI-open mouse-delta scalers per recorder version
+# (data_loader.py:25-31) but its worker never applies them; neither does this.
+
+
+def _load_jsonl(json_path: str):
+    with open(json_path) as f:
+        lines = f.readlines()
+    return json.loads("[" + ",".join(lines) + "]")
+
+
+def trajectory_steps(
+    video_path: str,
+    json_path: str,
+    resolution: Tuple[int, int] = AGENT_RESOLUTION,
+    cursor=None,
+    quit_event=None,
+):
+    """Generator of (frame uint8 RGB at ``resolution`` (w, h), env_action)
+    for one recording, with all reference fixups applied and null actions
+    skipped.
+
+    The sequential action fixups run over the whole jsonl first; then the
+    pixels (decode, cursor composite, resize) go through the native library
+    ``DECODE_BATCH`` frames per call.
+    """
+    from vpt_tpu_torch.data.video import VideoReader
+
+    cursor = cursor if cursor is not None else default_cursor()
+    json_data = _load_jsonl(json_path)
+    video = VideoReader(video_path)
+    try:
+        attack_is_stuck = False
+        last_hotbar = 0
+        scale = video.height / MINEREC_ORIGINAL_HEIGHT_PX
+        steps = []  # (env_action, emit, cursor_xy or None)
+        for i, step_data in enumerate(json_data):
+            # a recording may start with attack held down, stuck until the
+            # player really presses it (reference data_loader.py:64-69)
+            if i == 0:
+                if step_data["mouse"]["newButtons"] == [0]:
+                    attack_is_stuck = True
+            elif attack_is_stuck and 0 in step_data["mouse"]["newButtons"]:
+                attack_is_stuck = False
+            if attack_is_stuck:
+                step_data["mouse"]["buttons"] = [b for b in step_data["mouse"]["buttons"] if b != 0]
+
+            action, is_null_action = json_action_to_env_action(step_data)
+
+            # scroll-wheel hotbar switches are not recorded as key presses
+            # (reference data_loader.py:99-103)
+            current_hotbar = step_data["hotbar"]
+            if current_hotbar != last_hotbar:
+                action[f"hotbar.{current_hotbar + 1}"] = 1
+            last_hotbar = current_hotbar
+
+            emit = not is_null_action
+            xy = None
+            if emit and step_data.get("isGuiOpen", False):
+                xy = (int(step_data["mouse"]["x"] * scale), int(step_data["mouse"]["y"] * scale))
+            steps.append((action, emit, xy))
+
+        pos = 0
+        while pos < len(steps):
+            if quit_event is not None and quit_event.is_set():
+                break
+            chunk = steps[pos:pos + DECODE_BATCH]
+            n = len(chunk)
+            emit_mask = np.fromiter((s[1] for s in chunk), np.uint8, n)
+            xy = np.full((n, 2), VideoReader.CURSOR_NONE, np.int32)
+            for j, (_, _, cxy) in enumerate(chunk):
+                if cxy is not None:
+                    xy[j] = cxy
+            got, frames = video.read_batch(n, resolution, emit=emit_mask, cursor_xy=xy, cursor=cursor)
+            for j in range(got):
+                if chunk[j][1]:
+                    yield frames[j], chunk[j][0]
+            if got < n:  # video shorter than the jsonl (reference data_loader.py:122-123)
+                print(f"Could not read frame from video {video_path}")
+                break
+            pos += got
+    finally:
+        video.close()
+
+
+def _discover(dataset_dir: str) -> List[Tuple[str, str]]:
+    """Each ``*.mp4`` of the directory with the ``.jsonl`` beside it, sorted by id."""
+    unique_ids = sorted({os.path.basename(x).split(".")[0] for x in glob.glob(os.path.join(dataset_dir, "*.mp4"))})
+    return [(os.path.abspath(os.path.join(dataset_dir, uid + ".mp4")),
+             os.path.abspath(os.path.join(dataset_dir, uid + ".jsonl"))) for uid in unique_ids]
+
+
+def _robust_put(q, item, quit_event) -> bool:
+    """Put that survives consumer pauses: retry until the quit event fires.
+    Returns False when the consumer is shutting down."""
+    while True:
+        try:
+            q.put(item, timeout=1.0)
+            return True
+        except queue_mod.Full:
+            if quit_event.is_set():
+                return False
+
+
+def _factor_actions(transformer, mapper, acts) -> Tuple[np.ndarray, np.ndarray]:
+    """Env actions of a chunk → joint (buttons, camera) indices, in one
+    batched call each."""
+    n = len(acts)
+    env_batch = {"camera": np.stack([np.asarray(a["camera"]) for a in acts])}
+    for k in Buttons.ALL:
+        env_batch[k] = np.fromiter((a.get(k, 0) for a in acts), np.int64, n)
+    joint = mapper.from_factored(transformer.env2policy(env_batch))
+    return joint["buttons"][:, 0].astype(np.int32), joint["camera"][:, 0].astype(np.int32)
+
+
+def _sequence_worker(tasks_queue, output_queue, quit_event, chunk_len, resolution):
+    """Emit fixed-length windows of consecutive non-null steps of each task
+    ``(trajectory_id, video_path, json_path)``; the trailing partial window
+    is zero-padded and carries its count of valid steps."""
+    cursor = default_cursor()
+    mapper = CameraHierarchicalMapping(n_camera_bins=11)
+    transformer = ActionTransformer(**ACTION_TRANSFORMER_KWARGS)
+    while True:
+        task = tasks_queue.get()
+        if task is None:
+            break
+        trajectory_id, video_path, json_path = task
+        frames, acts = [], []
+        first_chunk = True
+        try:
+            for frame, action in trajectory_steps(video_path, json_path, resolution=resolution,
+                                                  cursor=cursor, quit_event=quit_event):
+                frames.append(frame)
+                acts.append(action)
+                if len(frames) == chunk_len:
+                    buttons, cameras = _factor_actions(transformer, mapper, acts)
+                    item = (trajectory_id, np.stack(frames), buttons, cameras, first_chunk, chunk_len)
+                    if not _robust_put(output_queue, item, quit_event):
+                        return
+                    frames, acts = [], []
+                    first_chunk = False
+        except Exception as e:  # unreadable recording: report and move on
+            print(f"Error in trajectory {video_path}: {e!r}")
+        if frames and not quit_event.is_set():
+            n = len(frames)
+            pad = chunk_len - n
+            buttons, cameras = _factor_actions(transformer, mapper, acts)
+            frames += [np.zeros_like(frames[0])] * pad
+            item = (trajectory_id, np.stack(frames), np.pad(buttons, (0, pad)), np.pad(cameras, (0, pad)),
+                    first_chunk, n)
+            _robust_put(output_queue, item, quit_event)
+        if quit_event.is_set():
+            break
+    output_queue.put(None)
+
+
+class SequenceDataLoader:
+    """B parallel streams of T-step windows for sequence-chunked BC.
+
+    Yields dict batches:
+      frames  (B, T, H, W, 3) uint8
+      buttons (B, T) int32   joint 8641-way indices
+      camera  (B, T) int32   joint 121-way indices
+      firsts  (B, T) bool    True at step 0 of a trajectory's first window
+      mask    (B, T) bool    False on zero-padded tail steps
+      episode_ids (B,) int64
+
+    Stream i owns the positions i, i + B, i + 2B, ... of the (per-epoch
+    shuffled) trajectory list; the first stream to run out ends the epoch.
+    """
+
+    def __init__(self, dataset_dir, batch_size=8, chunk_len=128, n_epochs=1, max_queue_size=8,
+                 resolution: Tuple[int, int] = AGENT_RESOLUTION, seed: Optional[int] = None):
+        from vpt_tpu_torch.data.video import build
+
+        build()  # once here, not once per worker
+        demonstration_tuples = _discover(dataset_dir)
+        if batch_size > len(demonstration_tuples):
+            raise ValueError(f"batch_size {batch_size} should be <= number of demonstrations "
+                             f"{len(demonstration_tuples)}")
+        rng = random.Random(seed)
+        self.demonstration_tuples = []
+        for _ in range(n_epochs):
+            shuffled = list(demonstration_tuples)
+            rng.shuffle(shuffled)
+            self.demonstration_tuples += shuffled
+        self.chunk_len = chunk_len
+        self.batch_size = batch_size
+
+        self.task_queues = [_mp.Queue() for _ in range(batch_size)]
+        for i in range(batch_size):
+            for pos in range(i, len(self.demonstration_tuples), batch_size):
+                self.task_queues[i].put((pos, *self.demonstration_tuples[pos]))
+            self.task_queues[i].put(None)
+        self.output_queues = [_mp.Queue(maxsize=max_queue_size) for _ in range(batch_size)]
+        self.quit_workers_event = _mp.Event()
+        self.processes = [
+            _mp.Process(target=_sequence_worker, args=(tq, q, self.quit_workers_event, chunk_len, resolution),
+                        daemon=True)
+            for tq, q in zip(self.task_queues, self.output_queues)
+        ]
+        for p in self.processes:
+            p.start()
+        self._done = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration()
+        items = []
+        for i in range(self.batch_size):
+            try:
+                item = self.output_queues[i].get(timeout=QUEUE_TIMEOUT)
+            except queue_mod.Empty:
+                if not self.processes[i].is_alive():
+                    raise RuntimeError(f"data worker {i} died (exitcode {self.processes[i].exitcode})") from None
+                raise RuntimeError(f"data worker {i} produced no chunk within {QUEUE_TIMEOUT}s "
+                                   "(raise VPT_QUEUE_TIMEOUT on a slow host)") from None
+            if item is None:
+                self._done = True
+                raise StopIteration()
+            items.append(item)
+        T = self.chunk_len
+        firsts = np.zeros((self.batch_size, T), bool)
+        firsts[:, 0] = [it[4] for it in items]
+        return {
+            "frames": np.stack([it[1] for it in items]),
+            "buttons": np.stack([it[2] for it in items]),
+            "camera": np.stack([it[3] for it in items]),
+            "firsts": firsts,
+            "mask": np.arange(T)[None] < np.asarray([it[5] for it in items])[:, None],
+            "episode_ids": np.asarray([it[0] for it in items], np.int64),
+        }
+
+    def close(self):
+        self.quit_workers_event.set()
+        for p in self.processes:
+            p.terminate()
+            p.join()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
