@@ -4,12 +4,15 @@
 
 Phases, each of which fails the run if it fails:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every CUDA kernel of the main path from the sources in csrc/;
+  2. build every CUDA kernel of the main path from the sources in csrc/, and
+     count the tensor-core instructions (HMMA, HGMMA) of each kernel in the
+     built library's SASS (cuobjdump): a kernel with none fails the run;
   3. kernel B1 (windowed attention forward) against its plain PyTorch
      version at the 2x chunk shape (B=4, H=16, t=128, T=256, d=128) and at
      d = 64 and 192, with and without mask and relative bias, in float32 and
-     bfloat16, with its time beside the plain version's, SDPA's on a
-     materialised bias (a yardstick the port never calls) and its bound;
+     bfloat16, with its time in both types beside the plain version's,
+     SDPA's on a materialised bias (a yardstick the port never calls) and its
+     bound;
   4. a stepped rollout: the 2x foundation MineRLAgent (random weights from a
      seed) serving 8 streams for 64 get_action calls on 360x640 frames,
      with episode resets;
@@ -20,10 +23,10 @@ Phases, each of which fails the run if it fails:
      version at the 2x chunk shape and at d = 64 and 192, with and without
      mask and relative bias, in float32 and bfloat16, all five gradients;
      autograd through windowed_attention_fwd on CUDA (B1 forward, B2
-     backward) against autograd of the plain forward; B2's time beside the
-     plain backward's, SDPA's forward and backward on a materialised bias (a
-     yardstick the port never calls) and its bound; the memory the backward
-     allocates beyond its inputs and outputs;
+     backward) against autograd of the plain forward; B2's time in both
+     types beside the plain backward's, SDPA's forward and backward on a
+     materialised bias (a yardstick the port never calls) and its bound; the
+     memory the backward allocates beyond its inputs and outputs;
   7. BC training of the 2x policy (random weights from a seed, float32):
      (a) one train_step on the card against the same step on the CPU (the
      Impala CNN's grads on relative L2, beside the card's own cuDNN-vs-torch
@@ -34,19 +37,36 @@ Phases, each of which fails the run if it fails:
 It prints one JSON line with every kernel's numbers, then, last,
 {"ok": true, "device": {...}}.  It exits non-zero, with no "ok" line, where
 there is no CUDA device.
+
+    python3 chip_smoke.py --time-kernels
+
+times kernels B1 and B2 alone, in float32 and bfloat16 at the 2x chunk shape,
+beside their plain versions, SDPA and their bounds (phases 1 and 2's build,
+then the timings of phases 3 and 6), and prints them as its last line.  It
+drives whichever vpt_tpu_torch package it imports, so run from an unpacked
+older commit with this file copied in, it times that commit's kernels by the
+same clock, for a comparison inside one call.
 """
 
+import argparse
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s and FLOP/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# tensor-core rate of a matrix product at the accuracy of its input type:
+# float32 as three TF32 products at 495 TFLOP/s, bfloat16 at 989 TFLOP/s
+PRODUCT_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+SPIN_CYCLES_PER_S = 2.0e9  # the H100 SXM's top SM clock is 1.98 GHz: a spin of this many cycles lasts >= 1 s
+TENSOR_CORE_OPS = re.compile(r"\b(HMMA|HGMMA)\b")
+KERNELS = ("windowed_attention_fwd", "windowed_attention_bwd")
 F32_TOL, BF16_TOL = 1e-4, 3e-2
 STEP_TOL = 2e-3  # per-step logits and vpred, float32, 2x width (as the full-geometry parity tests)
 # train step, card against CPU, float32: loss and grad norm relative; each
@@ -64,16 +84,49 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, iters=20, warmup=3):
+def cuda_time_ms(fn, iters=20, warmup=3, tries=3):
+    """Time of one call of fn, in ms, from CUDA events around `iters` calls,
+    and whether it is the device's time alone.  The card first spins
+    (torch.cuda._sleep) for longer than the host takes to enqueue the calls,
+    so the events time the device's work, not the host's launch overhead (a
+    few tens of us a call through Python and ctypes, more than a small
+    kernel's own time).  The spin must still run when the last call is
+    queued (the start event behind it not yet reached); where it does not, it
+    is made 4 times longer and the calls timed again.  A fn that waits on the
+    device itself (a boolean-mask index, .item()) can never be queued behind
+    the spin: its time is then the host's and the device's together, and the
+    second value is False."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    spin_s = 2 * iters * (time.perf_counter() - t0) / warmup + 1e-3  # a call's host time bounds its enqueue
+    for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(SPIN_CYCLES_PER_S * spin_s))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        device_only = not start.query()
+        torch.cuda.synchronize()
+        if device_only:
+            break
+        spin_s *= 4
+    return start.elapsed_time(end) / iters, device_only
+
+
+def kernel_time_ms(fn):
+    """A kernel's device time in ms; its wrapper never waits on the device,
+    so a time that is not the device's alone fails the run."""
+    ms, device_only = cuda_time_ms(fn)
+    if not device_only:
+        raise AssertionError("the spin ended before the kernel's launches were queued: no device-only time")
+    return ms
+
+
+def timed_note(device_only):
+    return "" if device_only else " (host and device: the call waits on the device)"
 
 
 def attention_inputs(dev, B, H, t, maxlen, d, dtype, seed):
@@ -92,18 +145,95 @@ def attention_inputs(dev, B, H, t, maxlen, d, dtype, seed):
     return q, k, v, mask, R, b_nd
 
 
-def b1_bound(q, k, v, mask, R, b_nd):
-    """Least time for the call: inputs read once and output written once over
-    HBM bandwidth, or its FLOPs (QKᵀ, W·V, the bias FMAs) over the peak
-    rate of the input type, whichever is larger."""
+def sass_tensor_core_counts(listing):
+    """{function: number of tensor-core instructions} of a `cuobjdump -sass` listing."""
+    counts, function = {}, None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            function = m.group(1)
+            counts[function] = 0
+        elif function is not None and TENSOR_CORE_OPS.search(line):
+            counts[function] += 1
+    return counts
+
+
+def kernels_without_tensor_cores(counts):
+    """The kernels of a library's counts that run no tensor-core instruction,
+    but for B2's pass that sums the d b_nd partials, which multiplies no
+    matrices; a library with no kernel at all fails too."""
+    if not counts:
+        return ["(no kernel in the listing)"]
+    return [f for f, n in counts.items() if n == 0 and "db_reduce" not in f]
+
+
+def check_tensor_cores(names):
+    """Phase 2: count each built kernel's tensor-core instructions in its SASS."""
+    from vpt_tpu_torch.ops import cuda_build
+
+    cuobjdump = str(Path(cuda_build.nvcc()).parent / "cuobjdump")
+    for name in names:
+        listing = subprocess.run([cuobjdump, "-sass", str(cuda_build.library_path(name))], capture_output=True,
+                                 text=True, check=True, timeout=300).stdout
+        counts = sass_tensor_core_counts(listing)
+        log(f"  {name}: {sum(counts.values())} tensor-core instructions (HMMA/HGMMA) in {len(counts)} kernels: "
+            + ", ".join(f"{f} {n}" for f, n in counts.items()))
+        missing = kernels_without_tensor_cores(counts)
+        if missing:
+            raise AssertionError(f"{name}: no tensor-core instruction in {missing}")
+
+
+def band_pairs(t, T, bandsize):
+    """Number of (query, key) pairs on the relative-bias band."""
+    return sum(max(0, min(T, i + T - t + 1) - max(0, i + T - t - bandsize + 1)) for i in range(t))
+
+
+def bound(nbytes, product_flops, bias_flops, dtype):
+    """Least time in ms, and what bounds it: the bytes over HBM bandwidth, or
+    the products at the tensor-core rate of the input type's accuracy plus
+    the bias FLOPs at the float32 one (R and b_nd are float32 in both types,
+    and their contractions are matrix products too), whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (product_flops / PRODUCT_FLOPS[dtype] + bias_flops / PRODUCT_FLOPS[torch.float32]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def b1_work(q, k, v, mask, R, b_nd):
+    """B1's least work: bytes (inputs read once, the output written once),
+    product FLOPs (QKᵀ and W·V) and bias FLOPs (n FMAs a pair on the band)."""
     B, H, t, d = q.shape
     T = k.shape[2]
     tensors = [q, k, v, q] + [x for x in (mask, R, b_nd) if x is not None]  # q twice: the output
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
-    flops = 2 * 2 * B * H * t * T * d + (2 * B * H * t * T * R.shape[-1] if R is not None else 0)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+    bias = 2 * B * H * band_pairs(t, T, b_nd.shape[1]) * R.shape[-1] if R is not None else 0
+    return nbytes, 2 * 2 * B * H * t * T * d, bias
+
+
+def b1_bound(q, k, v, mask, R, b_nd):
+    nbytes, products, bias = b1_work(q, k, v, mask, R, b_nd)
+    return bound(nbytes, products, bias, q.dtype) + (nbytes, products + bias)
+
+
+def time_b1(q, k, v, mask, R, b_nd):
+    """B1's time beside its plain version's, SDPA's on a materialised bias
+    (in q's dtype) and its bound, at these inputs."""
+    import torch.nn.functional as F
+
+    from vpt_tpu_torch.ops import windowed_attention as wa
+    from vpt_tpu_torch.ops.attention import NEG_BIAS, attention_alpha
+    from vpt_tpu_torch.ops.rel_bias import relattn_bias
+
+    ms = kernel_time_ms(lambda: wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True))
+    plain_ms, plain_alone = cuda_time_ms(lambda: wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True))
+    bias = (relattn_bias(R, b_nd, k.shape[2]) + torch.where(mask[:, None], 0.0, NEG_BIAS)).to(q.dtype)
+    alpha = attention_alpha(q.shape[-1], True)
+    library_ms, library_alone = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=alpha))
+    bound_ms, bound_by, nbytes, flops = b1_bound(q, k, v, mask, R, b_nd)
+    log(f"B1 2x chunk {str(q.dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms{timed_note(plain_alone)}, "
+        f"SDPA+bias {library_ms:.4f} ms{timed_note(library_alone)}; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
 
 
 def check_b1(dev):
@@ -132,23 +262,14 @@ def check_b1(dev):
                 if d == 128 and dtype == torch.float32 and use_mask and use_rel:
                     main_err = err
 
-    # timings at the main path's shape and type: 2x chunk, float32, mask and bias
+    # timings at the main path's shape: 2x chunk, mask and bias, float32 (the main path's type) and bfloat16
     q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, 128, torch.float32, 0)
-    ms = cuda_time_ms(lambda: wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True))
-    plain_ms = cuda_time_ms(lambda: wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True))
     bias = relattn_bias(R, b_nd, k.shape[2]) + torch.where(mask[:, None], 0.0, NEG_BIAS)
-    alpha = attention_alpha(128, True)
-    ref = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=alpha)
+    ref = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=attention_alpha(128, True))
     lib_err = (ref - wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True)).abs().max().item()
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=alpha))
-    bound_ms, bound_by, nbytes, flops = b1_bound(q, k, v, mask, R, b_nd)
-    log(f"B1 2x chunk f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA+bias {library_ms:.4f} ms "
-        f"(SDPA vs plain max_abs_err {lib_err:.2e}); bound {bound_ms:.4f} ms by {bound_by} "
-        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
-    ms_bf16 = cuda_time_ms(lambda: wa.windowed_attention_fwd(qb, kb, vb, mask, R, b_nd, True))
-    bound_bf16, by_bf16, _, _ = b1_bound(qb, kb, vb, mask, R, b_nd)
-    log(f"B1 2x chunk bf16: {ms_bf16:.4f} ms; bound {bound_bf16:.4f} ms by {by_bf16}")
+    log(f"SDPA+bias vs plain B1, 2x chunk f32: max_abs_err {lib_err:.2e}")
+    ms, plain_ms, library_ms, bound_ms, bound_by = time_b1(q, k, v, mask, R, b_nd)
+    time_b1(*(x.bfloat16() for x in (q, k, v)), mask, R, b_nd)
     return {
         "name": "windowed_attention_fwd",
         "route": "cuda",
@@ -272,27 +393,50 @@ def stepwise_equals_chunkwise(agent, dev, B=4, T=128):
     return launches
 
 
-def band_pairs(t, T, bandsize):
-    """Number of (query, key) pairs on the relative-bias band."""
-    return sum(max(0, min(T, i + T - t + 1) - max(0, i + T - t - bandsize + 1)) for i in range(t))
-
-
-def b2_bound(q, k, v, mask, R, b_nd):
-    """Least time for B2's work: inputs (q, k, v, dO, mask, R, b_nd) read once
-    and outputs (dq, dk, dv, dR, db_nd) written once over HBM bandwidth, or
-    its FLOPs over the peak rate of the input type: five t x T x d products,
-    and on the band the bias recompute, dR and d b_nd."""
+def b2_work(q, k, v, mask, R, b_nd):
+    """B2's least work: bytes (inputs q, k, v, dO, mask, R, b_nd read once
+    and outputs dq, dk, dv, dR, db_nd written once), product FLOPs (five
+    t x T x d products) and bias FLOPs (on the band: the bias recompute, dR
+    and d b_nd, n FMAs a pair each)."""
     B, H, t, d = q.shape
     T = k.shape[2]
     tensors = [q, k, v, q] + [x for x in (mask, R, b_nd) if x is not None]  # dO is q's size
     tensors += [q, k, v] + [x for x in (R, b_nd) if x is not None]  # the outputs
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
-    flops = 5 * 2 * B * H * t * T * d
-    if R is not None:
-        flops += 3 * 2 * B * H * band_pairs(t, T, b_nd.shape[1]) * R.shape[-1]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+    bias = 3 * 2 * B * H * band_pairs(t, T, b_nd.shape[1]) * R.shape[-1] if R is not None else 0
+    return nbytes, 5 * 2 * B * H * t * T * d, bias
+
+
+def b2_bound(q, k, v, mask, R, b_nd):
+    nbytes, products, bias = b2_work(q, k, v, mask, R, b_nd)
+    return bound(nbytes, products, bias, q.dtype) + (nbytes, products + bias)
+
+
+def time_b2(q, k, v, mask, R, b_nd, dO):
+    """B2's time beside its plain version's, SDPA's forward and backward on a
+    materialised bias (in q's dtype; q, k, v grads only) and its bound."""
+    import torch.nn.functional as F
+
+    from vpt_tpu_torch.ops import windowed_attention as wa
+    from vpt_tpu_torch.ops.attention import NEG_BIAS, attention_alpha
+    from vpt_tpu_torch.ops.rel_bias import relattn_bias
+
+    ms = kernel_time_ms(lambda: wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True))
+    plain_ms, plain_alone = cuda_time_ms(lambda: wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True))
+    bias = (relattn_bias(R, b_nd, k.shape[2]) + torch.where(mask[:, None], 0.0, NEG_BIAS)).to(q.dtype)
+    alpha = attention_alpha(q.shape[-1], True)
+    ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, scale=alpha)
+        return torch.autograd.grad(out, (ql, kl, vl), dO)
+
+    library_ms, library_alone = cuda_time_ms(sdpa_fwd_bwd)
+    bound_ms, bound_by, nbytes, flops = b2_bound(q, k, v, mask, R, b_nd)
+    log(f"B2 2x chunk {str(q.dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms{timed_note(plain_alone)}, "
+        f"SDPA fwd+bwd (q, k, v grads) on a materialised bias {library_ms:.4f} ms{timed_note(library_alone)}; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
 
 
 def b2_errors(got, expect, dtype):
@@ -354,28 +498,11 @@ def check_b2(dev):
     if not all(e <= b for e, b in errs.values()):
         raise AssertionError(f"autograd through the kernels disagrees with the plain forward: {errs}")
 
-    # timings at the main path's shape and type: 2x chunk, float32, mask and bias
+    # timings at the main path's shape: 2x chunk, mask and bias, float32 (the main path's type) and bfloat16
     q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, 128, torch.float32, 0)
     dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
-    ms = cuda_time_ms(lambda: wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True))
-    plain_ms = cuda_time_ms(lambda: wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True))
-    bias = relattn_bias(R, b_nd, k.shape[2]) + torch.where(mask[:, None], 0.0, NEG_BIAS)
-    alpha = attention_alpha(128, True)
-    ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, scale=alpha)
-        return torch.autograd.grad(out, (ql, kl, vl), dO)
-
-    library_ms = cuda_time_ms(sdpa_fwd_bwd)
-    bound_ms, bound_by, nbytes, flops = b2_bound(q, k, v, mask, R, b_nd)
-    log(f"B2 2x chunk f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA fwd+bwd (q, k, v grads) on a materialised "
-        f"bias {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
-        f"{flops / 1e9:.3f} GFLOP)")
-    qb, kb, vb, dOb = (x.bfloat16() for x in (q, k, v, dO))
-    ms_bf16 = cuda_time_ms(lambda: wa.windowed_attention_bwd(qb, kb, vb, mask, R, b_nd, dOb, True))
-    bound_bf16, by_bf16, _, _ = b2_bound(qb, kb, vb, mask, R, b_nd)
-    log(f"B2 2x chunk bf16: {ms_bf16:.4f} ms; bound {bound_bf16:.4f} ms by {by_bf16}")
+    ms, plain_ms, library_ms, bound_ms, bound_by = time_b2(q, k, v, mask, R, b_nd, dO)
+    time_b2(*(x.bfloat16() for x in (q, k, v)), mask, R, b_nd, dO.bfloat16())
 
     # memory beyond inputs and outputs: below one (B, H, t, T) f32 tensor, so dL never reaches HBM
     torch.cuda.synchronize()
@@ -559,7 +686,24 @@ def train_steps(trainer, dev, B=4, T=128, steps=5):
     return b_launches // steps
 
 
+def time_kernels(dev):
+    """--time-kernels: B1's and B2's times in both types at the 2x chunk shape."""
+    q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, 128, torch.float32, 0)
+    dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk, vv, oo = (x.to(dtype) for x in (q, k, v, dO))
+        name = str(dtype)[6:]
+        times[f"B1 {name}"] = dict(zip(keys, time_b1(qq, kk, vv, mask, R, b_nd)))
+        times[f"B2 {name}"] = dict(zip(keys, time_b2(qq, kk, vv, mask, R, b_nd, oo)))
+    return times
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--time-kernels", action="store_true", help="time kernels B1 and B2 alone and stop")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -574,11 +718,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    report = cuda_build.build(["windowed_attention_fwd", "windowed_attention_bwd"])
+    report = cuda_build.build(KERNELS)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
         ptxas = [ln for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: {r['seconds']:.1f} s; " + " | ".join(ptxas))
+    if args.time_kernels:
+        print(json.dumps({"kernel_times": time_kernels(dev), "device": smi.splitlines()[0]}), flush=True)
+        return 0
+    check_tensor_cores(KERNELS)
 
     b1 = check_b1(dev)
     agent = stepped_rollout(dev)

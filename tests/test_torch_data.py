@@ -11,6 +11,7 @@ cannot be built (no libav)."""
 
 import io
 import json
+import time
 
 import jax
 import numpy as np
@@ -34,14 +35,41 @@ def _grad_mode():
         yield
 
 
+def _jax_native_available(attempts=5, wait_s=2.0):
+    """vpt_tpu's native library, loaded again where a first load failed.
+
+    vpt_tpu builds ``libvpt_host.so`` with ``make`` in place at first use, and
+    several test modules load it while they are imported, so parallel test
+    workers can race: one may load the file while another's ``make`` is still
+    writing it, and vpt_tpu then caches that load error for the process.  The
+    build finishes within seconds, so a cached load error is cleared and the
+    load tried again.  A failed build (no libav) is not retried, nor is any
+    error where vpt_tpu no longer caches it under these names."""
+    for attempt in range(attempts):
+        if jax_video.native_available():
+            return True
+        if attempt + 1 == attempts or not _cached_load_error():
+            return False
+        time.sleep(wait_s)
+        jax_video._lib = jax_video._lib_error = None
+    return False
+
+
+def _cached_load_error():
+    """Whether vpt_tpu cached an error of loading a library that was built."""
+    error = getattr(jax_video, "_lib_error", None)
+    return (hasattr(jax_video, "_lib") and isinstance(error, str)
+            and not error.startswith("could not build native library"))
+
+
 @pytest.fixture(scope="module")
 def native():
-    if not jax_video.native_available():
-        pytest.skip("native video library of vpt_tpu unavailable (libav)")
     try:
-        video.build()
+        video.build()  # the port's own copy first: built in a temp file and renamed, never seen half-written
     except RuntimeError as e:
         pytest.skip(f"native video library of the port cannot be built: {e}")
+    if not _jax_native_available():
+        pytest.skip(f"native video library of vpt_tpu unavailable (libav): {jax_video._lib_error}")
 
 
 def _step(keys=(), dx=0.0, dy=0.0, buttons=(), new_buttons=(), hotbar=0, gui=False, x=0.0, y=0.0):

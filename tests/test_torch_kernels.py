@@ -38,6 +38,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# (t, maxlen): the 2x chunk, the t=1 cache step, ragged sizes, T = 512; and
+# the kernels' tile edges (64 query rows or keys a tile, 32 query rows in
+# B2's key pass): one row past or short of a tile, a single row against 511
+# keys of cache
+SHAPES = [(128, 128), (1, 128), (37, 64), (128, 384), (63, 65), (65, 128), (1, 511)]
+
+
 def _inputs(dev, B, H, t, maxlen, d, dtype, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     T = t + maxlen
@@ -55,7 +62,7 @@ def _inputs(dev, B, H, t, maxlen, d, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 192])
-@pytest.mark.parametrize("t,maxlen", [(128, 128), (1, 128), (37, 64), (128, 384)])
+@pytest.mark.parametrize("t,maxlen", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False)])
 def test_b1_kernel_matches_plain(cuda, d, t, maxlen, dtype, use_mask, use_rel, muP):
@@ -73,6 +80,25 @@ def test_b1_kernel_matches_plain(cuda, d, t, maxlen, dtype, use_mask, use_rel, m
 
 
 @pytest.mark.cuda
+def test_b1_kernel_keeps_float32_accuracy_past_tf32(cuda):
+    """q and k scaled by 8: the logits' products are large enough that one
+    TF32 product (10-bit mantissa) misses the 1e-4 limit, as the plain
+    version computed with TF32 shows; the kernel's split products meet it."""
+    q, k, v, mask, R, b_nd = _inputs(cuda, 2, 4, 128, 128, 128, torch.float32, 11)
+    q, k = 8 * q, 8 * k
+    got = wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
+    expect = wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True)
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    assert (tf32 - expect).abs().max().item() > 1e-4
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_b1_kernel_fully_masked_row_is_uniform(cuda):
     q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 8, 8, 64, torch.float32, 0)
     mask[:, 3] = False
@@ -81,7 +107,7 @@ def test_b1_kernel_fully_masked_row_is_uniform(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["head_dim", "keys", "dtype", "contiguity"])
+@pytest.mark.parametrize("bad", ["head_dim", "keys", "dtype", "contiguity", "alignment"])
 def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
     q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 8, 8, 64, torch.float32, 1)
     if bad == "head_dim":
@@ -92,6 +118,8 @@ def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
         mask = R = b_nd = None
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
+    elif bad == "alignment":  # contiguous, but one float past a 16-byte boundary
+        q = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape).copy_(q)
     else:
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((ValueError, TypeError)):
@@ -113,7 +141,7 @@ def _b2_close(got, expect, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 192])
-@pytest.mark.parametrize("t,maxlen", [(128, 128), (1, 128), (37, 64), (128, 384)])
+@pytest.mark.parametrize("t,maxlen", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False)])
 def test_b2_kernel_matches_plain(cuda, d, t, maxlen, dtype, use_mask, use_rel, muP):
@@ -137,6 +165,30 @@ def test_b2_kernel_fully_masked_row(cuda):
     dO = torch.randn_like(q)
     got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
     _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), torch.float32)
+
+
+@pytest.mark.cuda
+def test_b2_kernel_keeps_float32_accuracy_past_tf32(cuda):
+    """All five gradients at float32 accuracy with q and k scaled by 8 (see
+    the B1 case above)."""
+    q, k, v, mask, R, b_nd = _inputs(cuda, 2, 4, 128, 128, 128, torch.float32, 12)
+    q, k = 8 * q, 8 * k
+    dO = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(12), device=cuda)
+    got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+    _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b2_kernel_bias_grads_are_deterministic(cuda, dtype):
+    """d b_nd is summed over blocks in a fixed order, and dR within a row:
+    two calls on the same inputs agree bit for bit."""
+    q, k, v, mask, R, b_nd = _inputs(cuda, 4, 16, 128, 128, 128, getattr(torch, dtype), 13)
+    dO = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(13), device=cuda).to(q.dtype)
+    first = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+    second = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[4], second[4]) and torch.equal(first[3], second[3])
 
 
 @pytest.mark.cuda

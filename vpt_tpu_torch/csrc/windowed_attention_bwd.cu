@@ -15,423 +15,345 @@
 // forward does); dq, dk, dv round to the input dtype once, at the end.
 //
 // What bounds it on this card: at the 2x chunk shape (B=4, H=16, t=128,
-// T=256, d=128) the five t x T x d products are ~2.7 GFLOP against ~50 MB of
-// f32 inputs and outputs, so in f32 without tensor cores it is bound by its
-// operations.  The design keeps every (B, H, t, T) tensor and the (n, t, T)
-// band table out of device memory:
-//   * pass 1, one block per (b, h, 32 query rows) as in B1: recompute the
-//     32 x T logits into shared memory, softmax them in place (keeping each
-//     row's max and sum), stream V twice (rowdot, then dL in place), stream
-//     K for dQ; dR is row-local and reduced from dL and the band table in
-//     shared memory; each block writes its partial sums of d b_nd, indexed
-//     by band offset, to a (blocks, n, bandsize) f32 scratch;
-//   * pass 2, one block per (b, h, 32 keys): dK and dV sum over every query
-//     row, and a whole (T, d) f32 pair does not fit one block's shared memory
-//     at d = 192, so each block keeps its 32 keys' K and V tiles and streams
-//     32-row tiles of Q and dO, rebuilding W_ij = exp(L_ij - max_i) / sum_i
-//     and dL_ij from pass 1's row statistics;
-//   * pass 3 sums the d b_nd partials in block order, so the result does not
-//     depend on the order in which blocks ran.
+// T=256, d=128) the five t x T x d products are 2.68 GFLOP against 46.9 MB
+// of f32 inputs and outputs.  At f32 accuracy on the tensor cores (three
+// TF32 products at 495 TFLOP/s) the products need 16.3 us and the band's
+// bias, dR and d b_nd (f32 contractions of the same kind, in both types)
+// 0.4 us, against 14.0 us for the bytes: the least time, 16.7 us, is set by
+// the operations in f32 and by the bytes in bf16.  In practice the products
+// are the limit (dR and d b_nd still run on the CUDA cores), each
+// fragment loaded and split (as in B1) by the warp that uses it, and the
+// design takes eight products for the five (the logits once more, dO V^T
+// twice more) to keep every (B, H, t, T) tensor out of device memory.
+// The design:
+//   * every product runs on tensor cores with mma.sync (attention_mma.cuh).
+//     In f32 each product splits both operands into TF32 hi + lo parts and
+//     takes three TF32 products.  In bf16, Q K^T and dO V^T are one bf16
+//     product each; the products of an f32 operand (W or dL) with a bf16 one
+//     (dO, K, Q) take two TF32 products, the bf16 side being exact in TF32.
+//     The band bias R b_nd is a small TF32 product too, as in B1;
+//   * pass 1, one block per (b, h, 64 query rows) with 16 warps, four to
+//     each 16 rows (32 rows and 8 warps where shared memory demands): the
+//     mask and band bias terms of the block's rows straight into a logit
+//     tile in shared memory, alpha Q K^T added over 64-key tiles of K, the
+//     softmax in place (keeping each row's max and sum), dO V^T over tiles of
+//     V twice (rowdot from the fragments, then dL in place), dQ = dL K over
+//     tiles of K; every tile streams through two shared buffers with
+//     cp.async, the next in flight while the warps multiply the current one.
+//     dR is row-local and reduced from dL and the band table in shared
+//     memory (a warp to a row, every n at once), and each block writes its
+//     partial sums of d b_nd, by band offset, to a (blocks, n, bandsize) f32
+//     scratch;
+//   * pass 2, one block per (b, h, 128 keys) with 8 warps, a warp per 16 keys
+//     (64 keys and 4 warps where shared memory demands): dK and dV sum over
+//     every query row, so each block keeps its keys' K and V tiles and
+//     streams 32-row tiles of Q and dO, forming the tile's mask and band bias
+//     terms while the copies fly.  K Q^T and V dO^T land in accumulator
+//     fragments, W and dL are rebuilt there from pass 1's row statistics, and
+//     the fragments feed dV += W^T dO and dK += dL^T Q as they stand
+//     (mma_nn_step), so W and dL never leave registers.  At d = 192 the dK
+//     and dV accumulators would not fit the registers, so the columns go in
+//     two halves, each recomputing the tile's W and dL;
+//   * pass 3 sums the d b_nd partials in block order, so the result is the
+//     same, bit for bit, from run to run.
 // A fully masked row has uniform W, exactly as in the forward: the row max
 // and sum are stored as they are (not as a log-sum-exp, which would lose the
-// row's offsets next to -1e9 in f32).
-// No tensor cores yet (no wgmma, no TMA): that is later work.
+// row's offsets next to -1e9 in f32).  No (B, H, t, T) tensor and no (n, t, T)
+// band table reaches device memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int QT = 32;          // query rows per tile
-constexpr int KT = 32;          // keys per tile (one per lane)
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS = QT / NWARPS;  // query rows per warp when lanes own keys
-constexpr int KEYS = KT / NWARPS;  // keys per warp when lanes own columns
-constexpr int KTP = KT + 1;        // padded row stride of the W and dL tiles
-constexpr int MAX_NBASIS = 16;
-constexpr int MAX_KEYS = 512;
-constexpr float NEG_BIAS = -1e9f;
+using namespace wattn;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+constexpr int QUERY_TILE = 32;  // pass 2: query rows per streamed tile
+constexpr int BIAS_STRIDE = QUERY_TILE + 8;  // pass 2: row stride of the bias tile, 8 words mod 32
+constexpr int REDUCE_THREADS = 256;
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__host__ __device__ __forceinline__ size_t band_floats(int nbasis, int bandsize) { return ((size_t)nbasis * bandsize + 3) / 4 * 4; }
-
-size_t rows_smem_bytes(int d, int T, int nbasis, int bandsize) {
-  size_t dp = d + 4;
-  return (2 * QT * dp + KT * dp + QT * MAX_NBASIS + band_floats(nbasis, bandsize) + (size_t)QT * T) *
-         sizeof(float);
-}
-
-size_t keys_smem_bytes(int d, int nbasis, int bandsize) {
-  size_t dp = d + 4;
-  return (2 * KT * dp + 2 * QT * dp + QT * MAX_NBASIS + band_floats(nbasis, bandsize) + 2 * QT * KTP +
-          3 * QT) *
-         sizeof(float);
-}
-
-// rows (r0 .. r0 + n) of a (rows, D) tensor into a (n, DP) f32 tile; zero past `limit`
-template <typename scalar_t, int D>
-__device__ __forceinline__ void load_tile(float* dst, const scalar_t* src, int r0, int limit, int tid) {
-  constexpr int DP = D + 4;
-  for (int idx = tid; idx < 32 * D; idx += NTHREADS) {
-    int r = idx / D, c = idx % D;
-    dst[r * DP + c] = (r0 + r < limit) ? load_f32(src + (size_t)(r0 + r) * D + c) : 0.f;
-  }
-}
-
-// the dot products of this warp's ROWS rows of `a` with row `lane` of `b`,
-// in the same order as the forward kernel's logits
 template <int D>
-__device__ __forceinline__ void row_dots(float (&acc)[ROWS], const float* a, const float* b, int warp,
-                                         int lane) {
-  constexpr int DP = D + 4;
-#pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) acc[rr] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float4 bb = *reinterpret_cast<const float4*>(b + lane * DP + c);
-#pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) {
-      float4 aa = *reinterpret_cast<const float4*>(a + (warp * ROWS + rr) * DP + c);
-      acc[rr] = fmaf(aa.x, bb.x, acc[rr]);
-      acc[rr] = fmaf(aa.y, bb.y, acc[rr]);
-      acc[rr] = fmaf(aa.z, bb.z, acc[rr]);
-      acc[rr] = fmaf(aa.w, bb.w, acc[rr]);
-    }
-  }
+__host__ __device__ constexpr int key_pass_cols() {  // dK and dV columns a warp accumulates at once
+  return D <= 128 ? D : D / 2;
 }
 
-// logit of query row gi (tile row i) and key j from alpha * q.k
-__device__ __forceinline__ float logit(float qk, float alpha, bool has_rel, const float* sR, const float* sB,
-                                       int i, int gi, int j, int t, int T, int nbasis, int bandsize,
-                                       const uint8_t* mask, int b) {
-  float l = qk * alpha;
-  if (has_rel) {
-    const int dd = (T - t) + gi - j;
-    if (dd >= 0 && dd < bandsize) {
-      for (int n = 0; n < nbasis; ++n) l += sR[i * MAX_NBASIS + n] * sB[n * bandsize + dd];
-    }
-  }
-  if (mask != nullptr && gi < t) l += mask[((size_t)b * t + gi) * T + j] ? 0.f : NEG_BIAS;
-  return l;
+template <typename T, int D>
+size_t rows_smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
+  const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
+  const size_t band = ((size_t)nbasis * bandsize + 3) / 4 * 4;
+  return (rows + 2 * KEY_TILE) * tile +
+         ((size_t)rows * logit_stride(T_keys) + rows * R_STRIDE + RowBlock<64>::SPLIT * rows + band) * sizeof(float);
 }
 
-// pass 1: one block per (b, h, QT query rows)
-template <typename scalar_t, int D>
-__global__ void __launch_bounds__(NTHREADS)
-bwd_rows_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
-                const scalar_t* __restrict__ v, const scalar_t* __restrict__ dout,
-                const float* __restrict__ R, const float* __restrict__ b_nd,
-                const uint8_t* __restrict__ mask, scalar_t* __restrict__ dq, float* __restrict__ dR,
-                float* __restrict__ stats, float* __restrict__ partial, int BHt, int H, int t, int T,
+template <typename T, int D>
+size_t keys_smem_bytes(int nwarps, int nbasis, int bandsize) {
+  const size_t keys = 16 * nwarps;
+  const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
+  const size_t band = ((size_t)nbasis * bandsize + 3) / 4 * 4;
+  return (2 * keys + 2 * QUERY_TILE) * tile +
+         (keys * BIAS_STRIDE + QUERY_TILE * R_STRIDE + 3 * QUERY_TILE + band) * sizeof(float);
+}
+
+// pass 1: one block per (b, h, ROWS query rows)
+template <typename T, int D, int ROWS>
+__global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
+bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
+                const uint8_t* __restrict__ mask, T* __restrict__ dq, float* __restrict__ dR,
+                float* __restrict__ stats, float* __restrict__ partial, int BHt, int H, int t, int T_keys,
                 int nbasis, int bandsize, float alpha) {
-  constexpr int DP = D + 4;
-  constexpr int DCOLS = D / 32;
+  using Block = RowBlock<ROWS>;
+  constexpr int NTHREADS = Block::NTHREADS;
+  constexpr int SPLIT = Block::SPLIT;
+  constexpr int DS = tile_stride<T, D>();
+  constexpr int DH = D / SPLIT;         // dQ columns of a warp
+  constexpr int KH = KEY_TILE / SPLIT;  // keys of a tile a warp takes
+  const int TS = logit_stride(T_keys);
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);  // QT x DP
-  float* sdO = sQ + QT * DP;                    // QT x DP
-  float* sKV = sdO + QT * DP;                   // KT x DP: K, V, V, then K tiles
-  float* sR = sKV + KT * DP;                    // QT x MAX_NBASIS
-  float* sB = sR + QT * MAX_NBASIS;             // nbasis x bandsize
-  float* sS = sB + band_floats(nbasis, bandsize);  // QT x T: logits, then W, then dL
+  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x DS: Q, then dO
+  T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K, V, V, then K tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: logits, then W, then dL
+  float* sR = sS + ROWS * TS;          // ROWS x R_STRIDE
+  float* sRd = sR + ROWS * R_STRIDE;   // SPLIT x ROWS: each part's rowdot partial sums
+  float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize
 
+  const Block rb;
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const int q0 = blockIdx.y * QT;
+  const int q0 = blockIdx.y * ROWS;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const bool has_rel = R != nullptr;
-  const scalar_t* kb = k + (size_t)bh * T * D;
-  const scalar_t* vb = v + (size_t)bh * T * D;
+  const int g = rb.g, c = rb.c, row0 = rb.row0, lane = rb.lane;
+  const T* kb = k + (size_t)bh * T_keys * D;
+  const T* vb = v + (size_t)bh * T_keys * D;
 
-  load_tile<scalar_t, D>(sQ, q + (size_t)bh * t * D, q0, t, tid);
-  load_tile<scalar_t, D>(sdO, dout + (size_t)bh * t * D, q0, t, tid);
-  if (has_rel) {
-    for (int idx = tid; idx < QT * nbasis; idx += NTHREADS) {
-      int r = idx / nbasis, n = idx % nbasis;
-      sR[r * MAX_NBASIS + n] = (q0 + r < t) ? R[((size_t)bh * t + q0 + r) * nbasis + n] : 0.f;
-    }
-    for (int idx = tid; idx < nbasis * bandsize; idx += NTHREADS) sB[idx] = b_nd[idx];
-  }
+  // R's rows and the band table, then Q, then K's first tile, each a group of
+  // copies in flight while the mask terms load; the bias waits for the first only
+  if (nbasis > 0)
+    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, sB, b_nd, bandsize);
+  cp_async_commit();
+  load_rows_async<T, D>(sQ, DS, q + (size_t)bh * t * D, q0, ROWS, t, tid, NTHREADS);
+  cp_async_commit();
+  prefetch_tile<T, D, NTHREADS>(sKV, kb, T_keys, 0);
+  mask_window<NTHREADS, true>(sS, TS, mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr, q0, ROWS, t, 0,
+                              TS - 8, T_keys);
+  cp_async_wait<2>();
+  __syncthreads();
 
-  // 1. logits of this warp's rows against every key, one key per lane
-  float acc[ROWS];
-  for (int kt0 = 0; kt0 < T; kt0 += KT) {
-    __syncthreads();
-    load_tile<scalar_t, D>(sKV, kb, kt0, T, tid);
-    __syncthreads();
-    row_dots<D>(acc, sQ, sKV, warp, lane);
-    const int j = kt0 + lane;
-    if (j < T) {
+  // 1. the logits and their softmax W in place, keeping each row's max and sum
+  if (nbasis > 0) band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, sB, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
+  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, T_keys, alpha, true);
+  softmax_rows<ROWS, false>(sS, TS, q0, t, stats + (size_t)bh * t, stats + BHt + (size_t)bh * t);
+
+  // 2. dO replaces Q (every warp is past its last read of Q)
+  load_rows_async<T, D>(sQ, DS, dout + (size_t)bh * t * D, q0, ROWS, t, tid, NTHREADS);
+  cp_async_commit();
+
+  // 3. rowdot_i = sum_j (dO V^T)_ij W_ij over the warp's part of each tile, W
+  //    read at the fragment's own positions; then the parts' sums, in a fixed order
+  float rd[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
+  stream_tiles<T, D, NTHREADS>(sKV, vb, T_keys, false, [&](int kt0, const T* tile) {
+    float p[KH / 8][4] = {};
+    mma_nt<T, D, KH / 8>(p, sQ + row0 * DS, DS, tile + rb.part * KH * DS, DS, lane);
 #pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
-        const int i = warp * ROWS + rr;
-        sS[i * T + j] = logit(acc[rr], alpha, has_rel, sR, sB, i, q0 + i, j, t, T, nbasis, bandsize, mask, b);
+    for (int h = 0; h < 2; ++h) {
+      const float* wrow = sS + (row0 + g + 8 * h) * TS + kt0 + rb.part * KH + 2 * c;
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n) {
+        const float2 w = *reinterpret_cast<const float2*>(wrow + n * 8);
+        rd[h] = fmaf(p[n][2 * h], w.x, rd[h]);
+        rd[h] = fmaf(p[n][2 * h + 1], w.y, rd[h]);
       }
     }
+  });
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rd[h] = quad_sum(rd[h]);
+    if (c == 0) sRd[rb.part * ROWS + row0 + g + 8 * h] = rd[h];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + g + 8 * h;
+    rd[h] = sRd[i];
+#pragma unroll
+    for (int p = 1; p < SPLIT; ++p) rd[h] += sRd[p * ROWS + i];
+    if (rb.part == 0 && c == 0 && q0 + i < t) stats[2 * (size_t)BHt + (size_t)bh * t + q0 + i] = rd[h];
   }
 
-  // 2. softmax of each of this warp's rows in place, keeping max and sum
-  __syncwarp();
-  float rmax[ROWS], rsum[ROWS];
+  // 4. dL = W * (dO V^T - rowdot) in place (padding rows have dO = 0, padding keys W = 0: dL = 0)
+  stream_tiles<T, D, NTHREADS>(sKV, vb, T_keys, false, [&](int kt0, const T* tile) {
+    float p[KH / 8][4] = {};
+    mma_nt<T, D, KH / 8>(p, sQ + row0 * DS, DS, tile + rb.part * KH * DS, DS, lane);
 #pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) {
-    float* row = sS + (warp * ROWS + rr) * T;
-    float m = -3.402823466e38f;
-    for (int j = lane; j < T; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int j = lane; j < T; j += 32) {
-      float e = expf(row[j] - m);
-      row[j] = e;
-      s += e;
-    }
-    s = warp_sum(s);
-    for (int j = lane; j < T; j += 32) row[j] = row[j] / s;
-    rmax[rr] = m;
-    rsum[rr] = s;
-  }
-
-  // 3. rowdot_i = sum_j (dO_i . V_j) W_ij
-  float rdot[ROWS];
+    for (int h = 0; h < 2; ++h) {
+      float* wrow = sS + (row0 + g + 8 * h) * TS + kt0 + rb.part * KH + 2 * c;
 #pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) rdot[rr] = 0.f;
-  for (int kt0 = 0; kt0 < T; kt0 += KT) {
-    __syncthreads();
-    load_tile<scalar_t, D>(sKV, vb, kt0, T, tid);
-    __syncthreads();
-    row_dots<D>(acc, sdO, sKV, warp, lane);
-    const int j = kt0 + lane;
-    if (j < T) {
-#pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) rdot[rr] = fmaf(acc[rr], sS[(warp * ROWS + rr) * T + j], rdot[rr]);
-    }
-  }
-#pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) rdot[rr] = warp_sum(rdot[rr]);
-
-  // 4. dL = W * (dO V^T - rowdot), in place (padded rows have dO = 0: dL = 0)
-  for (int kt0 = 0; kt0 < T; kt0 += KT) {
-    __syncthreads();
-    load_tile<scalar_t, D>(sKV, vb, kt0, T, tid);
-    __syncthreads();
-    row_dots<D>(acc, sdO, sKV, warp, lane);
-    const int j = kt0 + lane;
-    if (j < T) {
-#pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
-        float* s = sS + (warp * ROWS + rr) * T + j;
-        *s = *s * (acc[rr] - rdot[rr]);
+      for (int n = 0; n < KH / 8; ++n) {
+        const float2 w = *reinterpret_cast<const float2*>(wrow + n * 8);
+        store2(wrow + n * 8, w.x * (p[n][2 * h] - rd[h]), w.y * (p[n][2 * h + 1] - rd[h]));
       }
     }
-  }
+  });
 
-  if (lane == 0) {
+  // 5. dQ = alpha dL K over tiles of K, the warp's SPLIT-th of the columns
+  float acc[DH / 8][4] = {};
+  stream_tiles<T, D, NTHREADS>(sKV, kb, T_keys, false, [&](int kt0, const T* tile) {
+    mma_nn_tile<T, DH>(acc, sS + row0 * TS + kt0, TS, tile + rb.part * DH, DS, lane);
+  });
 #pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) {
-      const int gi = q0 + warp * ROWS + rr;
-      if (gi < t) {
-        const size_t r = (size_t)bh * t + gi;
-        stats[r] = rmax[rr];
-        stats[BHt + r] = rsum[rr];
-        stats[2 * (size_t)BHt + r] = rdot[rr];
-      }
-    }
-  }
-
-  // 5. dQ = alpha dL K; lane owns columns lane + 32 m
-  float o[ROWS][DCOLS];
-#pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr)
-#pragma unroll
-    for (int m = 0; m < DCOLS; ++m) o[rr][m] = 0.f;
-  for (int kt0 = 0; kt0 < T; kt0 += KT) {
-    __syncthreads();
-    load_tile<scalar_t, D>(sKV, kb, kt0, T, tid);
-    __syncthreads();
-    const int kmax = min(KT, T - kt0);
-    for (int jj = 0; jj < kmax; ++jj) {
-      float kk[DCOLS];
-#pragma unroll
-      for (int m = 0; m < DCOLS; ++m) kk[m] = sKV[jj * DP + lane + 32 * m];
-#pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
-        const float w = sS[(warp * ROWS + rr) * T + kt0 + jj];
-#pragma unroll
-        for (int m = 0; m < DCOLS; ++m) o[rr][m] = fmaf(w, kk[m], o[rr][m]);
-      }
-    }
-  }
-#pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) {
-    const int gi = q0 + warp * ROWS + rr;
+  for (int h = 0; h < 2; ++h) {
+    const int gi = q0 + row0 + g + 8 * h;
     if (gi < t) {
+      T* row = dq + ((size_t)bh * t + gi) * D + rb.part * DH + 2 * c;
 #pragma unroll
-      for (int m = 0; m < DCOLS; ++m)
-        store(dq + ((size_t)bh * t + gi) * D + lane + 32 * m, alpha * o[rr][m]);
+      for (int n = 0; n < DH / 8; ++n) store2(row + n * 8, alpha * acc[n][2 * h], alpha * acc[n][2 * h + 1]);
     }
   }
+  if (nbasis == 0) return;
 
-  if (!has_rel) return;
-  __syncthreads();  // every warp's dL rows are in sS
-
-  // 6. dR[i, n] = sum_j dL_ij b_nd[n, (T - t) + i - j], row-local
+  // 6. dR[i, n] = sum_j dL_ij b_nd[n, (T - t) + i - j] over the band, a warp
+  //    to a row, every n at once
+  for (int i = rb.warp; i < ROWS && q0 + i < t; i += Block::NWARPS) {
+    const int off = (T_keys - t) + q0 + i;  // band offset of key 0
+    const int jlo = max(0, off - bandsize + 1), jhi = min(T_keys - 1, off);
+    float acc_n[MAX_NBASIS] = {};
+    for (int j = jlo + lane; j <= jhi; j += 32) {
+      const float dl = sS[i * TS + j];
 #pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) {
-    const int i = warp * ROWS + rr;
-    const int gi = q0 + i;
-    if (gi >= t) continue;  // uniform across the warp
-    for (int n = 0; n < nbasis; ++n) {
-      float p = 0.f;
-      for (int j = lane; j < T; j += 32) {
-        const int dd = (T - t) + gi - j;
-        if (dd >= 0 && dd < bandsize) p = fmaf(sS[i * T + j], sB[n * bandsize + dd], p);
+      for (int n = 0; n < MAX_NBASIS; ++n) {
+        if (n < nbasis) acc_n[n] += dl * sB[n * bandsize + off - j];  // uniform condition
       }
-      p = warp_sum(p);
-      if (lane == 0) dR[((size_t)bh * t + gi) * nbasis + n] = p;
     }
+    const float x = warp_sum16(acc_n, lane);  // lanes 2n and 2n + 1: the sum for n
+    if (lane % 2 == 0 && lane / 2 < nbasis) dR[((size_t)bh * t + q0 + i) * nbasis + lane / 2] = x;
   }
 
   // 7. this block's partial d b_nd[n, dd] = sum_i dL[i, (T - t) + gi - dd] R[i, n]
   const int nb = nbasis * bandsize;
   float* P = partial + ((size_t)bh * gridDim.y + blockIdx.y) * nb;
+  const int nrows = min(ROWS, t - q0);
   for (int idx = tid; idx < nb; idx += NTHREADS) {
     const int n = idx / bandsize, dd = idx % bandsize;
-    float p = 0.f;
-    for (int i = 0; i < QT && q0 + i < t; ++i) {
-      const int j = (T - t) + q0 + i - dd;
-      if (j >= 0 && j < T) p = fmaf(sS[i * T + j], sR[i * MAX_NBASIS + n], p);
+    float s[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, summed in a fixed order
+#pragma unroll 4
+    for (int i = 0; i < nrows; ++i) {
+      const int j = (T_keys - t) + q0 + i - dd;
+      if (j >= 0 && j < T_keys) s[i & 3] = fmaf(sS[i * TS + j], sR[i * R_STRIDE + n], s[i & 3]);
     }
-    P[idx] = p;
+    P[idx] = (s[0] + s[1]) + (s[2] + s[3]);
   }
 }
 
-// pass 2: one block per (b, h, KT keys)
-template <typename scalar_t, int D>
-__global__ void __launch_bounds__(NTHREADS)
-bwd_keys_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
-                const scalar_t* __restrict__ v, const scalar_t* __restrict__ dout,
-                const float* __restrict__ R, const float* __restrict__ b_nd,
-                const uint8_t* __restrict__ mask, const float* __restrict__ stats,
-                scalar_t* __restrict__ dk, scalar_t* __restrict__ dv, int BHt, int H, int t, int T,
-                int nbasis, int bandsize, float alpha) {
-  constexpr int DP = D + 4;
-  constexpr int DCOLS = D / 32;
+// pass 2: one block per (b, h, 16 * NWARPS keys), a warp per 16 keys
+template <typename T, int D, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32)
+bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
+                const uint8_t* __restrict__ mask, const float* __restrict__ stats, T* __restrict__ dk,
+                T* __restrict__ dv, int BHt, int H, int t, int T_keys, int nbasis, int bandsize, float alpha) {
+  constexpr int KEYS = 16 * NWARPS;
+  constexpr int NTHREADS = NWARPS * 32;
+  constexpr int DS = tile_stride<T, D>();
+  constexpr int DC = key_pass_cols<D>();
+  constexpr int NQ = QUERY_TILE / 8;
   extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);  // KT x DP
-  float* sV = sK + KT * DP;                     // KT x DP
-  float* sQ = sV + KT * DP;                     // QT x DP
-  float* sdO = sQ + QT * DP;                    // QT x DP
-  float* sR = sdO + QT * DP;                    // QT x MAX_NBASIS
-  float* sB = sR + QT * MAX_NBASIS;             // nbasis x bandsize
-  float* sW = sB + band_floats(nbasis, bandsize);  // QT x KTP
-  float* sdL = sW + QT * KTP;                   // QT x KTP
-  float* sStat = sdL + QT * KTP;                // 3 x QT: row max, row sum, rowdot
+  T* sK = reinterpret_cast<T*>(smem4);  // KEYS x DS
+  T* sV = sK + KEYS * DS;               // KEYS x DS
+  T* sQ = sV + KEYS * DS;               // QUERY_TILE x DS
+  T* sdO = sQ + QUERY_TILE * DS;        // QUERY_TILE x DS
+  float* sBias = reinterpret_cast<float*>(sdO + QUERY_TILE * DS);  // KEYS x BIAS_STRIDE
+  float* sR = sBias + KEYS * BIAS_STRIDE;                          // QUERY_TILE x R_STRIDE
+  float* sStat = sR + QUERY_TILE * R_STRIDE;                       // 3 x QUERY_TILE: row max, 1 / row sum, rowdot
+  float* sB = sStat + 3 * QUERY_TILE;                              // nbasis x bandsize
 
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const int k0 = blockIdx.y * KT;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const bool has_rel = R != nullptr;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int k0 = blockIdx.y * KEYS;
+  const T* qb = q + (size_t)bh * t * D;
+  const T* ob = dout + (size_t)bh * t * D;
+  const uint8_t* mask_b = mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr;
 
-  load_tile<scalar_t, D>(sK, k + (size_t)bh * T * D, k0, T, tid);
-  load_tile<scalar_t, D>(sV, v + (size_t)bh * T * D, k0, T, tid);
-  if (has_rel) {
-    for (int idx = tid; idx < nbasis * bandsize; idx += NTHREADS) sB[idx] = b_nd[idx];
-  }
+  load_rows_async<T, D>(sK, DS, k + (size_t)bh * T_keys * D, k0, KEYS, T_keys, tid, NTHREADS);
+  load_rows_async<T, D>(sV, DS, v + (size_t)bh * T_keys * D, k0, KEYS, T_keys, tid, NTHREADS);
+  cp_async_commit();
 
-  float gk[KEYS][DCOLS], gv[KEYS][DCOLS];
-#pragma unroll
-  for (int e = 0; e < KEYS; ++e)
-#pragma unroll
-    for (int m = 0; m < DCOLS; ++m) gk[e][m] = gv[e][m] = 0.f;
-
-  const int j = k0 + lane;
-  for (int q0 = 0; q0 < t; q0 += QT) {
-    __syncthreads();
-    load_tile<scalar_t, D>(sQ, q + (size_t)bh * t * D, q0, t, tid);
-    load_tile<scalar_t, D>(sdO, dout + (size_t)bh * t * D, q0, t, tid);
-    if (has_rel) {
-      for (int idx = tid; idx < QT * nbasis; idx += NTHREADS) {
-        int r = idx / nbasis, n = idx % nbasis;
-        sR[r * MAX_NBASIS + n] = (q0 + r < t) ? R[((size_t)bh * t + q0 + r) * nbasis + n] : 0.f;
+  for (int c0 = 0; c0 < D; c0 += DC) {
+    float gk[DC / 8][4] = {}, gv[DC / 8][4] = {};
+    for (int i0 = 0; i0 < t; i0 += QUERY_TILE) {
+      __syncthreads();  // the previous query tile is no longer read
+      // the tile's R rows (and at first the band table) as one group of
+      // copies, its Q and dO rows as the next, so the band bias can start
+      // while Q and dO fly
+      if (nbasis > 0)
+        load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, i0, QUERY_TILE, t, nbasis,
+                                         c0 == 0 && i0 == 0 ? sB : nullptr, b_nd, bandsize);
+      cp_async_commit();
+      load_rows_async<T, D>(sQ, DS, qb, i0, QUERY_TILE, t, tid, NTHREADS);
+      load_rows_async<T, D>(sdO, DS, ob, i0, QUERY_TILE, t, tid, NTHREADS);
+      cp_async_commit();
+      for (int idx = tid; idx < 3 * QUERY_TILE; idx += NTHREADS) {
+        const int which = idx / QUERY_TILE, r = idx % QUERY_TILE;
+        const float x = (i0 + r < t) ? stats[(size_t)which * BHt + (size_t)bh * t + i0 + r] : 1.f;
+        sStat[idx] = which == 1 ? 1.f / x : x;  // the row sum as its reciprocal, as the forward uses it
       }
-    }
-    for (int idx = tid; idx < 3 * QT; idx += NTHREADS) {
-      int s = idx / QT, r = idx % QT;
-      sStat[idx] = (q0 + r < t) ? stats[(size_t)s * BHt + (size_t)bh * t + q0 + r] : 0.f;
-    }
-    __syncthreads();
+      mask_window<NTHREADS, false>(sBias, BIAS_STRIDE, mask_b, i0, QUERY_TILE, t, k0, KEYS, T_keys);
+      cp_async_wait<1>();
+      __syncthreads();
 
-    // W and dL of this warp's rows against key `lane` of the tile
-    float accS[ROWS], accP[ROWS];
-    row_dots<D>(accS, sQ, sK, warp, lane);
-    row_dots<D>(accP, sdO, sV, warp, lane);
-#pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) {
-      const int i = warp * ROWS + rr;
-      const int gi = q0 + i;
-      float w = 0.f, dl = 0.f;
-      if (gi < t && j < T) {
-        const float l = logit(accS[rr], alpha, has_rel, sR, sB, i, gi, j, t, T, nbasis, bandsize, mask, b);
-        w = expf(l - sStat[i]) / sStat[QT + i];
-        dl = w * (accP[rr] - sStat[2 * QT + i]);
-      }
-      sW[i * KTP + lane] = w;
-      sdL[i * KTP + lane] = dl;
-    }
-    __syncthreads();
+      // the band bias of the tile added while Q and dO fly
+      if (nbasis > 0)
+        band_bias_mma<NWARPS>(sBias, 1, BIAS_STRIDE, sR, sB, i0, QUERY_TILE, t, T_keys, k0, KEYS, nbasis, bandsize);
+      cp_async_wait<0>();
+      __syncthreads();
 
-    // dV_j += W_ij dO_i, dK_j += dL_ij Q_i; warp owns keys warp*KEYS + e, lane owns columns
-    const int imax = min(QT, t - q0);
-    for (int i = 0; i < imax; ++i) {
-      float qq[DCOLS], gg[DCOLS];
+      // L^T and dP^T of the warp's 16 keys against the tile's rows, then W^T and dL^T in place
+      float s[NQ][4] = {}, p[NQ][4] = {};
+      mma_nt<T, D, NQ>(s, sK + warp * 16 * DS, DS, sQ, DS, lane);
+      mma_nt<T, D, NQ>(p, sV + warp * 16 * DS, DS, sdO, DS, lane);
 #pragma unroll
-      for (int m = 0; m < DCOLS; ++m) {
-        qq[m] = sQ[i * DP + lane + 32 * m];
-        gg[m] = sdO[i * DP + lane + 32 * m];
-      }
+      for (int h = 0; h < 2; ++h) {
+        const int jj = warp * 16 + g + 8 * h;
+        const bool key = k0 + jj < T_keys;
 #pragma unroll
-      for (int e = 0; e < KEYS; ++e) {
-        const float w = sW[i * KTP + warp * KEYS + e];
-        const float dl = sdL[i * KTP + warp * KEYS + e];
+        for (int n = 0; n < NQ; ++n) {
+          const int li = n * 8 + 2 * c;
+          const float2 x = *reinterpret_cast<const float2*>(sBias + jj * BIAS_STRIDE + li);
 #pragma unroll
-        for (int m = 0; m < DCOLS; ++m) {
-          gv[e][m] = fmaf(w, gg[m], gv[e][m]);
-          gk[e][m] = fmaf(dl, qq[m], gk[e][m]);
+          for (int e = 0; e < 2; ++e) {
+            float w = 0.f, dl = 0.f;
+            if (key && i0 + li + e < t) {
+              const float l = s[n][2 * h + e] * alpha + (e ? x.y : x.x);
+              w = expf(l - sStat[li + e]) * sStat[QUERY_TILE + li + e];
+              dl = w * (p[n][2 * h + e] - sStat[2 * QUERY_TILE + li + e]);
+            }
+            s[n][2 * h + e] = w;
+            p[n][2 * h + e] = dl;
+          }
         }
       }
+
+      // dV += W^T dO and dK += dL^T Q over the tile's rows, from the fragments as they stand
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float aw[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
+        mma_nn_step<T, DC>(gv, aw, sdO + (n * 8 + 2 * c) * DS + c0 + g, DS);
+        const float al[4] = {p[n][0], p[n][2], p[n][1], p[n][3]};
+        mma_nn_step<T, DC>(gk, al, sQ + (n * 8 + 2 * c) * DS + c0 + g, DS);
+      }
     }
-  }
 
 #pragma unroll
-  for (int e = 0; e < KEYS; ++e) {
-    const int jj = k0 + warp * KEYS + e;
-    if (jj < T) {
-      const size_t off = ((size_t)bh * T + jj) * D;
+    for (int h = 0; h < 2; ++h) {
+      const int j = k0 + warp * 16 + g + 8 * h;
+      if (j < T_keys) {
+        const size_t off = ((size_t)bh * T_keys + j) * D + c0 + 2 * c;
 #pragma unroll
-      for (int m = 0; m < DCOLS; ++m) {
-        store(dv + off + lane + 32 * m, gv[e][m]);
-        store(dk + off + lane + 32 * m, alpha * gk[e][m]);
+        for (int n = 0; n < DC / 8; ++n) {
+          store2(dv + off + n * 8, gv[n][2 * h], gv[n][2 * h + 1]);
+          store2(dk + off + n * 8, alpha * gk[n][2 * h], alpha * gk[n][2 * h + 1]);
+        }
       }
     }
   }
@@ -447,56 +369,86 @@ __global__ void db_reduce_kernel(const float* __restrict__ partial, float* __res
   db[idx] = s;
 }
 
-template <typename scalar_t, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout, const float* R,
-           const float* b_nd, const uint8_t* mask, void* dq, void* dk, void* dv, float* dR, float* db,
-           float* stats, float* partial, int B, int H, int t, int T, int nbasis, int bandsize,
-           float alpha, cudaStream_t stream) {
-  auto rows = bwd_rows_kernel<scalar_t, D>;
-  auto keys = bwd_keys_kernel<scalar_t, D>;
-  const size_t rows_smem = rows_smem_bytes(D, T, nbasis, bandsize);
-  const size_t keys_smem = keys_smem_bytes(D, nbasis, bandsize);
-  cudaError_t err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem);
+template <typename T, int D, int ROWS>
+int launch_rows(const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
+                const uint8_t* mask, T* dq, float* dR, float* stats, float* partial, int B, int H, int t,
+                int T_keys, int nbasis, int bandsize, float alpha, cudaStream_t stream, int* nblocks) {
+  auto kernel = bwd_rows_kernel<T, D, ROWS>;
+  const size_t smem = rows_smem_bytes<T, D>(ROWS, T_keys, nbasis, bandsize);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(keys, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)keys_smem);
-  if (err != cudaSuccess) return (int)err;
-  const int BHt = B * H * t;
-  const auto* qs = static_cast<const scalar_t*>(q);
-  const auto* ks = static_cast<const scalar_t*>(k);
-  const auto* vs = static_cast<const scalar_t*>(v);
-  const auto* ds = static_cast<const scalar_t*>(dout);
-  dim3 rows_grid(B * H, (t + QT - 1) / QT);
-  rows<<<rows_grid, NTHREADS, rows_smem, stream>>>(qs, ks, vs, ds, R, b_nd, mask, static_cast<scalar_t*>(dq),
-                                                   dR, stats, partial, BHt, H, t, T, nbasis, bandsize, alpha);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 keys_grid(B * H, (T + KT - 1) / KT);
-  keys<<<keys_grid, NTHREADS, keys_smem, stream>>>(qs, ks, vs, ds, R, b_nd, mask, stats,
-                                                   static_cast<scalar_t*>(dk), static_cast<scalar_t*>(dv),
-                                                   BHt, H, t, T, nbasis, bandsize, alpha);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || R == nullptr) return (int)err;
-  const int size = nbasis * bandsize;
-  db_reduce_kernel<<<(size + NTHREADS - 1) / NTHREADS, NTHREADS, 0, stream>>>(
-      partial, db, (int)(rows_grid.x * rows_grid.y), size);
+  dim3 grid(B * H, (t + ROWS - 1) / ROWS);
+  *nblocks = (int)(grid.x * grid.y);
+  kernel<<<grid, RowBlock<ROWS>::NTHREADS, smem, stream>>>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial,
+                                                          B * H * t, H, t, T_keys, nbasis, bandsize, alpha);
   return (int)cudaGetLastError();
 }
 
-template <typename scalar_t>
-int dispatch_d(const void* q, const void* k, const void* v, const void* dout, const float* R,
-               const float* b_nd, const uint8_t* mask, void* dq, void* dk, void* dv, float* dR, float* db,
-               float* stats, float* partial, int B, int H, int t, int T, int d, int nbasis, int bandsize,
-               float alpha, cudaStream_t s) {
+template <typename T, int D, int NWARPS>
+int launch_keys(const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
+                const uint8_t* mask, const float* stats, T* dk, T* dv, int B, int H, int t, int T_keys,
+                int nbasis, int bandsize, float alpha, size_t smem, cudaStream_t stream) {
+  auto kernel = bwd_keys_kernel<T, D, NWARPS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (T_keys + 16 * NWARPS - 1) / (16 * NWARPS));
+  kernel<<<grid, NWARPS * 32, smem, stream>>>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B * H * t, H, t,
+                                              T_keys, nbasis, bandsize, alpha);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch(const void* q_, const void* k_, const void* v_, const void* dout_, const float* R, const float* b_nd,
+           const uint8_t* mask, void* dq_, void* dk_, void* dv_, float* dR, float* db, float* stats,
+           float* partial, int B, int H, int t, int T_keys, int nbasis, int bandsize, float alpha,
+           cudaStream_t stream) {
+  const auto* q = static_cast<const T*>(q_);
+  const auto* k = static_cast<const T*>(k_);
+  const auto* v = static_cast<const T*>(v_);
+  const auto* dout = static_cast<const T*>(dout_);
+  auto* dq = static_cast<T*>(dq_);
+  auto* dk = static_cast<T*>(dk_);
+  auto* dv = static_cast<T*>(dv_);
+  int dev = 0, limit = 0, nblocks = 0;
+  cudaGetDevice(&dev);
+  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  // pass 1 takes 64-row blocks and pass 2 8-warp blocks where they fit the
+  // card's shared memory, else 32-row and 4-warp blocks
+  int rc = rows_smem_bytes<T, D>(64, T_keys, nbasis, bandsize) <= (size_t)limit
+               ? launch_rows<T, D, 64>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys,
+                                       nbasis, bandsize, alpha, stream, &nblocks)
+               : launch_rows<T, D, 32>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys,
+                                       nbasis, bandsize, alpha, stream, &nblocks);
+  if (rc != 0) return rc;
+  const size_t keys8 = keys_smem_bytes<T, D>(8, nbasis, bandsize);
+  rc = keys8 <= (size_t)limit
+           ? launch_keys<T, D, 8>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
+                                  alpha, keys8, stream)
+           : launch_keys<T, D, 4>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
+                                  alpha, keys_smem_bytes<T, D>(4, nbasis, bandsize), stream);
+  if (rc != 0 || R == nullptr) return rc;
+  const int size = nbasis * bandsize;
+  db_reduce_kernel<<<(size + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, stream>>>(partial, db,
+                                                                                                nblocks, size);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_d(const void* q, const void* k, const void* v, const void* dout, const float* R, const float* b_nd,
+               const uint8_t* mask, void* dq, void* dk, void* dv, float* dR, float* db, float* stats,
+               float* partial, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha,
+               cudaStream_t s) {
   switch (d) {
     case 64:
-      return launch<scalar_t, 64>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T,
-                                  nbasis, bandsize, alpha, s);
+      return launch<T, 64>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+                           nbasis, bandsize, alpha, s);
     case 128:
-      return launch<scalar_t, 128>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t,
-                                   T, nbasis, bandsize, alpha, s);
+      return launch<T, 128>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+                            nbasis, bandsize, alpha, s);
     case 192:
-      return launch<scalar_t, 192>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t,
-                                   T, nbasis, bandsize, alpha, s);
+      return launch<T, 192>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+                            nbasis, bandsize, alpha, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -504,14 +456,15 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace
 
-// q and dout (B, H, t, d), k and v (B, H, T, d): contiguous, all f32
-// (is_bf16 = 0) or all bf16 (is_bf16 = 1).  R (B, H, t, nbasis) f32 and b_nd
-// (nbasis, bandsize) f32, both null for no relative bias.  mask (B, t, T)
-// bool bytes, null for no mask.  Outputs dq (B, H, t, d), dk and dv
-// (B, H, T, d) in the input dtype; dR (B, H, t, nbasis) and db_nd
-// (nbasis, bandsize) f32 (unused without R).  Scratch: stats 3 * B * H * t
-// f32, partial B * H * ceil(t / 32) * nbasis * bandsize f32 (unused without
-// R).  Returns a cudaError_t (0 = launched).
+// q and dout (B, H, t, d), k and v (B, H, T, d): contiguous and 16-byte
+// aligned, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1).  R (B, H, t,
+// nbasis) f32 and b_nd (nbasis, bandsize) f32, both null for no relative
+// bias.  mask (B, t, T) bool bytes, null for no mask.  Outputs dq (B, H, t,
+// d), dk and dv (B, H, T, d) in the input dtype; dR (B, H, t, nbasis) and
+// db_nd (nbasis, bandsize) f32 (unused without R).  Scratch: stats
+// 3 * B * H * t f32, partial B * H * ceil(t / 32) * nbasis * bandsize f32
+// (unused without R; pass 1's blocks have at least 32 rows).  Returns a
+// cudaError_t (0 = launched).
 extern "C" int vpt_windowed_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                           const float* R, const float* b_nd, const uint8_t* mask, void* dq,
                                           void* dk, void* dv, float* dR, float* db_nd, float* stats,

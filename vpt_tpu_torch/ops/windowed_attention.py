@@ -11,6 +11,12 @@ backward is kernel B2 (csrc/windowed_attention_bwd.cu): the gradients of q,
 k, v, R and b_nd, with dR and d b_nd reduced in the kernel, so no (B, H, t, T)
 dL reaches device memory either.
 
+Both kernels run their products on tensor cores (mma.sync), at the accuracy
+of the input type: f32 operands are split into TF32 hi and lo parts and
+multiplied in three TF32 products, bf16 ones go straight to the bf16 tensor
+cores (csrc/attention_mma.cuh).  The arithmetic does not depend on
+``torch.backends.cuda.matmul.allow_tf32``.
+
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``windowed_attention_fwd_plain``, differentiated by autograd, and
 ``windowed_attention_bwd_plain``).  On a CUDA tensor it launches its kernel
@@ -35,7 +41,8 @@ BWD_KERNEL = "windowed_attention_bwd"
 SUPPORTED_D = (64, 128, 192)
 MAX_KEYS = 512
 MAX_NBASIS = 16
-QUERY_TILE = 32  # query rows per block of B2's first pass (csrc/windowed_attention_bwd.cu)
+QUERY_TILE = 32  # fewest query rows per block of B2's first pass (csrc/windowed_attention_bwd.cu)
+ALIGN = 16  # bytes: the kernels copy q, k, v and dO 16 bytes at a time
 
 launches = 0
 bwd_launches = 0
@@ -142,6 +149,8 @@ def _check(q, k, v, mask, R, b_nd) -> None:
             raise ValueError(f"all inputs must be on {q.device}, got one on {x.device}")
         if not x.is_contiguous():
             raise ValueError("all inputs must be contiguous")
+    if any(x.data_ptr() % ALIGN for x in (q, k, v)):
+        raise ValueError(f"q, k and v must start on a {ALIGN}-byte boundary")
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -238,8 +247,9 @@ def windowed_attention_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"windowed_attention_bwd runs on cpu or cuda, not {q.device}")
     _check(q, k, v, mask, R, b_nd)
-    if dO.shape != q.shape or dO.dtype != q.dtype or dO.device != q.device or not dO.is_contiguous():
-        raise ValueError(f"dO must be a contiguous {q.dtype} {tuple(q.shape)} on {q.device}, "
+    if (dO.shape != q.shape or dO.dtype != q.dtype or dO.device != q.device or not dO.is_contiguous()
+            or dO.data_ptr() % ALIGN):
+        raise ValueError(f"dO must be a contiguous, {ALIGN}-byte aligned {q.dtype} {tuple(q.shape)} on {q.device}, "
                          f"got {dO.dtype} {tuple(dO.shape)} on {dO.device}")
     B, H, t, d = q.shape
     T = k.shape[2]
