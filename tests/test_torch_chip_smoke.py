@@ -114,3 +114,51 @@ def test_sass_tensor_core_counts():
     assert cs.kernels_without_tensor_cores(counts) == ["_ZN12_GLOBAL__N_115bwd_rows_kernelIfLi128ELi64EEEvPKT_"]
     assert cs.kernels_without_tensor_cores({}) != []
     assert cs.kernels_without_tensor_cores({"k": 1, "db_reduce_kernel": 0}) == []
+
+
+def test_b1_work_at_the_idm_labeling_shape_has_no_mask():
+    """The IDM attends with no mask: no mask bytes, the band bias over 128 offsets."""
+    Bi, Hi = 4, 32
+    meta = dict(device="meta")
+    q = torch.empty((Bi, Hi, t, d), **meta)
+    kv = torch.empty((Bi, Hi, T, d), **meta)
+    R, b_nd = torch.empty((Bi, Hi, t, n), **meta), torch.empty((n, band), **meta)
+    nbytes, products, bias = cs.b1_work(q, kv, kv, None, R, b_nd)
+    assert nbytes == (Bi * Hi * t * d * 2 + Bi * Hi * T * d * 2) * 4 + (Bi * Hi * t * n + n * band) * 4
+    assert products == 2 * 2 * Bi * Hi * t * T * d and bias == 2 * Bi * Hi * t * band * n
+
+
+def test_materialised_bias_without_mask_is_the_relative_bias():
+    from vpt_tpu_torch.ops.rel_bias import relattn_bias
+
+    g = torch.Generator().manual_seed(0)
+    R, b_nd = torch.randn((2, 3, 4, n), generator=g), torch.randn((n, 4), generator=g)
+    assert torch.equal(cs.materialised_bias(None, R, b_nd, 8, torch.float32), relattn_bias(R, b_nd, 8))
+    mask = torch.rand((2, 4, 8), generator=g) < 0.5
+    got = cs.materialised_bias(mask, R, b_nd, 8, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and bool((got[~mask[:, None].expand_as(got)] < -1e8).all())
+
+
+@pytest.mark.parametrize("n_frames,window,stride,wb", [(20, 8, 4, 2), (16, 8, 8, 1), (5, 8, 4, 1), (21, 8, 4, 3)])
+def test_owned_labels_rederive_the_streaming_labeler(n_frames, window, stride, wb):
+    """Phase 8(b) holds the labeler against its own re-derivation of which
+    window owns each frame; at a tiny IDM on the CPU the two agree."""
+    import numpy as np
+
+    from vpt_tpu_torch.agent import IDMAgent, StreamingIDMLabeler
+
+    kwargs = dict(hidsize=32, impala_width=1, impala_chans=[4, 8], img_shape=[32, 32, 4],
+                  init_norm_kwargs={"batch_norm": False, "group_norm_groups": 1},
+                  impala_kwargs={"post_pool_groups": 1}, n_recurrence_layers=1, timesteps=8, attention_heads=2,
+                  attention_memory_size=16, recurrence_type="transformer", attention_mask_style="none",
+                  conv3d_params={"inchan": 3, "outchan": 4, "kernel_size": [5, 1, 1], "padding": [2, 0, 0]},
+                  use_pre_lstm_ln=False, obs_processing_width=16)
+    agent = IDMAgent(kwargs, {}, device="cpu", seed=1)
+    frames = np.random.default_rng(n_frames).integers(0, 256, (n_frames, 45, 80, 3), dtype=np.uint8)
+    labeler = StreamingIDMLabeler(agent, window=window, stride=stride, window_batch=wb)
+    labels = [x for f in frames for x in labeler.feed(f)] + labeler.finish()
+    resized = np.stack([labeler._resize(f) for f in frames])
+    direct = cs.owned_labels(agent, resized, window, stride, wb)
+    assert [i for i, _ in direct] == [i for i, _ in labels] == list(range(n_frames))
+    for (i, a), (_, b) in zip(labels, direct):
+        assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a), i

@@ -26,6 +26,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_vpt_tpu():
     names = _modules()
     assert "vpt_tpu_torch.ops.windowed_attention" in names and "vpt_tpu_torch.agent.agent" in names
+    assert "vpt_tpu_torch.agent.idm" in names and "vpt_tpu_torch.training.idm" in names
+    assert "vpt_tpu_torch.run_inverse_dynamics_model" in names and "vpt_tpu_torch.inverse_dynamics_train" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"
@@ -40,9 +42,12 @@ def test_every_module_imports_without_jax_or_vpt_tpu():
 
 def test_default_device_raises_without_cuda():
     code = (
-        "from vpt_tpu_torch.agent import MineRLAgent\n"
+        "from vpt_tpu_torch.agent import IDMAgent, MineRLAgent\n"
         "from vpt_tpu_torch.device import resolve_device\n"
-        "for make in (lambda: MineRLAgent(policy_kwargs={'hidsize': 8}), lambda: resolve_device(None)):\n"
+        "from vpt_tpu_torch.training.idm import IDMTrainer\n"
+        "kw = {'hidsize': 8, 'timesteps': 128, 'attention_mask_style': 'none'}\n"
+        "for make in (lambda: MineRLAgent(policy_kwargs={'hidsize': 8}), lambda: resolve_device(None),\n"
+        "             lambda: IDMAgent(kw, {}), lambda: IDMTrainer(kw, {})):\n"
         "    try:\n"
         "        make()\n"
         "    except RuntimeError as e:\n"

@@ -6,6 +6,9 @@ suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
+Every shape runs with mask and relative bias, with neither, and with the
+bias alone (the inverse dynamics model's unmasked attention).
+
 Tolerances.  B1: float32 rtol/atol 1e-4 (f32 sums in another order);
 bfloat16 rtol/atol 3e-2 (the softmax weights and the output each round to
 bf16, and a weight near a rounding boundary may round the other way).
@@ -43,6 +46,10 @@ def cuda():
 # B2's key pass): one row past or short of a tile, a single row against 511
 # keys of cache
 SHAPES = [(128, 128), (1, 128), (37, 64), (128, 384), (63, 65), (65, 128), (1, 511)]
+# the inverse dynamics model's attention: no mask, relative bias, 32 heads of
+# d = 128, a 128-frame window after 128 cache keys, and an 8-frame window
+# (T = 136, a key tile edge)
+IDM_SHAPES = [(128, 128), (8, 128)]
 
 
 def _inputs(dev, B, H, t, maxlen, d, dtype, seed):
@@ -64,7 +71,7 @@ def _inputs(dev, B, H, t, maxlen, d, dtype, seed):
 @pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("t,maxlen", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False)])
+@pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False), (False, True, True)])
 def test_b1_kernel_matches_plain(cuda, d, t, maxlen, dtype, use_mask, use_rel, muP):
     q, k, v, mask, R, b_nd = _inputs(cuda, 2, 3, t, maxlen, d, getattr(torch, dtype), d + t)
     mask = mask if use_mask else None
@@ -143,7 +150,7 @@ def _b2_close(got, expect, dtype):
 @pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("t,maxlen", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False)])
+@pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False), (False, True, True)])
 def test_b2_kernel_matches_plain(cuda, d, t, maxlen, dtype, use_mask, use_rel, muP):
     dtype = getattr(torch, dtype)
     q, k, v, mask, R, b_nd = _inputs(cuda, 2, 3, t, maxlen, d, dtype, d + t + 1)
@@ -155,6 +162,24 @@ def test_b2_kernel_matches_plain(cuda, d, t, maxlen, dtype, use_mask, use_rel, m
     torch.cuda.synchronize()
     assert wa.bwd_launches == before + 1
     _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, muP), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,maxlen", IDM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["B1", "B2"])
+def test_kernels_at_idm_shapes(cuda, t, maxlen, dtype, kernel):
+    dtype = getattr(torch, dtype)
+    q, k, v, _, R, b_nd = _inputs(cuda, 2, 32, t, maxlen, 128, dtype, t + 32)
+    if kernel == "B1":
+        got = wa.windowed_attention_fwd(q, k, v, None, R, b_nd, True)
+        tol = 1e-4 if dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(got.float(), wa.windowed_attention_fwd_plain(q, k, v, None, R, b_nd, True).float(),
+                                   rtol=tol, atol=tol)
+    else:
+        dO = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(t), device=cuda).to(dtype)
+        got = wa.windowed_attention_bwd(q, k, v, None, R, b_nd, dO, True)
+        _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, None, R, b_nd, dO, True), dtype)
 
 
 @pytest.mark.cuda

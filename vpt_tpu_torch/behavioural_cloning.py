@@ -4,7 +4,7 @@ behavioural_cloning.py):
 
     python -m vpt_tpu_torch.behavioural_cloning --data-dir DIR --in-model M.model \\
         --in-weights M.weights --out-weights OUT.weights [--batch-size 8] [--chunk-len 128] \\
-        [--epochs 2] [--compute-dtype float32] [--device cuda]
+        [--epochs 2] [--compute-dtype float32] [--labels-dir DIR] [--device cuda]
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -15,10 +15,10 @@ from vpt_tpu_torch.training.bc import BCHyperparams, BCTrainer
 
 
 def behavioural_cloning_train(data_dir, in_model, in_weights, out_weights, batch_size=8, chunk_len=128,
-                              epochs=2, compute_dtype="float32", device=None):
+                              epochs=2, compute_dtype="float32", device=None, labels_dir=None):
     hp = BCHyperparams(batch_size=batch_size, chunk_len=chunk_len, epochs=epochs)
     trainer = BCTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, device=device)
-    steps = trainer.train(data_dir, out_weights)
+    steps = trainer.train(data_dir, out_weights, labels_dir=labels_dir)
     print(f"Finished: {steps} optimizer steps → {out_weights}")
 
 
@@ -32,11 +32,14 @@ def main(argv=None):
     parser.add_argument("--chunk-len", type=int, default=128, help="Sequence window length (1 = reference single-step mode)")
     parser.add_argument("--epochs", type=int, default=2)
     parser.add_argument("--compute-dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--labels-dir", type=str, default=None,
+                        help="Train on IDM pseudo-labels: a directory of <video_id>.jsonl files "
+                             "instead of the jsonl beside each video")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
     args = parser.parse_args(argv)
     behavioural_cloning_train(args.data_dir, args.in_model, args.in_weights, args.out_weights,
                               batch_size=args.batch_size, chunk_len=args.chunk_len, epochs=args.epochs,
-                              compute_dtype=args.compute_dtype, device=args.device)
+                              compute_dtype=args.compute_dtype, device=args.device, labels_dir=args.labels_dir)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@
 pickle and ignores keys it does not know, as the reference's
 ``MinecraftPolicy.__init__`` swallows ``**unused_kwargs``.  The JAX package's
 TPU-only fields (``remat``, ``pool_impl``, ``cnn_scan_chunks``) and the
-fields of modules not ported yet (``quantize_dense``, ``conv3d_params``) are
-not here: ``from_kwargs`` ignores them.
+field of a module not ported yet (``quantize_dense``) are not here:
+``from_kwargs`` ignores them.
 """
 
 from __future__ import annotations
@@ -55,6 +55,10 @@ class PolicyConfig:
     use_pointwise_layer: bool = True
     pointwise_ratio: int = 4
     pointwise_use_activation: bool = False
+
+    # IDM conv3d front end (reference: policy.py:361-372), e.g. {"inchan": 3,
+    # "outchan": 128, "kernel_size": [5, 1, 1], "padding": [2, 0, 0]}
+    conv3d_params: Optional[Dict[str, Any]] = None
 
     # "float32" or "bfloat16".  Parameters stay float32; attention logits and
     # softmax, layer norms and the head log-softmax stay float32 regardless.
@@ -128,6 +132,29 @@ ACTION_TRANSFORMER_KWARGS: Dict[str, Any] = dict(
     camera_maxval=10,
     camera_mu=10,
     camera_quantization_scheme="mu_law",
+)
+
+
+# The 4x-width inverse dynamics model (a copy of the root bench.py's
+# IDM_4X_KWARGS): hidsize 4096, 32 heads, 2 blocks, Impala width 16, a conv3d
+# front of 3 -> 128 channels, unmasked attention; 0.482 B parameters.  The
+# published 4x_idm.model ships its own kwargs; in the reference's convention
+# img_shape[2] declares the conv3d's OUTPUT channels (see idm_input_shape).
+IDM_4X_KWARGS: Dict[str, Any] = dict(
+    hidsize=4096,
+    impala_width=16,
+    impala_chans=[16, 32, 32],
+    img_shape=[128, 128, 128],
+    init_norm_kwargs={"batch_norm": False, "group_norm_groups": 1},
+    impala_kwargs={"post_pool_groups": 1},
+    n_recurrence_layers=2,
+    timesteps=128,
+    attention_heads=32,
+    attention_memory_size=256,
+    recurrence_type="transformer",
+    attention_mask_style="none",
+    conv3d_params={"inchan": 3, "outchan": 128, "kernel_size": [5, 1, 1], "padding": [2, 0, 0]},
+    use_pre_lstm_ln=False,
 )
 
 

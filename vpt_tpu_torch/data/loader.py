@@ -8,6 +8,12 @@ action, null-action skipping, cursor compositing onto GUI frames at the
 recorded mouse position, and the cv2-exact resize to the agent resolution
 (the last two in the native library, data/video.py).
 
+IDM pseudo-labels (``{"frame": i, "action": {...}}`` rows, as
+``python -m vpt_tpu_torch.run_inverse_dynamics_model --out`` writes them) go
+through ``pseudo_label_steps``; ``steps_for`` picks the step generator by the
+jsonl's format, so one corpus may mix both, and ``labels_dir`` reads the
+labels from a directory of their own.
+
 ``SequenceDataLoader`` yields B parallel streams of contiguous T-step
 windows with the actions already factored into the joint categorical space.
 Each stream has one worker process that owns whole trajectories.  Workers
@@ -16,9 +22,9 @@ a parent that has initialised CUDA cannot be forked safely.  Under spawn
 the program that builds a loader must be importable (a script with an
 ``if __name__ == "__main__"`` guard).
 
-Not ported yet: the single-step ``DataLoader``, IDM pseudo-label steps
-(``labels_dir``), shards (``shard_id``/``num_shards``) and the resume cursor
-(``resume_state``/``state()``).
+Not ported yet: the single-step ``DataLoader``, shards
+(``shard_id``/``num_shards``) and the resume cursor (``resume_state``/
+``state()``, with ``skip_steps``).
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import multiprocessing
 import os
 import queue as queue_mod
 import random
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -111,35 +117,118 @@ def trajectory_steps(
             if emit and step_data.get("isGuiOpen", False):
                 xy = (int(step_data["mouse"]["x"] * scale), int(step_data["mouse"]["y"] * scale))
             steps.append((action, emit, xy))
-
-        pos = 0
-        while pos < len(steps):
-            if quit_event is not None and quit_event.is_set():
-                break
-            chunk = steps[pos:pos + DECODE_BATCH]
-            n = len(chunk)
-            emit_mask = np.fromiter((s[1] for s in chunk), np.uint8, n)
-            xy = np.full((n, 2), VideoReader.CURSOR_NONE, np.int32)
-            for j, (_, _, cxy) in enumerate(chunk):
-                if cxy is not None:
-                    xy[j] = cxy
-            got, frames = video.read_batch(n, resolution, emit=emit_mask, cursor_xy=xy, cursor=cursor)
-            for j in range(got):
-                if chunk[j][1]:
-                    yield frames[j], chunk[j][0]
-            if got < n:  # video shorter than the jsonl (reference data_loader.py:122-123)
-                print(f"Could not read frame from video {video_path}")
-                break
-            pos += got
+        yield from _emit_resized_frames(video, steps, resolution, cursor, quit_event, video_path)
     finally:
         video.close()
 
 
-def _discover(dataset_dir: str) -> List[Tuple[str, str]]:
-    """Each ``*.mp4`` of the directory with the ``.jsonl`` beside it, sorted by id."""
+def _emit_resized_frames(video, steps, resolution, cursor, quit_event, video_path):
+    """The pixel phase of a step plan ``[(action, emit, cursor_xy or None)]``:
+    decode, cursor composite and resize ``DECODE_BATCH`` frames a native
+    call, yielding (frame, action) for the emitting steps."""
+    from vpt_tpu_torch.data.video import VideoReader
+
+    pos = 0
+    while pos < len(steps):
+        if quit_event is not None and quit_event.is_set():
+            break
+        chunk = steps[pos:pos + DECODE_BATCH]
+        n = len(chunk)
+        emit_mask = np.fromiter((s[1] for s in chunk), np.uint8, n)
+        xy = np.full((n, 2), VideoReader.CURSOR_NONE, np.int32)
+        for j, (_, _, cxy) in enumerate(chunk):
+            if cxy is not None:
+                xy[j] = cxy
+        got, frames = video.read_batch(n, resolution, emit=emit_mask, cursor_xy=xy, cursor=cursor)
+        for j in range(got):
+            if chunk[j][1]:
+                yield frames[j], chunk[j][0]
+        if got < n:  # video shorter than the jsonl (reference data_loader.py:122-123)
+            print(f"Could not read frame from video {video_path}")
+            break
+        pos += got
+
+
+def _is_pseudo_label_file(json_path: str) -> bool:
+    """True for IDM pseudo-label jsonl (rows ``{"frame": i, "action": {...}}``),
+    False for recorder-format contractor jsonl."""
+    with open(json_path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                row = json.loads(line)
+                return "action" in row and "frame" in row
+    return False
+
+
+def pseudo_label_steps(
+    video_path: str,
+    json_path: str,
+    resolution: Tuple[int, int] = AGENT_RESOLUTION,
+    cursor=None,
+    quit_event=None,
+):
+    """Generator of (frame, env_action) for an IDM pseudo-labeled recording.
+
+    Rows are already env actions, so none of the recorder fixups apply (no
+    stuck attack, no hotbar tracking, no cursor: the IDM predicts no GUI
+    state).  Null actions (all buttons 0 and a zero camera, which the IDM's
+    centre camera bin decodes to exactly) are skipped as on the contractor
+    path (reference data_loader.py:109-111).  Frames without a label row are
+    decoded, to stay in step, but not emitted.
+    """
+    from vpt_tpu_torch.data.video import VideoReader
+
+    by_frame: Dict[int, dict] = {}
+    for row in _load_jsonl(json_path):
+        by_frame[int(row["frame"])] = row["action"]
+    video = VideoReader(video_path)
+    try:
+        steps = []  # (env_action, emit, None)
+        for i in range(max(by_frame, default=-1) + 1):
+            raw = by_frame.get(i)
+            if raw is None:
+                steps.append((None, False, None))
+                continue
+            action, is_null = {}, True
+            for k, v in raw.items():
+                if k == "camera":
+                    action[k] = np.asarray(v, np.float32).reshape(2)
+                    is_null = is_null and bool(np.all(action[k] == 0.0))
+                else:
+                    action[k] = int(np.asarray(v).reshape(-1)[0])
+                    is_null = is_null and action[k] == 0
+            steps.append((action, not is_null, None))
+        yield from _emit_resized_frames(video, steps, resolution, cursor if cursor is not None else default_cursor(),
+                                        quit_event, video_path)
+    finally:
+        video.close()
+
+
+def steps_for(video_path: str, json_path: str, **kw):
+    """The step generator for a recording's jsonl format: contractor data
+    through :func:`trajectory_steps` (every fixup), IDM pseudo-labels
+    through :func:`pseudo_label_steps`."""
+    if _is_pseudo_label_file(json_path):
+        return pseudo_label_steps(video_path, json_path, **kw)
+    return trajectory_steps(video_path, json_path, **kw)
+
+
+def _discover(dataset_dir: str, labels_dir: Optional[str] = None) -> List[Tuple[str, str]]:
+    """Each ``*.mp4`` of the directory, sorted by id, with its ``.jsonl``:
+    beside it, or in ``labels_dir`` where given (pseudo-labels kept apart
+    from the videos), where videos not labeled yet are skipped with a
+    notice."""
     unique_ids = sorted({os.path.basename(x).split(".")[0] for x in glob.glob(os.path.join(dataset_dir, "*.mp4"))})
-    return [(os.path.abspath(os.path.join(dataset_dir, uid + ".mp4")),
-             os.path.abspath(os.path.join(dataset_dir, uid + ".jsonl"))) for uid in unique_ids]
+    pairs = [(os.path.abspath(os.path.join(dataset_dir, uid + ".mp4")),
+              os.path.abspath(os.path.join(labels_dir or dataset_dir, uid + ".jsonl"))) for uid in unique_ids]
+    if labels_dir is None:
+        return pairs
+    labeled = [(v, j) for v, j in pairs if os.path.exists(j)]
+    if len(labeled) < len(pairs):
+        print(f"[vpt_tpu_torch] {len(pairs) - len(labeled)}/{len(pairs)} videos in {dataset_dir} have "
+              f"no label file in {labels_dir}; skipped")
+    return labeled
 
 
 def _robust_put(q, item, quit_event) -> bool:
@@ -180,8 +269,8 @@ def _sequence_worker(tasks_queue, output_queue, quit_event, chunk_len, resolutio
         frames, acts = [], []
         first_chunk = True
         try:
-            for frame, action in trajectory_steps(video_path, json_path, resolution=resolution,
-                                                  cursor=cursor, quit_event=quit_event):
+            for frame, action in steps_for(video_path, json_path, resolution=resolution,
+                                           cursor=cursor, quit_event=quit_event):
                 frames.append(frame)
                 acts.append(action)
                 if len(frames) == chunk_len:
@@ -219,14 +308,17 @@ class SequenceDataLoader:
 
     Stream i owns the positions i, i + B, i + 2B, ... of the (per-epoch
     shuffled) trajectory list; the first stream to run out ends the epoch.
+    ``labels_dir`` reads each video's jsonl from there (pseudo-labels kept
+    apart from the videos); each jsonl's format is detected either way.
     """
 
     def __init__(self, dataset_dir, batch_size=8, chunk_len=128, n_epochs=1, max_queue_size=8,
-                 resolution: Tuple[int, int] = AGENT_RESOLUTION, seed: Optional[int] = None):
+                 resolution: Tuple[int, int] = AGENT_RESOLUTION, seed: Optional[int] = None,
+                 labels_dir: Optional[str] = None):
         from vpt_tpu_torch.data.video import build
 
         build()  # once here, not once per worker
-        demonstration_tuples = _discover(dataset_dir)
+        demonstration_tuples = _discover(dataset_dir, labels_dir)
         if batch_size > len(demonstration_tuples):
             raise ValueError(f"batch_size {batch_size} should be <= number of demonstrations "
                              f"{len(demonstration_tuples)}")

@@ -1,0 +1,49 @@
+"""Train an inverse dynamics model on contractor recordings with the PyTorch
+port (counterpart of the root inverse_dynamics_train.py):
+
+    python -m vpt_tpu_torch.inverse_dynamics_train --data-dir DIR --in-model IDM.model \\
+        --out-weights OUT.weights [--in-weights IDM.weights] [--val-dir DIR] [--batch-size 8] \\
+        [--window 128] [--epochs 2] [--compute-dtype float32] [--device cuda]
+
+Takes BC's dataset layout (mp4 + jsonl pairs).  ``--in-weights`` warm-starts
+from existing IDM weights, else training starts from random weights;
+``--val-dir`` reports held-out NLL and argmax exact-match rates after
+training.  Runs on CUDA unless ``--device cpu`` is given.
+"""
+
+from argparse import ArgumentParser
+
+from vpt_tpu_torch.training.idm import IDMHyperparams, IDMTrainer
+
+
+def inverse_dynamics_train(data_dir, in_model, out_weights, in_weights=None, batch_size=8, window=128, epochs=2,
+                           compute_dtype="float32", device=None, val_dir=None):
+    hp = IDMHyperparams(batch_size=batch_size, window=window, epochs=epochs)
+    trainer = IDMTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, device=device)
+    steps = trainer.train(data_dir, out_weights)
+    print(f"Finished: {steps} optimizer steps → {out_weights}")
+    if val_dir:
+        print("held-out:", trainer.evaluate(val_dir))
+    return trainer
+
+
+def main(argv=None):
+    parser = ArgumentParser()
+    parser.add_argument("--data-dir", type=str, required=True, help="Directory of labeled recordings (mp4 + jsonl) to train on")
+    parser.add_argument("--in-model", required=True, type=str, help="Path to the IDM '.model' file (architecture kwargs)")
+    parser.add_argument("--in-weights", type=str, default=None, help="Optional '.weights' to warm-start from")
+    parser.add_argument("--out-weights", required=True, type=str, help="Path where trained IDM weights will be saved")
+    parser.add_argument("--val-dir", type=str, default=None, help="Held-out recordings: report NLL and exact-match after training")
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--window", type=int, default=128, help="Frames a training window (the published IDM's geometry)")
+    parser.add_argument("--epochs", type=int, default=2)
+    parser.add_argument("--compute-dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    return inverse_dynamics_train(args.data_dir, args.in_model, args.out_weights, in_weights=args.in_weights,
+                           batch_size=args.batch_size, window=args.window, epochs=args.epochs,
+                           compute_dtype=args.compute_dtype, device=args.device, val_dir=args.val_dir)
+
+
+if __name__ == "__main__":
+    main()

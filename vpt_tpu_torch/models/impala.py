@@ -94,7 +94,10 @@ class ImpalaCNN(nn.Module):
     def forward(self, x_bthwc: torch.Tensor) -> torch.Tensor:
         b, t = x_bthwc.shape[:2]
         x = x_bthwc.reshape((b * t,) + tuple(x_bthwc.shape[2:])).permute(0, 3, 1, 2)
+        return self.forward_nchw(x).reshape(b, t, self.outsize)
+
+    def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, C, H, W) frames → (N, outsize)."""
         for stack in self.stacks:
             x = stack(x)
-        x = self.dense(x.reshape(b * t, -1))  # NCHW flatten is channel-major
-        return x.reshape(b, t, self.outsize)
+        return self.dense(x.reshape(x.shape[0], -1))  # NCHW flatten is channel-major

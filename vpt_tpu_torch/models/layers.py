@@ -17,7 +17,7 @@ from one explicit ``torch.Generator``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -116,9 +116,11 @@ class FanInInitLayer(nn.Module):
 
     Mirrors FanInInitReLULayer (reference: lib/util.py:23-82): the norm is
     applied to the *input*, the layer has a bias only when there is no norm,
-    and the activation is optional.  ``layer_type`` ∈ {linear, conv}; conv
-    layers take NCHW.  (The reference's batch norm and conv3d, used by no
-    policy on this path, are not ported yet.)
+    and the activation is optional.  ``layer_type`` ∈ {linear, conv,
+    conv3d}: conv layers take NCHW, conv3d layers NCDHW (the IDM's front
+    end, with D the time axis); ``kernel_size``, ``padding`` and ``stride``
+    are an int for every spatial axis or one per axis.  (The reference's
+    batch norm, used by no published model, is not ported.)
     """
 
     def __init__(
@@ -131,8 +133,9 @@ class FanInInitLayer(nn.Module):
         group_norm_groups: Optional[int] = None,
         layer_norm: bool = False,
         use_activation: bool = True,
-        kernel_size: int = 3,
-        padding: int = 1,
+        kernel_size: Union[int, Tuple[int, ...]] = 3,
+        padding: Union[int, Tuple[int, ...]] = 1,
+        stride: Union[int, Tuple[int, ...]] = 1,
         dtype: torch.dtype = torch.float32,
         device=None,
     ):
@@ -143,6 +146,7 @@ class FanInInitLayer(nn.Module):
         self.init_scale = init_scale
         self.use_activation = use_activation
         self.padding = padding
+        self.stride = stride
         self.dtype = dtype
         self.norm = None
         if group_norm_groups is not None:
@@ -152,8 +156,12 @@ class FanInInitLayer(nn.Module):
         has_bias = self.norm is None
         if layer_type == "linear":
             shape = (outchan, inchan)
-        elif layer_type == "conv":
-            shape = (outchan, inchan, kernel_size, kernel_size)
+        elif layer_type in ("conv", "conv3d"):
+            ndim = 2 if layer_type == "conv" else 3
+            ks = (kernel_size,) * ndim if isinstance(kernel_size, int) else tuple(kernel_size)
+            if len(ks) != ndim:
+                raise ValueError(f"{layer_type} needs {ndim} kernel sizes, got {kernel_size}")
+            shape = (outchan, inchan) + ks
         else:
             raise NotImplementedError(layer_type)
         self.layer = nn.Module()
@@ -175,6 +183,8 @@ class FanInInitLayer(nn.Module):
         b = None if self.layer.bias is None else self.layer.bias.to(dt)
         if self.layer_type == "linear":
             x = F.linear(x.to(dt), w, b)
+        elif self.layer_type == "conv":
+            x = F.conv2d(x.to(dt), w, b, stride=self.stride, padding=self.padding)
         else:
-            x = F.conv2d(x.to(dt), w, b, padding=self.padding)
+            x = F.conv3d(x.to(dt), w, b, stride=self.stride, padding=self.padding)
         return F.relu(x) if self.use_activation else x

@@ -1,11 +1,17 @@
-"""The VPT agent policy graph (counterpart of vpt_tpu/models/policy.py;
-reference lib/policy.py).
+"""The two VPT model graphs, the agent policy and the inverse dynamics model
+(counterpart of vpt_tpu/models/policy.py; reference lib/policy.py).
 
-Flow (reference policy.py:193-218):
+Flow (policy, reference policy.py:193-218):
     uint8 frames (B, T, H, W, C) → ImgPreprocessing (/255) → ImpalaCNN →
     linear → hidsize → [pre_lstm_ln] → n × ResidualRecurrentBlock →
     ReLU → lastlayer (LN → linear → ReLU) → final LayerNorm →
     {pi_head (dict of categoricals), value_head (ScaledMSE)}
+
+Flow (IDM, reference policy.py:374-392): a conv3d front end over
+(B, C, T, H, W) before the Impala stack, unmasked attention, no value head,
+and ``final_ln`` applied to the activations *before* ``lastlayer``, whose
+result is computed and discarded (the reference's quirk, kept so that the
+parameter exists for checkpoints).
 
 The recurrent state (per-block KV caches and state masks) is an explicit
 argument and return value, as in the JAX package.  Module and parameter
@@ -75,6 +81,10 @@ class ImgObsProcess(nn.Module):
 
     def forward(self, x):
         return self.linear(self.cnn(x))
+
+    def forward_nchw(self, x: torch.Tensor, b: int, t: int) -> torch.Tensor:
+        """(B·T, C, H, W) frames → (B, T, hidsize)."""
+        return self.linear(self.cnn.forward_nchw(x).reshape(b, t, -1))
 
 
 class MinecraftPolicy(nn.Module):
@@ -151,6 +161,108 @@ class MinecraftAgentPolicy(nn.Module):
                              generator=generator)
         log_prob = dict_logprob(logits, action, self.head_specs)
         return action, state_out, {"log_prob": log_prob, "vpred": out["vpred"][:, 0, 0]}
+
+
+class InverseActionNet(nn.Module):
+    """IDM trunk: conv3d → Impala → unmasked transformer (reference:
+    policy.py:342-403)."""
+
+    def __init__(self, cfg: PolicyConfig, device=None):
+        super().__init__()
+        if cfg.recurrence_type != "transformer":
+            raise NotImplementedError(f"recurrence_type {cfg.recurrence_type!r} is not ported")
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.compute_dtype)
+        self.img_preprocess = ImgPreprocessing(cfg.scale_input_img, cfg.img_statistics, device)
+        self.conv3d_layer = None
+        cnn_cfg = cfg
+        if cfg.conv3d_params is not None:
+            p = dict(cfg.conv3d_params)
+            ks, pad, stride = (_triple(p.get(k, d)) for k, d in (("kernel_size", 3), ("padding", 0), ("stride", 1)))
+            # the Impala stack takes the conv3d's output frames, whatever img_shape[2] says
+            h, w = ((n + 2 * pad[i] - ks[i]) // stride[i] + 1 for i, n in ((1, cfg.img_shape[0]), (2, cfg.img_shape[1])))
+            cnn_cfg = cfg.replace(img_shape=(h, w, int(p["outchan"])))
+            # the first layer: its input is already normalised, so no norm
+            # (reference: policy.py:361-372 strips the norm kwargs)
+            self.conv3d_layer = FanInInitLayer(
+                idm_input_shape(cfg)[2], p["outchan"], layer_type="conv3d",
+                kernel_size=ks, padding=pad, stride=stride, dtype=dtype, device=device,
+            )
+        # the first Impala conv is normed iff a conv3d front end exists (reference: policy.py:354-359)
+        self.img_process = ImgObsProcess(cnn_cfg.replace(first_conv_norm=cfg.conv3d_params is not None), device)
+        self.recurrent_layer = ResidualRecurrentBlocks(
+            cfg.hidsize, cfg.timesteps, n_block=cfg.n_recurrence_layers,
+            is_residual=cfg.recurrence_is_residual, recurrence_type=cfg.recurrence_type,
+            use_pointwise_layer=cfg.use_pointwise_layer, pointwise_ratio=cfg.pointwise_ratio,
+            pointwise_use_activation=cfg.pointwise_use_activation,
+            attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
+            attention_mask_style=cfg.attention_mask_style, dtype=dtype, device=device,
+        )
+        self.lastlayer = FanInInitLayer(cfg.hidsize, cfg.hidsize, layer_type="linear",
+                                        layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)
+        self.final_ln = LayerNorm(cfg.hidsize, device=device)
+
+    def conv3d_front(self, x: torch.Tensor):
+        """Preprocessed (B, T, H, W, C) frames → the conv3d's output as
+        (B·T', C', H', W') frames, and B, T'.  Time is the conv's depth axis,
+        so its padding is zero at the window's edges."""
+        x = self.conv3d_layer(x.permute(0, 4, 1, 2, 3))  # (B, C', T', H', W')
+        return x.transpose(1, 2).flatten(0, 1), x.shape[0], x.shape[2]
+
+    def embed(self, img: torch.Tensor) -> torch.Tensor:
+        """uint8 (B, T, H, W, C) → (B, T, hidsize) latents before the blocks."""
+        x = self.img_preprocess(img)
+        if self.conv3d_layer is None:
+            return self.img_process(x)
+        return self.img_process.forward_nchw(*self.conv3d_front(x))
+
+    def forward(self, img, first, state):
+        x, state_out = self.recurrent_layer(self.embed(img), first, state)
+        x = F.relu(x)
+        self.lastlayer(x)  # reference quirk: computed, then overwritten (policy.py:390-391)
+        return self.final_ln(x), state_out
+
+
+class InverseActionPolicy(nn.Module):
+    """IDM trunk + factored action head (reference: policy.py:406-467)."""
+
+    def __init__(self, cfg: PolicyConfig, head_specs: Tuple[HeadSpec, ...],
+                 temperature: float = 1.0, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.head_specs = head_specs
+        self.net = InverseActionNet(cfg, device)
+        self.pi_head = DictActionHead(cfg.hidsize, head_specs, temperature, torch_dtype(cfg.compute_dtype), device)
+
+    def forward(self, img, first, state, action_mask: Optional[Dict] = None):
+        """:param img: (B, T, H, W, C) uint8 video frames; first: (B, T) bool
+        :returns: ({"pi_logits": dict}, state_out)"""
+        latent, state_out = self.net(img, first, state)
+        return {"pi_logits": self.pi_head(latent, mask=action_mask)}, state_out
+
+    def predict(self, img, first, state, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """(action, state_out, {"log_prob", "pd"}) over a frame window
+        (reference: policy.py:448-464)."""
+        out, state_out = self(img, first, state)
+        pd = out["pi_logits"]
+        action = dict_sample(pd, self.head_specs, deterministic=deterministic, generator=generator)
+        return action, state_out, {"log_prob": dict_logprob(pd, action, self.head_specs), "pd": pd}
+
+
+def _triple(x) -> Tuple[int, int, int]:
+    return (int(x),) * 3 if isinstance(x, int) else tuple(int(v) for v in x)
+
+
+def idm_input_shape(cfg: PolicyConfig) -> Tuple[int, int, int]:
+    """The raw (h, w, c) video input shape of an IDM config.  In the
+    reference's kwargs ``img_shape[2]`` declares the Impala stack's input,
+    i.e. the conv3d's OUTPUT channels (the published 4x IDM ships
+    ``img_shape=[128, 128, 128]``), not the video's."""
+    h, w, c = cfg.img_shape
+    if cfg.conv3d_params:
+        c = int(cfg.conv3d_params.get("inchan", 3))
+    return int(h), int(w), int(c)
 
 
 def policy_initial_state(cfg: PolicyConfig, batchsize: int, ring: bool = False, device=None):

@@ -14,7 +14,7 @@ kernel B1 forward and kernel B2 backward (ops/windowed_attention.py).
 
 Hyperparameters default to the reference's (behavioural_cloning.py:25-40).
 Not ported yet: mid-run checkpoints and resume, multi-process and sharded
-training, remat, QAT (``qat_dense``) and pseudo-label data (``labels_dir``).
+training, remat and QAT (``qat_dense``).
 """
 
 from __future__ import annotations
@@ -247,7 +247,8 @@ class BCTrainer:
     # ------------------------------------------------------------- evaluation
 
     @torch.no_grad()
-    def evaluate(self, data_dir: str, max_batches: Optional[int] = None) -> Dict[str, float]:
+    def evaluate(self, data_dir: str, max_batches: Optional[int] = None,
+                 labels_dir: Optional[str] = None) -> Dict[str, float]:
         """Held-out BC objective over a dataset directory: mask-weighted
         negative log-likelihood per frame.  The loader's partition of
         trajectories over streams depends on ``hp.batch_size``: compare runs
@@ -257,7 +258,8 @@ class BCTrainer:
         self.init()
         hp = self.hp
         loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.chunk_len, n_epochs=1,
-                                    seed=self._seed, resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]))
+                                    seed=self._seed, resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]),
+                                    labels_dir=labels_dir)
         state = self.initial_state(hp.batch_size)
         last_episode = np.full(hp.batch_size, -1, np.int64)
         nll_sum, frames, n_batches = 0.0, 0.0, 0
@@ -277,10 +279,13 @@ class BCTrainer:
 
     # -------------------------------------------------------------------- run
 
-    def train(self, data_dir: str, out_weights: str, metrics: Optional[MetricsLogger] = None) -> int:
-        """Fine-tune over a contractor dataset directory for ``hp.epochs``,
-        logging every ``hp.loss_report_rate`` steps, then write the weights
-        to ``out_weights``.  Returns the number of optimizer steps taken."""
+    def train(self, data_dir: str, out_weights: str, metrics: Optional[MetricsLogger] = None,
+              labels_dir: Optional[str] = None) -> int:
+        """Fine-tune over a contractor dataset directory for ``hp.epochs`` (or,
+        with ``labels_dir``, over its videos with the IDM pseudo-labels kept
+        there), logging every ``hp.loss_report_rate`` steps, then write the
+        weights to ``out_weights``.  Returns the number of optimizer steps
+        taken."""
         from vpt_tpu_torch.data.loader import SequenceDataLoader
 
         hp = self.hp
@@ -288,7 +293,7 @@ class BCTrainer:
         metrics = metrics or MetricsLogger()
         loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.chunk_len,
                                     n_epochs=hp.epochs, seed=self._seed,
-                                    resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]))
+                                    resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]), labels_dir=labels_dir)
         state = self.initial_state(hp.batch_size)
         last_episode = np.full(hp.batch_size, -1, np.int64)
 
