@@ -48,16 +48,38 @@ Phases, each of which fails the run if it fails:
      forward's split (conv3d, Impala CNN, blocks, head);
      (c) four IDM train steps at B=3 windows of T=128 in float32 (B1 and B2
      once per block and step), ms/step, frames/s, peak memory and the
-     step's split.
+     step's split;
+     (d) IDMAgent.predict_actions on 512 frames (T = 640 keys, past the
+     kernels' 512-key chunk), its logits against the same forward with the
+     plain attention on the card, B1 once per block;
+  9. KL-anchored PPO on the 2x policy (random weights from seed 0):
+     (a) 2 streams x 16 steps collected on the card, then one update
+     (n_epochs 1, n_minibatches 1, ending in one PPG aux step) on the card and
+     on the CPU from the same weights and anchor: metrics, grad norm, every
+     grad of both steps (as 7(a)) and the folded EWMA stats; and the stepped
+     collection's logp and values against the chunked re-forward from the
+     window-start snapshot, with 1 and 2 collection groups;
+     (b) vpt_tpu's PPO geometry in bfloat16 (bench.py bench_ppo_collect): 64
+     MockMinecraftEnv streams x 64 steps in 4 collection groups, 16
+     minibatches of 4 streams, 3 epochs, the anchor forward in 1024-frame
+     chunks; one warm and one timed collect and update: collect frames/s and
+     the host resize's share, the update's split, peak memory, and B1 208 and
+     B2 192 launches per update;
+     (c) PPOTrainer.evaluate on 4 streams until 4 episodes end: a finite
+     report, the trainer's generators untouched.
+Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
+time them at the IDM's long-call shape and at the PPO minibatch's.
 It prints one JSON line with every kernel's numbers, then, last,
 {"ok": true, "device": {...}}.  It exits non-zero, with no "ok" line, where
 there is no CUDA device.
 
     python3 chip_smoke.py --time-kernels
 
-times kernels B1 and B2 alone, in float32 and bfloat16 at the 2x chunk shape,
-beside their plain versions, SDPA and their bounds (phases 1 and 2's build,
-then the timings of phases 3 and 6), and prints them as its last line.  It
+times kernels B1 and B2 alone, in float32 and bfloat16, at every shape of at
+most 512 keys that PERF.md's kernel table holds (the 2x chunk, the IDM's
+labeling and training batches, the PPO minibatch), beside their plain
+versions, SDPA and their bounds (phases 1 and 2's build, then the timings of
+phases 3 and 6), and prints them as its last line.  It
 drives whichever vpt_tpu_torch package it imports, so run from an unpacked
 older commit with this file copied in, it times that commit's kernels by the
 same clock, for a comparison inside one call.
@@ -103,6 +125,21 @@ IDM_TRAIN_B, IDM_TRAIN_STEPS = 3, 4
 # (mask, relative bias) cases of phases 3 and 6; the IDM attends with the bias and no mask
 MASK_REL_CASES = ((True, True), (False, False), (True, False), (False, True))
 IDM_SHAPES = ((IDM_WINDOW, 128), (8, 128))  # (t, maxlen): the labeling window, phase 8(a)'s window
+# (t, maxlen) past the kernels' 512-key chunk: the IDM's 512-frame predict_actions (T = 640), and
+# three chunks with the longest band table (T = 1152); the long call's timing shape (B, H)
+LONG_SHAPES = ((512, 128), (640, 512))
+LONG_CALL_B, LONG_CALL_H = 1, 32
+# PPO at vpt_tpu's bench geometry (bench.py bench_ppo_collect): streams, steps, collection groups,
+# minibatches (4 streams of 64 steps: 256 frames, bench's fit rule at 2x), epochs, anchor chunk frames
+PPO_STREAMS, PPO_STEPS, PPO_GROUPS, PPO_MINIBATCHES, PPO_EPOCHS, PPO_ANCHOR_FRAMES = 64, 64, 4, 16, 3, 1024
+PPO_CHECK_STREAMS, PPO_CHECK_STEPS = 2, 16  # phase 9(a)
+STATS_RTOL = 1e-6  # the folded EWMA stats, card against CPU
+# Phase 9(a)'s grads outside the CNN, on relative L2 as the CNN's: its update
+# sums over 32 frames, ~1M ReLU decisions of the blocks' MLPs (8 in phase 7(a):
+# ~0.25M), and one decision that rounding flips moves a whole term of a row of
+# a weight's gradient, a few percent of that row; over a whole tensor that is
+# ~1e-3 in L2, while a wrong attention gradient is O(1)
+PPO_GRAD_REL_L2 = 1e-2
 TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
 
@@ -273,8 +310,23 @@ def time_b1(q, k, v, mask, R, b_nd, label="2x chunk"):
     return ms, plain_ms, library_ms, bound_ms, bound_by
 
 
+def check_b1_case(wa, q, k, v, mask, R, b_nd, label):
+    """B1 on these inputs against its plain version; returns the max-abs error."""
+    got = wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
+    torch.cuda.synchronize()
+    err = (got.float() - wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True).float()).abs().max().item()
+    tol = F32_TOL if q.dtype == torch.float32 else BF16_TOL
+    log(f"B1 {label} {str(q.dtype)[6:]} mask={mask is not None} rel={R is not None}: max_abs_err {err:.3e} "
+        f"(tol {tol})")
+    if not err <= tol:
+        raise AssertionError(f"B1 disagrees with its plain version ({label}): {err} > {tol}")
+    return err
+
+
 def check_b1(dev):
-    """Phase 3: B1 against its plain version; timings at the 2x chunk shape."""
+    """Phase 3: B1 against its plain version, past 512 keys too; timings at
+    the 2x chunk, the IDM's labeling and long-call shapes and the PPO
+    minibatch's."""
     import torch.nn.functional as F
 
     from vpt_tpu_torch.ops import windowed_attention as wa
@@ -287,27 +339,20 @@ def check_b1(dev):
                 q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, d, dtype, d)
                 mask = mask if use_mask else None
                 R, b_nd = (R, b_nd) if use_rel else (None, None)
-                got = wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
-                torch.cuda.synchronize()
-                expect = wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True)
-                err = (got.float() - expect.float()).abs().max().item()
-                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-                log(f"B1 d={d} {str(dtype)[6:]} mask={use_mask} rel={use_rel}: max_abs_err {err:.3e} (tol {tol})")
-                if not err <= tol:
-                    raise AssertionError(f"B1 disagrees with its plain version: {err} > {tol}")
+                err = check_b1_case(wa, q, k, v, mask, R, b_nd, f"d={d}")
                 if d == 128 and dtype == torch.float32 and use_mask and use_rel:
                     main_err = err
     for t, maxlen in IDM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, _, R, b_nd = attention_inputs(dev, IDM_WINDOW_BATCH, 32, t, maxlen, 128, dtype, t)
-            got = wa.windowed_attention_fwd(q, k, v, None, R, b_nd, True)
-            torch.cuda.synchronize()
-            err = (got.float() - wa.windowed_attention_fwd_plain(q, k, v, None, R, b_nd, True).float()).abs().max().item()
-            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-            log(f"B1 IDM H=32 t={t} T={t + maxlen} {str(dtype)[6:]} mask=False rel=True: max_abs_err {err:.3e} "
-                f"(tol {tol})")
-            if not err <= tol:
-                raise AssertionError(f"B1 disagrees with its plain version at the IDM's shape: {err} > {tol}")
+            check_b1_case(wa, q, k, v, None, R, b_nd, f"IDM H=32 t={t} T={t + maxlen}")
+    for t, maxlen in LONG_SHAPES:  # past the 512-key chunk: the kernel walks the keys in chunks
+        for d in (64, 128, 192):
+            for dtype in (torch.float32, torch.bfloat16):
+                for use_mask, use_rel in MASK_REL_CASES:
+                    q, k, v, mask, R, b_nd = attention_inputs(dev, 2, 16, t, maxlen, d, dtype, d + t)
+                    check_b1_case(wa, q, k, v, mask if use_mask else None, R if use_rel else None,
+                                  b_nd if use_rel else None, f"d={d} t={t} T={t + maxlen}")
 
     # timings at the main path's shape: 2x chunk, mask and bias, float32 (the main path's type) and bfloat16
     q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, 128, torch.float32, 0)
@@ -317,10 +362,6 @@ def check_b1(dev):
     log(f"SDPA+bias vs plain B1, 2x chunk f32: max_abs_err {lib_err:.2e}")
     ms, plain_ms, library_ms, bound_ms, bound_by = time_b1(q, k, v, mask, R, b_nd)
     time_b1(*(x.bfloat16() for x in (q, k, v)), mask, R, b_nd)
-    # and at the IDM's labeling forward: a window batch of 4, 32 heads, no mask
-    q, k, v, _, R, b_nd = attention_inputs(dev, IDM_WINDOW_BATCH, 32, IDM_WINDOW, 128, 128, torch.float32, 0)
-    idm = {str(dt)[6:]: dict(zip(TIME_KEYS, time_b1(q.to(dt), k.to(dt), v.to(dt), None, R, b_nd, "IDM window")))
-           for dt in (torch.float32, torch.bfloat16)}
     return {
         "name": "windowed_attention_fwd",
         "route": "cuda",
@@ -333,8 +374,25 @@ def check_b1(dev):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-        "idm_labeling_shape": idm,
+        # a window batch of 4 at 32 heads, no mask; the IDM's 512-frame predict_actions; the PPO minibatch
+        "idm_labeling_shape": shape_times(time_b1, dev, IDM_WINDOW_BATCH, 32, IDM_WINDOW, 128, False, "IDM window"),
+        "long_call_shape": shape_times(time_b1, dev, LONG_CALL_B, LONG_CALL_H, 512, 128, False, "IDM long call"),
+        "ppo_minibatch_shape": shape_times(time_b1, dev, PPO_STREAMS // PPO_MINIBATCHES, 16, PPO_STEPS, 128, True,
+                                           "PPO minibatch"),
     }
+
+
+def shape_times(timer, dev, B, H, t, maxlen, use_mask, label):
+    """{dtype: the timing keys} of time_b1 or time_b2 at (B, H, t, T = t +
+    maxlen, d = 128) with the relative bias, in float32 and bfloat16."""
+    q, k, v, mask, R, b_nd = attention_inputs(dev, B, H, t, maxlen, 128, torch.float32, 0)
+    mask = mask if use_mask else None
+    extra = ()
+    if timer is time_b2:
+        extra = (torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev),)
+    return {str(dt)[6:]: dict(zip(TIME_KEYS, timer(q.to(dt), k.to(dt), v.to(dt), mask, R, b_nd,
+                                                   *(x.to(dt) for x in extra), label=label)))
+            for dt in (torch.float32, torch.bfloat16)}
 
 
 def synthetic_obs(rng, n):
@@ -386,7 +444,8 @@ def stepped_rollout(dev, steps=64, streams=8):
     no_reset = np.zeros((streams, 1), bool)
     t0 = time.perf_counter()
     for _ in range(8):
-        agent._step(img, no_reset, True).cpu()
+        packed, agent.hidden_state = agent._step(img, no_reset, True, agent.hidden_state)
+        packed.cpu()
     step_ms = (time.perf_counter() - t0) * 1e3 / 8
     log(f"  per step: host resize of {streams} frames {resize_ms:.2f} ms, policy step + D2H {step_ms:.2f} ms")
     return agent
@@ -538,6 +597,22 @@ def check_b2(dev):
                 + ", ".join(f"{n} {e:.3e} ({b:.2e})" for n, (e, b) in errs.items()))
             if not all(e <= b for e, b in errs.values()):
                 raise AssertionError(f"B2 disagrees with its plain version at the IDM's shape: {errs}")
+    for t, maxlen in LONG_SHAPES:  # past the 512-key chunk: pass 1 sweeps the keys in chunks
+        for d in (64, 128, 192):
+            for dtype in (torch.float32, torch.bfloat16):
+                for use_mask, use_rel in MASK_REL_CASES:
+                    q, k, v, mask, R, b_nd = attention_inputs(dev, 2, 16, t, maxlen, d, dtype, d + t + 1)
+                    mask = mask if use_mask else None
+                    R, b_nd = (R, b_nd) if use_rel else (None, None)
+                    dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(t),
+                                     device=dev).to(dtype)
+                    got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+                    torch.cuda.synchronize()
+                    errs = b2_errors(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), dtype)
+                    log(f"B2 d={d} t={t} T={t + maxlen} {str(dtype)[6:]} mask={use_mask} rel={use_rel}: "
+                        "max_abs_err (tol) " + ", ".join(f"{n} {e:.3e} ({b:.2e})" for n, (e, b) in errs.items()))
+                    if not all(e <= b for e, b in errs.values()):
+                        raise AssertionError(f"B2 disagrees with its plain version past 512 keys: {errs}")
 
     # autograd through windowed_attention_fwd (B1 forward, B2 backward) against the plain forward's
     q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, 128, torch.float32, 3)
@@ -561,12 +636,10 @@ def check_b2(dev):
     dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
     ms, plain_ms, library_ms, bound_ms, bound_by = time_b2(q, k, v, mask, R, b_nd, dO)
     time_b2(*(x.bfloat16() for x in (q, k, v)), mask, R, b_nd, dO.bfloat16())
-    # and at the IDM's train step: 32 heads, no mask
-    qi, ki, vi, _, Ri, bi = attention_inputs(dev, IDM_TRAIN_B, 32, IDM_WINDOW, 128, 128, torch.float32, 0)
-    gi = torch.randn(qi.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
-    idm = {str(dt)[6:]: dict(zip(TIME_KEYS, time_b2(qi.to(dt), ki.to(dt), vi.to(dt), None, Ri, bi, gi.to(dt),
-                                                    "IDM window")))
-           for dt in (torch.float32, torch.bfloat16)}
+    # and at the IDM's train step (32 heads, no mask), the IDM's long call and the PPO minibatch
+    idm = shape_times(time_b2, dev, IDM_TRAIN_B, 32, IDM_WINDOW, 128, False, "IDM window")
+    long_call = shape_times(time_b2, dev, LONG_CALL_B, LONG_CALL_H, 512, 128, False, "IDM long call")
+    ppo = shape_times(time_b2, dev, PPO_STREAMS // PPO_MINIBATCHES, 16, PPO_STEPS, 128, True, "PPO minibatch")
 
     # memory beyond inputs and outputs: below one (B, H, t, T) f32 tensor, so dL never reaches HBM
     torch.cuda.synchronize()
@@ -594,6 +667,8 @@ def check_b2(dev):
         "bound_by": bound_by,
         "library_ms": library_ms,
         "idm_train_shape": idm,
+        "long_call_shape": long_call,
+        "ppo_minibatch_shape": ppo,
     }
 
 
@@ -632,12 +707,18 @@ def cudnn_calibration(trainer, batch, prefixes):
     """The worst relative L2 gap between the grads of the parameters under
     `prefixes` of one loss on the card with cuDNN's convolutions and with
     torch's own, without a step."""
+    return conv_calibration(
+        trainer.policy,
+        lambda: trainer.masked_nll(trainer.to_device(batch), trainer.initial_state(len(batch["mask"])))[0], prefixes)
+
+
+def conv_calibration(policy, loss_fn, prefixes):
+    """cudnn_calibration for any loss: loss_fn() builds it from `policy`."""
     def grads():
-        trainer.optimizer.zero_grad()
-        nll, _ = trainer.masked_nll(trainer.to_device(batch), trainer.initial_state(len(batch["mask"])))
-        nll.backward()
-        out = {n: p.grad.detach().clone() for n, p in trainer.policy.named_parameters() if n.startswith(prefixes)}
-        trainer.optimizer.zero_grad()
+        policy.zero_grad(set_to_none=True)
+        loss_fn().backward()
+        out = {n: p.grad.detach().clone() for n, p in policy.named_parameters() if n.startswith(prefixes)}
+        policy.zero_grad(set_to_none=True)
         return out
 
     with_cudnn = grads()
@@ -653,16 +734,23 @@ def step_errors(gpu, cpu, got, expect, cnn_prefixes):
     worst CNN grad as a (relative L2 error, name) pair.  Parameters without
     a grad on either side are skipped."""
     loss_err, norm_err = (abs(g.item() - e.item()) / abs(e.item()) for g, e in zip(got, expect))
+    grads = [{n: p.grad for n, p in t.policy.named_parameters() if p.grad is not None} for t in (gpu, cpu)]
+    return (loss_err, norm_err) + grad_errors(*grads, cnn_prefixes)
+
+
+def grad_errors(gpu_grads, cpu_grads, cnn_prefixes):
+    """(worst grad outside the CNN as (max-abs error over its limit, name),
+    worst CNN grad as (relative L2 error, name)) of two {name: grad} dicts."""
+    assert gpu_grads.keys() == cpu_grads.keys(), set(gpu_grads) ^ set(cpu_grads)
     worst, worst_cnn = (0.0, ""), (0.0, "")
-    for (name, pg), (_, pc) in zip(gpu.policy.named_parameters(), cpu.policy.named_parameters()):
-        if pg.grad is None and pc.grad is None:
-            continue
+    for name, gc in cpu_grads.items():
+        gg = gpu_grads[name].cpu()
         if name.startswith(cnn_prefixes):
-            worst_cnn = max(worst_cnn, (rel_l2(pg.grad.cpu(), pc.grad), name))
+            worst_cnn = max(worst_cnn, (rel_l2(gg, gc), name))
             continue
-        err = (pg.grad.cpu() - pc.grad).abs().max().item()
-        worst = max(worst, (err / (GRAD_RTOL * pc.grad.abs().max().item() + GRAD_ATOL), name))
-    return loss_err, norm_err, worst, worst_cnn
+        err = (gg - gc).abs().max().item()
+        worst = max(worst, (err / (GRAD_RTOL * gc.abs().max().item() + GRAD_ATOL), name))
+    return worst, worst_cnn
 
 
 def step_split(trainer, batch, B, T):
@@ -997,9 +1085,53 @@ def idm_train_steps(trainer, B=IDM_TRAIN_B, T=IDM_WINDOW, steps=IDM_TRAIN_STEPS)
     return f_launches // steps, b_launches // steps
 
 
+def idm_long_call(dev, n_frames=512):
+    """Phase 8(d): IDMAgent.predict_actions on `n_frames` frames from a fresh
+    state (T = n_frames + maxlen keys, past the kernels' 512-key chunk): B1
+    once per block, and the logits of that forward within STEP_TOL of the
+    same forward with the plain attention on the card."""
+    from vpt_tpu_torch.agent import IDMAgent
+    from vpt_tpu_torch.config import IDM_4X_KWARGS
+    from vpt_tpu_torch.models import transformer
+    from vpt_tpu_torch.models.policy import policy_initial_state
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    agent = IDMAgent(IDM_4X_KWARGS, {}, device=dev, seed=0)
+    frames = np.random.default_rng(1).integers(0, 256, (n_frames, 360, 640, 3), dtype=np.uint8)
+    T = n_frames + agent.cfg.maxlen
+    torch.cuda.synchronize()
+    wa.launches = 0
+    t0 = time.perf_counter()
+    actions = agent.predict_actions(frames)
+    seconds = time.perf_counter() - t0
+    launches = wa.launches
+    if launches != agent.cfg.n_recurrence_layers or actions["camera"].shape != (1, n_frames, 2):
+        raise AssertionError(f"predict_actions on {n_frames} frames: B1 launched {launches} times, "
+                             f"camera {actions['camera'].shape}")
+
+    img = torch.from_numpy(agent._video_obs_to_agent(frames)).to(dev)
+    first = torch.zeros(img.shape[:2], dtype=torch.bool, device=dev)
+    with torch.inference_mode():
+        got = agent.policy(img, first, policy_initial_state(agent.cfg, 1, device=dev))[0]["pi_logits"]
+        kernel_attention = transformer.windowed_attention_fwd
+        transformer.windowed_attention_fwd = wa.windowed_attention_fwd_plain
+        try:
+            expect = agent.policy(img, first, policy_initial_state(agent.cfg, 1, device=dev))[0]["pi_logits"]
+        finally:
+            transformer.windowed_attention_fwd = kernel_attention
+    errs = {k: (got[k] - expect[k]).abs().max().item() for k in got}
+    log(f"IDM predict_actions on {n_frames} frames (4x, f32, T={T} keys): {seconds:.2f} s incl. host resize, "
+        f"B1 launches {launches}; logits against the plain attention on the card: max_abs_err {errs} "
+        f"(tol {STEP_TOL})")
+    if not all(e <= STEP_TOL for e in errs.values()):
+        raise AssertionError(f"the IDM's long-call logits disagree with the plain attention's: {errs}")
+    return launches
+
+
 def check_idm(dev):
     """Phase 8: the 4x IDM (a) card against CPU, (c) training, (b) labeling
-    in float32 and bfloat16; returns the per-forward and per-step launches."""
+    in float32 and bfloat16, (d) a 512-frame predict_actions; returns the
+    per-forward and per-step launches."""
     trainer = idm_card_vs_cpu(dev)
     train_launches = idm_train_steps(trainer)
     del trainer
@@ -1019,11 +1151,321 @@ def check_idm(dev):
         f"{100 * same:.1f}% of the frames get the same label (random heads have near-ties: not gated)")
     if not err <= BF16_LOGIT_TOL:
         raise AssertionError(f"the IDM's bfloat16 logits are {err} from the float32 ones")
-    return per_forward, train_launches
+    long_call = idm_long_call(dev)
+    torch.cuda.empty_cache()
+    return per_forward, train_launches, long_call
+
+
+def attack_reward(env_action, obs, reward, done):
+    """+1 whenever attack is pressed (the port CLI's demo reward)."""
+    return float(env_action["attack"])
+
+
+def captured_grads(trainer):
+    """Make `trainer`'s optimizer keep a copy of the grads at each step;
+    returns the list it appends {name: grad} to."""
+    steps, step = [], trainer.optimizer.step
+
+    def step_and_keep():
+        steps.append({n: p.grad.detach().clone() for n, p in trainer.policy.named_parameters() if p.grad is not None})
+        return step()
+
+    trainer.optimizer.step = step_and_keep
+    return steps
+
+
+def reforward_errors(trainer, groups):
+    """Phase 9(a): collect twice (the second window from carried state) with
+    `groups` collection groups, then re-forward the window as one chunk from
+    its snapshot; the max-abs gaps to the stepped logp_old and values."""
+    from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
+    from vpt_tpu_torch.models.heads import dict_logprob
+
+    trainer.hp.n_collect_groups = groups
+    envs = [MockMinecraftEnv(seed=20 + i, done_prob=0.1) for i in range(PPO_CHECK_STREAMS)]
+    traj, obs, firsts = trainer.collect(envs)
+    traj, _, _ = trainer.collect(envs, obs, firsts)
+    dev = trainer.device
+    with torch.inference_mode():
+        out, _ = trainer.policy(torch.from_numpy(traj["frames"]).to(dev), torch.from_numpy(traj["firsts"]).to(dev),
+                                traj["initial_state"])
+        actions = {k: torch.from_numpy(traj[k]).to(dev)[..., None] for k in ("buttons", "camera")}
+        logp = dict_logprob(out["pi_logits"], actions, trainer.head_specs).cpu().numpy()
+    return (float(np.abs(logp - traj["logp_old"]).max()),
+            float(np.abs(out["vpred"][..., 0].cpu().numpy() - traj["values"]).max()))
+
+
+def ppo_card_vs_cpu(dev):
+    """Phase 9(a): a trajectory collected on the card, then one update and one
+    PPG aux phase (one aux step) on the card and on the CPU from the same
+    weights and anchor; and the collection's snapshot re-forward at G = 1
+    and 2.
+
+    Three settings, the same on both sides, keep the compared numbers off
+    rounding noise: the anchor's action-head weights are scaled by 100 (the
+    head's init gives near-uniform logits, so KL(π₀‖π_θ) would be ~0 at the
+    first update), logp_old gets a seeded offset (so the ratio, its clip and
+    approx_kl are not ~1, 0 and 0), and the advantages are not normalised
+    (normalised ones have mean 0, and so would pg_loss at ratio ~1).
+
+    The aux phase starts from the card's weights on both sides: Adam's first
+    step moves every entry by lr whatever its gradient's size, so entries
+    whose gradient is rounding noise leave the PPO step up to 2·lr apart, and
+    the aux step's grads would compare that, not the aux step."""
+    from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.models import transformer
+    from vpt_tpu_torch.models.heads import dict_logprob
+    from vpt_tpu_torch.ops import windowed_attention as wa
+    from vpt_tpu_torch.training.rl import PPOHyperparams, PPOTrainer
+
+    def make(device):
+        hp = PPOHyperparams(rollout_len=PPO_CHECK_STEPS, n_epochs=1, n_minibatches=1, aux_phase_every=1000,
+                            aux_epochs=1, normalize_advantages=False)
+        trainer = PPOTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, hp=hp, seed=0, device=device)
+        trainer.init()
+        with torch.no_grad():
+            for head in trainer.anchor.pi_head.children():
+                head.linear_layer.weight.mul_(100.0)
+        return trainer
+
+    t0 = time.perf_counter()
+    gpu, cpu = make(dev), make("cpu")
+    log(f"2x PPOTrainer on the card and on the CPU built in {time.perf_counter() - t0:.1f} s")
+    if not (same_tensors(gpu.policy.state_dict(), cpu.policy.state_dict())
+            and same_tensors(gpu.anchor.state_dict(), cpu.anchor.state_dict())):
+        raise AssertionError("the card's and the CPU's PPO trainers start from different weights or anchors")
+
+    errs = {g: reforward_errors(gpu, g) for g in (1, 2)}
+    log("PPO collection (2x, f32, 2 streams x 16 steps, two windows): stepped logp_old / values against the "
+        "chunked re-forward from the window-start snapshot, max_abs_err "
+        + ", ".join(f"G={g}: {a:.3e} / {b:.3e}" for g, (a, b) in errs.items()) + f" (tol {STEP_TOL})")
+    if not all(e <= STEP_TOL for pair in errs.values() for e in pair):
+        raise AssertionError(f"the stepped collection disagrees with the snapshot re-forward: {errs}")
+
+    gpu.hp.n_collect_groups = 1
+    envs = [MockMinecraftEnv(seed=i, done_prob=0.1) for i in range(PPO_CHECK_STREAMS)]
+    traj, _, _ = gpu.collect(envs, reward_fn=attack_reward)
+    traj["logp_old"] = traj["logp_old"] + 0.3 * np.random.default_rng(5).standard_normal(
+        traj["logp_old"].shape).astype(np.float32)
+    traj_cpu = dict(traj, initial_state=[{k: v.cpu() for k, v in blk.items()} for blk in traj["initial_state"]])
+
+    # calibrations on the card, for a loss through the whole policy: the grads
+    # with cuDNN's convolutions against torch's own (the CNN), and with kernels
+    # B1 and B2 against the plain attention (everything else)
+    frames = torch.from_numpy(traj["frames"]).to(dev)
+    firsts = torch.from_numpy(traj["firsts"]).to(dev)
+    actions = {k: torch.from_numpy(traj[k]).to(dev)[..., None] for k in ("buttons", "camera")}
+
+    def calibration_loss():
+        out, _ = gpu.policy(frames, firsts, traj["initial_state"])
+        return -dict_logprob(out["pi_logits"], actions, gpu.head_specs).mean() + out["vpred_raw"].pow(2).mean()
+
+    def loss_grads():
+        gpu.policy.zero_grad(set_to_none=True)
+        calibration_loss().backward()
+        out = {n: p.grad.detach().clone() for n, p in gpu.policy.named_parameters() if not n.startswith(CNN_PREFIX)}
+        gpu.policy.zero_grad(set_to_none=True)
+        return out
+
+    calib = conv_calibration(gpu.policy, calibration_loss, (CNN_PREFIX,))
+    with_kernels = loss_grads()
+    kernel_attention = transformer.windowed_attention_fwd
+    transformer.windowed_attention_fwd = wa.windowed_attention_fwd_plain
+    try:
+        with_plain = loss_grads()
+    finally:
+        transformer.windowed_attention_fwd = kernel_attention
+    attn_calib = grad_errors(with_kernels, {k: v.cpu() for k, v in with_plain.items()}, (CNN_PREFIX,))[0]
+    attn_calib_l2 = max(rel_l2(with_kernels[n], with_plain[n]) for n in with_kernels)
+    del with_kernels, with_plain
+
+    grads_g, grads_c = captured_grads(gpu), captured_grads(cpu)
+    m_g = gpu.update(traj)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_c = cpu.update(traj_cpu)
+    cpu_s = time.perf_counter() - t0
+    stats_err = max(rel_l2(a.cpu(), b) for a, b in zip(gpu.policy.value_head.normalizer.buffers(),
+                                                        cpu.policy.value_head.normalizer.buffers()))
+    cpu.policy.load_state_dict(gpu.policy.state_dict())
+    m_g.update(gpu._aux_phase())
+    m_c.update(cpu._aux_phase())
+
+    keys = ("pg_loss", "v_loss", "entropy", "anchor_kl", "approx_kl", "aux_v_loss")
+    rel = {k: abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in keys}
+    # the loss sums terms that nearly cancel: its rounding scales with the terms, not with the sum
+    hp = gpu.hp
+    terms = abs(m_c["pg_loss"]) + hp.vf_coef * abs(m_c["v_loss"]) + hp.ent_coef * abs(m_c["entropy"]) \
+        + m_c["kl_coef"] / hp.kl_decay * abs(m_c["anchor_kl"])
+    rel["loss"] = abs(m_g["loss"] - m_c["loss"]) / terms
+    rel["grad_norm"] = abs(m_g["grad_norm"] - m_c["grad_norm"]) / m_c["grad_norm"]
+    log("PPO update card vs CPU (2x, f32, 2 x 16, one PPO step, then one aux step from the same weights): "
+        + ", ".join(f"{k} {m_g[k]:.6g} vs {m_c[k]:.6g} (rel {rel[k]:.2e})" for k in ("loss",) + keys + ("grad_norm",))
+        + f" (the loss relative to the sum of its terms' sizes, {terms:.4g}); clip_frac {m_g['clip_frac']:.4f} vs "
+        f"{m_c['clip_frac']:.4f}; aux_clone_kl {m_g['aux_clone_kl']:.3g} vs {m_c['aux_clone_kl']:.3g}; tol "
+        f"{LOSS_RTOL} ({NORM_RTOL} for the grad norm); CPU update {cpu_s:.1f} s")
+    log(f"  folded EWMA stats: relative error {stats_err:.2e} (tol {STATS_RTOL})")
+    if len(grads_g) != 2 or len(grads_c) != 2:
+        raise AssertionError(f"expected a PPO step and an aux step, got {len(grads_g)} and {len(grads_c)}")
+    worst_l2 = []
+    for name, g, c in zip(("PPO step", "aux step"), grads_g, grads_c):
+        # at the first aux step the action heads' grads are zero in exact arithmetic (only the clone KL
+        # reaches them, and π_θ = π_old is its minimum): both sides hold rounding noise there
+        noise = sorted(n for n in c if name == "aux step" and n.startswith("pi_head."))
+        noise_norm = max((c[n].norm().item() for n in noise), default=0.0)
+        g, c = ({n: x[n] for n in c if n not in noise} for x in (g, c))
+        w, wc = grad_errors(g, c, (CNN_PREFIX,))
+        l2 = max((rel_l2(g[n].cpu(), c[n]), n) for n in c if not n.startswith(CNN_PREFIX))
+        worst_l2.append((l2, wc))
+        log(f"  {name} grads outside the CNN: worst relative L2 error {l2[0]:.3e} ({l2[1]}, tol {PPO_GRAD_REL_L2}), "
+            f"worst max-abs error / ({GRAD_RTOL} max|grad| + {GRAD_ATOL}) {w[0]:.3f} ({w[1]}); CNN grads: worst "
+            f"relative L2 error {wc[0]:.3e} ({wc[1]}, tol {CNN_GRAD_REL_L2})"
+            + (f"; the action heads' {len(noise)} grads, zero but for rounding (largest norm {noise_norm:.3e} on "
+               f"the CPU), not compared" if noise else ""))
+    log(f"  calibrations on the card: cuDNN's against torch's convolutions, CNN grads {calib:.3e}; kernels B1 and B2 "
+        f"against the plain attention, grads outside the CNN: worst relative L2 {attn_calib_l2:.3e}, worst max-abs "
+        f"error / limit {attn_calib[0]:.3f} ({attn_calib[1]})")
+    if not (all(rel[k] <= LOSS_RTOL for k in keys + ("loss",)) and rel["grad_norm"] <= NORM_RTOL
+            and stats_err <= STATS_RTOL
+            and all(l2[0] <= PPO_GRAD_REL_L2 and wc[0] <= CNN_GRAD_REL_L2 for l2, wc in worst_l2)):
+        raise AssertionError("the PPO update on the card disagrees with the CPU's")
+    if not (m_g["clip_frac"] > 0 and m_g["anchor_kl"] > 1e-3 and m_g["approx_kl"] > 1e-3):
+        raise AssertionError(f"the compared PPO metrics are near rounding noise: {m_g}")
+    return gpu
+
+
+class Stopwatch:
+    """Seconds spent in wrapped callables, each call ended by a synchronise."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        return timed
+
+
+def ppo_at_bench_geometry(dev):
+    """Phase 9(b): vpt_tpu's PPO geometry in bfloat16, one warm and one timed
+    collect and update; returns the trainer and the timed update's B1 and B2
+    launches."""
+    from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.ops import windowed_attention as wa
+    from vpt_tpu_torch.training import rl
+
+    hp = rl.PPOHyperparams(rollout_len=PPO_STEPS, n_collect_groups=PPO_GROUPS, n_minibatches=PPO_MINIBATCHES,
+                           n_epochs=PPO_EPOCHS, anchor_fwd_max_frames=PPO_ANCHOR_FRAMES)
+    trainer = rl.PPOTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, hp=hp, compute_dtype="bfloat16",
+                            seed=0, device=dev)
+    streams = PPO_STREAMS
+    envs = [MockMinecraftEnv(seed=i) for i in range(streams)]
+    t0 = time.perf_counter()
+    traj, obs, firsts = trainer.collect(envs, reward_fn=attack_reward)
+    trainer.update(traj)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    traj, obs, firsts = trainer.collect(envs, obs, firsts, reward_fn=attack_reward)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(4):
+        trainer._resize(obs)
+    resize_s = (time.perf_counter() - t0) / 4 * (PPO_STEPS + 1)  # a collect resizes every stream's frame T + 1 times
+    frames = streams * PPO_STEPS
+
+    watch = Stopwatch()
+    trainer._anchor_logits = watch.wrap("anchor forward", trainer._anchor_logits)
+    trainer._ppo_step = watch.wrap("epochs", trainer._ppo_step)
+    trainer._fold_return_stats = watch.wrap("stats fold and GAE", trainer._fold_return_stats)
+    gae = rl.compute_gae
+    rl.compute_gae = watch.wrap("stats fold and GAE", gae)
+    wa.launches = wa.bwd_launches = 0
+    try:
+        t0 = time.perf_counter()
+        metrics = trainer.update(traj)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+    finally:
+        rl.compute_gae = gae
+        for name in ("_anchor_logits", "_ppo_step", "_fold_return_stats"):
+            delattr(trainer, name)
+    launches = (wa.launches, wa.bwd_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = dict(watch.seconds, other=update_s - sum(watch.seconds.values()))
+    log(f"PPO at vpt_tpu's bench geometry (2x, bf16, {streams} streams x {PPO_STEPS} steps, {PPO_GROUPS} collection "
+        f"groups, {PPO_MINIBATCHES} minibatches, {PPO_EPOCHS} epochs, anchor chunks of {PPO_ANCHOR_FRAMES} frames): "
+        f"warm collect + update {warm_s:.1f} s; collect {collect_s:.2f} s ({frames / collect_s:.1f} frames/s; host "
+        f"resize alone {resize_s:.2f} s, {100 * resize_s / collect_s:.1f}%); update {update_s:.2f} s "
+        f"({frames / update_s:.1f} frames/s) = " + ", ".join(f"{k} {v:.2f} s" for k, v in split.items())
+        + f"; peak memory {peak_gb:.2f} GB; B1 launches {launches[0]}, B2 {launches[1]}")
+    log(f"  update metrics: " + json.dumps({k: round(v, 6) for k, v in metrics.items()}))
+    n_blocks = trainer.cfg.n_recurrence_layers
+    anchor_chunks = streams * PPO_STEPS // (PPO_ANCHOR_FRAMES // PPO_STEPS * PPO_STEPS)
+    steps = PPO_EPOCHS * PPO_MINIBATCHES
+    expect = ((anchor_chunks + steps) * n_blocks, steps * n_blocks)
+    if launches != expect:
+        raise AssertionError(f"the PPO update launched B1 {launches[0]} and B2 {launches[1]} times, expected {expect}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"the PPO update's metrics are not finite: {metrics}")
+    return trainer, launches
+
+
+def ppo_evaluate(trainer):
+    """Phase 9(c): evaluate on 4 dedicated streams until 4 episodes end."""
+    from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
+
+    generators = (trainer.sample_generator, trainer.perm_generator)
+    before = [g.get_state() for g in generators]
+    t0 = time.perf_counter()
+    report = trainer.evaluate([MockMinecraftEnv(seed=10_000 + i, done_prob=0.02) for i in range(4)], 4,
+                              max_episode_steps=100, reward_fn=attack_reward)
+    seconds = time.perf_counter() - t0
+    numbers = [report[k] for k in ("mean_return", "std_return", "mean_length", "mean_vpred")]
+    numbers += list(report["action_stats"]["button_press_rate"].values()) + [report["latency"]["p99_ms"]]
+    log(f"PPO evaluate (2x, bf16, 4 streams, done_prob 0.02, max 100 steps): {report['episodes']} episodes, "
+        f"{report['steps']} steps in {seconds:.1f} s, mean return {report['mean_return']:.3f}, mean length "
+        f"{report['mean_length']:.1f}, truncated {report['truncated_episodes']}, mean vpred "
+        f"{report['mean_vpred']:.4f}, null-action rate {report['action_stats']['null_action_rate']}, step p99 "
+        f"{report['latency']['p99_ms']} ms")
+    if report["episodes"] != 4 or not all(np.isfinite(x) for x in numbers):
+        raise AssertionError(f"the evaluation report is incomplete or not finite: {report}")
+    if not all(torch.equal(b, g.get_state()) for b, g in zip(before, generators)):
+        raise AssertionError("evaluate moved the trainer's generators")
+
+
+def check_ppo(dev):
+    """Phase 9: (a) card against CPU, (b) vpt_tpu's geometry, (c) evaluate;
+    returns the (b) update's B1 and B2 launches."""
+    trainer = ppo_card_vs_cpu(dev)
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, launches = ppo_at_bench_geometry(dev)
+    ppo_evaluate(trainer)
+    return launches
+
+
+# --time-kernels' shapes besides the 2x chunk: (kernel, label, B, H, t, mask), all T = t + 128 <= 512
+TIMED_SHAPES = (("B1", "IDM window", IDM_WINDOW_BATCH, 32, IDM_WINDOW, False),
+                ("B2", "IDM window", IDM_TRAIN_B, 32, IDM_WINDOW, False),
+                ("B1", "PPO minibatch", PPO_STREAMS // PPO_MINIBATCHES, 16, PPO_STEPS, True),
+                ("B2", "PPO minibatch", PPO_STREAMS // PPO_MINIBATCHES, 16, PPO_STEPS, True))
 
 
 def time_kernels(dev):
-    """--time-kernels: B1's and B2's times in both types at the 2x chunk shape."""
+    """--time-kernels: B1's and B2's times in both types at the 2x chunk
+    shape ("B1 float32", ...) and at TIMED_SHAPES ("B1 float32 IDM window", ...)."""
     q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, 128, torch.float32, 0)
     dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
     times = {}
@@ -1032,6 +1474,10 @@ def time_kernels(dev):
         name = str(dtype)[6:]
         times[f"B1 {name}"] = dict(zip(TIME_KEYS, time_b1(qq, kk, vv, mask, R, b_nd)))
         times[f"B2 {name}"] = dict(zip(TIME_KEYS, time_b2(qq, kk, vv, mask, R, b_nd, oo)))
+    for kernel, label, B, H, t, use_mask in TIMED_SHAPES:
+        timer = time_b1 if kernel == "B1" else time_b2
+        for name, row in shape_times(timer, dev, B, H, t, 128, use_mask, label).items():
+            times[f"{kernel} {name} {label}"] = row
     return times
 
 
@@ -1073,9 +1519,13 @@ def main():
     b2["launches"] = train_steps(trainer, dev)
     del trainer
     torch.cuda.empty_cache()
-    per_forward, (b1_per_step, b2_per_step) = check_idm(dev)
-    b1["idm_launches"] = {"labeling_forward": per_forward, "train_step": b1_per_step}
+    per_forward, (b1_per_step, b2_per_step), long_call = check_idm(dev)
+    b1["idm_launches"] = {"labeling_forward": per_forward, "train_step": b1_per_step, "long_call": long_call}
     b2["idm_launches"] = {"train_step": b2_per_step}
+    torch.cuda.empty_cache()
+    b1_update, b2_update = check_ppo(dev)
+    b1["rl_launches"] = {"update": b1_update}
+    b2["rl_launches"] = {"update": b2_update}
 
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,7 +71,8 @@ def test_bias_is_priced_at_the_float32_tensor_core_rate_in_both_types():
 
 def test_time_kernels_reports_what_the_comparison_reads(monkeypatch):
     """`--time-kernels` prints {"kernel_times": time_kernels(dev)}: B1 and B2
-    in both types, each with the kernels line's timing keys.  Run on the CPU
+    in both types at the 2x chunk and at the IDM's and the PPO minibatch's
+    shapes, each with the kernels line's timing keys.  Run on the CPU
     at a small shape, with one untimed call standing in for the CUDA events."""
     attention_inputs = cs.attention_inputs
     monkeypatch.setattr(cs, "attention_inputs",
@@ -79,7 +80,8 @@ def test_time_kernels_reports_what_the_comparison_reads(monkeypatch):
     monkeypatch.setattr(cs, "cuda_time_ms", lambda fn: (fn(), (1.0, True))[1])
     with torch.enable_grad():  # another module of the suite turns grad mode off when pytest imports it
         times = cs.time_kernels(torch.device("cpu"))
-    assert set(times) == {f"{k} {t}" for k in ("B1", "B2") for t in ("float32", "bfloat16")}
+    labels = [""] + [f" {label}" for label in ("IDM window", "PPO minibatch")]
+    assert set(times) == {f"{k} {t}{label}" for k in ("B1", "B2") for t in ("float32", "bfloat16") for label in labels}
     for row in times.values():
         assert set(row) == {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
         assert row["ms"] == row["plain_ms"] == row["library_ms"] == 1.0

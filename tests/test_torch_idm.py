@@ -33,7 +33,7 @@ from vpt_tpu_torch.config import IDM_4X_KWARGS, PolicyConfig
 from vpt_tpu_torch.models.heads import head_specs_from_space
 from vpt_tpu_torch.models.layers import FanInInitLayer
 from vpt_tpu_torch.models.policy import InverseActionPolicy, idm_input_shape, policy_initial_state
-from vpt_tpu_torch.ops.windowed_attention import MAX_KEYS
+from vpt_tpu_torch.ops.windowed_attention import KEY_CHUNK
 from vpt_tpu_torch.spaces import DictType
 
 TOL = 2e-3
@@ -192,13 +192,19 @@ def test_streaming_label_is_owning_window_prediction(agents):
         _same_actions(labels[idx], {k: v[0, idx - win_start] for k, v in direct.items()}, f"frame {idx}")
 
 
-def test_predict_actions_past_max_keys_raises(agents):
-    """N frames attend over N + maxlen keys; kernel B1 takes at most MAX_KEYS,
-    and no call is routed elsewhere on any device."""
-    _, agent = agents
-    n = MAX_KEYS - agent.cfg.maxlen + 1
-    with pytest.raises(ValueError, match=f"MAX_KEYS={MAX_KEYS}"):
-        agent.predict_actions(np.zeros((n, 90, 160, 3), np.uint8))
+def test_predict_actions_past_key_chunk_matches_vpt_tpu(agents):
+    """N frames attend over N + maxlen keys, any N: a call one frame past the
+    kernels' KEY_CHUNK keys (on the card, B1 walks two chunks) labels as
+    vpt_tpu's does, with the state carried from an earlier call."""
+    jax_agent, agent = agents
+    n = KEY_CHUNK - agent.cfg.maxlen + 1
+    frames = _frames(n + 8, seed=9)
+    jax_agent.reset()
+    agent.reset()
+    _same_actions(agent.predict_actions(frames[:8]), jax_agent.predict_actions(frames[:8]), "first call")
+    got = agent.predict_actions(frames[8:])
+    assert got["camera"].shape == (1, n, 2)
+    _same_actions(got, jax_agent.predict_actions(frames[8:]), f"{n} frames over {n + agent.cfg.maxlen} keys")
 
 
 def test_idm_4x_config_matches_bench_and_vpt_tpu():

@@ -28,6 +28,8 @@ def test_every_module_imports_without_jax_or_vpt_tpu():
     assert "vpt_tpu_torch.ops.windowed_attention" in names and "vpt_tpu_torch.agent.agent" in names
     assert "vpt_tpu_torch.agent.idm" in names and "vpt_tpu_torch.training.idm" in names
     assert "vpt_tpu_torch.run_inverse_dynamics_model" in names and "vpt_tpu_torch.inverse_dynamics_train" in names
+    assert {"vpt_tpu_torch.training.rl", "vpt_tpu_torch.agent.rollout", "vpt_tpu_torch.agent.evaluation",
+            "vpt_tpu_torch.data.annotate", "vpt_tpu_torch.rl_fine_tune"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"
@@ -45,9 +47,10 @@ def test_default_device_raises_without_cuda():
         "from vpt_tpu_torch.agent import IDMAgent, MineRLAgent\n"
         "from vpt_tpu_torch.device import resolve_device\n"
         "from vpt_tpu_torch.training.idm import IDMTrainer\n"
+        "from vpt_tpu_torch.training.rl import PPOTrainer\n"
         "kw = {'hidsize': 8, 'timesteps': 128, 'attention_mask_style': 'none'}\n"
         "for make in (lambda: MineRLAgent(policy_kwargs={'hidsize': 8}), lambda: resolve_device(None),\n"
-        "             lambda: IDMAgent(kw, {}), lambda: IDMTrainer(kw, {})):\n"
+        "             lambda: IDMAgent(kw, {}), lambda: IDMTrainer(kw, {}), lambda: PPOTrainer({'hidsize': 8}, {})):\n"
         "    try:\n"
         "        make()\n"
         "    except RuntimeError as e:\n"

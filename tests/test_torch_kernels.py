@@ -13,7 +13,7 @@ Tolerances.  B1: float32 rtol/atol 1e-4 (f32 sums in another order);
 bfloat16 rtol/atol 3e-2 (the softmax weights and the output each round to
 bf16, and a weight near a rounding boundary may round the other way).
 B2, per gradient tensor, on max-abs error: float32 1e-4 * (1 + max|ref|)
-(f32 sums over up to 512 keys or all rows in another order); bfloat16
+(f32 sums over the keys or all rows in another order); bfloat16
 3e-2 * (1 + max|ref|) (both sides compute in f32 from the same bf16 inputs
 and round dq, dk, dv to bf16 once; an entry may round the other way)."""
 
@@ -50,6 +50,11 @@ SHAPES = [(128, 128), (1, 128), (37, 64), (128, 384), (63, 65), (65, 128), (1, 5
 # d = 128, a 128-frame window after 128 cache keys, and an 8-frame window
 # (T = 136, a key tile edge)
 IDM_SHAPES = [(128, 128), (8, 128)]
+# past the kernels' 512-key chunk: one key past it (T = 513), the IDM's long
+# predict_actions call (512 frames after 128 state keys, T = 640), and three
+# chunks with the longest band table (T = 1152)
+LONG_SHAPES = [(1, 512), (512, 128), (640, 512)]
+MASK_REL_CASES = [(True, True), (False, False), (True, False), (False, True)]
 
 
 def _inputs(dev, B, H, t, maxlen, d, dtype, seed):
@@ -114,15 +119,14 @@ def test_b1_kernel_fully_masked_row_is_uniform(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["head_dim", "keys", "dtype", "contiguity", "alignment"])
+@pytest.mark.parametrize("bad", ["head_dim", "band", "dtype", "contiguity", "alignment"])
 def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
     q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 8, 8, 64, torch.float32, 1)
     if bad == "head_dim":
         q = k = v = torch.zeros((1, 1, 4, 96), device=cuda)
         mask = R = b_nd = None
-    elif bad == "keys":
-        k = v = torch.zeros((1, 2, 600, 64), device=cuda)
-        mask = R = b_nd = None
+    elif bad == "band":  # the band table is held in shared memory whole: at most MAX_BAND offsets
+        b_nd = torch.zeros((10, wa.MAX_BAND + 1), device=cuda)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "alignment":  # contiguous, but one float past a 16-byte boundary
@@ -180,6 +184,51 @@ def test_kernels_at_idm_shapes(cuda, t, maxlen, dtype, kernel):
         dO = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(t), device=cuda).to(dtype)
         got = wa.windowed_attention_bwd(q, k, v, None, R, b_nd, dO, True)
         _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, None, R, b_nd, dO, True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("t,maxlen", LONG_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_mask,use_rel", MASK_REL_CASES)
+@pytest.mark.parametrize("kernel", ["B1", "B2"])
+def test_kernels_past_key_chunk(cuda, d, t, maxlen, dtype, use_mask, use_rel, kernel):
+    """T > 512: the keys go through the kernels in chunks of 512, with no
+    routing to the plain version."""
+    dtype = getattr(torch, dtype)
+    q, k, v, mask, R, b_nd = _inputs(cuda, 2, 3, t, maxlen, d, dtype, d + t + 2)
+    assert k.shape[2] > wa.KEY_CHUNK
+    mask = mask if use_mask else None
+    R, b_nd = (R, b_nd) if use_rel else (None, None)
+    before = wa.launches, wa.bwd_launches
+    if kernel == "B1":
+        got = wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
+        torch.cuda.synchronize()
+        assert (wa.launches, wa.bwd_launches) == (before[0] + 1, before[1])
+        tol = 1e-4 if dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(got.float(), wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True).float(),
+                                   rtol=tol, atol=tol)
+    else:
+        dO = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(t), device=cuda).to(dtype)
+        got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+        torch.cuda.synchronize()
+        assert (wa.launches, wa.bwd_launches) == (before[0], before[1] + 1)
+        _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), dtype)
+
+
+@pytest.mark.cuda
+def test_kernels_fully_masked_rows_past_key_chunk(cuda):
+    """A fully masked row over 1152 keys: uniform weights over all of them in
+    B1, and B2's gradients as the plain backward's."""
+    q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 640, 512, 64, torch.float32, 3)
+    mask[:, 3] = False
+    mask[:, 600] = False
+    got = wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
+    torch.testing.assert_close(got[:, :, 3], v.mean(dim=2), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True), rtol=1e-4, atol=1e-4)
+    dO = torch.randn_like(q)
+    got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+    _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), torch.float32)
 
 
 @pytest.mark.cuda

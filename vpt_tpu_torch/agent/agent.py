@@ -130,24 +130,45 @@ class MineRLAgent:
         return np.stack([resize_uint8_exact(o["pov"], self._resolution) for o in povs])[:, None]
 
     @torch.inference_mode()
-    def _step(self, img: np.ndarray, first: np.ndarray, stochastic: bool) -> torch.Tensor:
+    def _step(self, img: np.ndarray, first: np.ndarray, stochastic: bool, state):
+        """One policy step on ``state``; returns the packed (B, 23) decoded
+        action and value, and the state after the step."""
         img_t = torch.from_numpy(img).to(self.device, non_blocking=True)
         first_t = torch.from_numpy(first).to(self.device, non_blocking=True)
-        out, self.hidden_state = self.policy(img_t, first_t, self.hidden_state)
+        out, state = self.policy(img_t, first_t, state)
         logits = {k: v[:, -1] for k, v in out["pi_logits"].items()}
         action = dict_sample(logits, self.head_specs, deterministic=not stochastic,
                              generator=self._generator)
         decoded = self.decoder.decode(action["buttons"][:, 0], action["camera"][:, 0])
-        return torch.cat([decoded, out["vpred"][:, -1].float()], dim=1)
+        return torch.cat([decoded, out["vpred"][:, -1].float()], dim=1), state
 
-    def dispatch_action(self, minerl_obs, first: Optional[np.ndarray] = None, stochastic: bool = True):
-        """Enqueue one policy step and return a handle without waiting."""
+    def _prepare(self, minerl_obs, first):
         img = self._env_obs_to_agent(minerl_obs)
         b = img.shape[0]
         if b != self.batch_size:
             raise ValueError(f"got {b} obs for batch_size {self.batch_size}")
-        first = np.zeros((b, 1), bool) if first is None else np.asarray(first, bool).reshape(b, 1)
-        return self._step(img, first, stochastic), isinstance(minerl_obs, list)
+        return img, np.zeros((b, 1), bool) if first is None else np.asarray(first, bool).reshape(b, 1)
+
+    def dispatch_action(self, minerl_obs, first: Optional[np.ndarray] = None, stochastic: bool = True):
+        """Enqueue one policy step and return a handle without waiting."""
+        img, first = self._prepare(minerl_obs, first)
+        packed, self.hidden_state = self._step(img, first, stochastic, self.hidden_state)
+        return packed, isinstance(minerl_obs, list)
+
+    def initial_group_state(self):
+        """Fresh recurrent state for one ``batch_size``-wide stream group, for
+        :meth:`dispatch_action_with_state` (GroupedRolloutRunner drives
+        several groups through one agent)."""
+        return policy_initial_state(self.cfg, self.batch_size, self.ring_cache, self.device)
+
+    def dispatch_action_with_state(self, minerl_obs, state, first: Optional[np.ndarray] = None,
+                                   stochastic: bool = True):
+        """:meth:`dispatch_action` on the caller's recurrent state instead of
+        ``hidden_state``; returns (handle, state after the step).  The ring
+        cache's slot is written into ``state`` in place."""
+        img, first = self._prepare(minerl_obs, first)
+        packed, state = self._step(img, first, stochastic, state)
+        return (packed, isinstance(minerl_obs, list)), state
 
     def collect_action(self, handle):
         """Wait for a dispatched step: one packed device→host copy, then the
@@ -164,3 +185,10 @@ class MineRLAgent:
         """One policy step; returns a MineRL action dict (a list of dicts when
         the obs is a list)."""
         return self.collect_action(self.dispatch_action(minerl_obs, first, stochastic))
+
+    def predict_value(self, minerl_obs, first: Optional[np.ndarray] = None):
+        """Value estimate for the observation(s), the reference's
+        MinecraftAgentPolicy.v (policy.py:330-339): a (B,) array, or a float
+        at batch_size 1.  Takes a step: the hidden state advances."""
+        self.get_action(minerl_obs, first=first, stochastic=True)
+        return self._last_vpred[:, 0] if self.batch_size > 1 else float(self._last_vpred[0, 0])

@@ -27,7 +27,6 @@ from vpt_tpu_torch.models.heads import head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import InverseActionPolicy, policy_initial_state
 from vpt_tpu_torch.ops.resize import resize_image
-from vpt_tpu_torch.ops.windowed_attention import MAX_KEYS
 from vpt_tpu_torch.spaces import DictType
 
 # Resolution the published IDM expects its source videos at (reference:
@@ -101,14 +100,7 @@ class IDMAgent:
 
         The attention state is carried from call to call: with no mask, a
         window's queries also attend to the previous call's last ``maxlen``
-        keys.  N + maxlen keys must fit kernel B1's ``MAX_KEYS``."""
-        n = len(video_frames)
-        if n + self.cfg.maxlen > MAX_KEYS:
-            raise ValueError(
-                f"predict_actions on {n} frames attends over {n + self.cfg.maxlen} keys (the frames and "
-                f"maxlen={self.cfg.maxlen} of state), past the attention kernel's MAX_KEYS={MAX_KEYS}: "
-                f"pass at most {MAX_KEYS - self.cfg.maxlen} frames a call"
-            )
+        keys, so N frames attend over N + maxlen keys, any N."""
         action, self.hidden_state = self._forward(self._video_obs_to_agent(video_frames), self.hidden_state)
         return self._agent_action_to_env({k: v.cpu().numpy() for k, v in action.items()})
 

@@ -28,7 +28,8 @@
 namespace wattn {
 
 constexpr int MAX_NBASIS = 16;
-constexpr int MAX_KEYS = 512;
+constexpr int MAX_BAND = 512;   // longest band table (b_nd's second axis), held in shared memory
+constexpr int KEY_CHUNK = 512;  // keys whose logits a row block holds in shared memory at once
 constexpr int KEY_TILE = 64;             // keys per shared-memory tile of the row-block passes
 constexpr int R_STRIDE = MAX_NBASIS + 1;  // row stride of the R tile (odd: rows on distinct banks)
 constexpr float NEG_BIAS = -1e9f;
@@ -493,7 +494,7 @@ __device__ __forceinline__ void block_logits(float* sS, int TS, const T* sQ, T* 
 template <int ROWS, bool ROUND_BF16>
 __device__ __forceinline__ void softmax_rows(float* sS, int TS, int q0, int t, float* row_max, float* row_sum) {
   using Block = RowBlock<ROWS>;
-  constexpr int PER_LANE = MAX_KEYS / 32;
+  constexpr int PER_LANE = KEY_CHUNK / 32;
   constexpr int AT_ONCE = 2;
   static_assert(ROWS % (Block::NWARPS * AT_ONCE) == 0, "rows split evenly over the warps");
   const Block rb;
@@ -538,6 +539,80 @@ __device__ __forceinline__ void softmax_rows(float* sS, int TS, int q0, int t, f
         row_sum[gi] = s[a];
       }
     }
+  }
+}
+
+// One chunk of KEY_CHUNK keys of an online softmax (keys past KEY_CHUNK): the
+// logit tile holds the chunk's logits of the block's rows, and row_max and
+// row_sum the rows' max and sum over the keys of the earlier chunks (-inf
+// and 0 before the first).  Each row's max moves to cover the chunk, its sum
+// is rescaled by exp(old max - new max) (stored in row_scale where given, for
+// the caller's accumulators) and gains the chunk's exp(logit - new max),
+// which replace the logits in place where STORE.  A warp to two rows at a
+// time, as softmax_rows; the padding keys (-inf) get 0.
+template <int ROWS, bool STORE>
+__device__ __forceinline__ void softmax_rows_online(float* sS, int TS, float* row_max, float* row_sum,
+                                                    float* row_scale) {
+  using Block = RowBlock<ROWS>;
+  constexpr int PER_LANE = KEY_CHUNK / 32;
+  constexpr int AT_ONCE = 2;
+  static_assert(ROWS % (Block::NWARPS * AT_ONCE) == 0, "rows split evenly over the warps");
+  const Block rb;
+  const int Tp = TS - 8;
+  for (int r0 = rb.warp * AT_ONCE; r0 < ROWS; r0 += Block::NWARPS * AT_ONCE) {
+    float x[AT_ONCE][PER_LANE], m_old[AT_ONCE], m[AT_ONCE], s[AT_ONCE];
+#pragma unroll
+    for (int a = 0; a < AT_ONCE; ++a) {
+      m_old[a] = row_max[r0 + a];
+      m[a] = m_old[a];
+#pragma unroll
+      for (int k = 0; k < PER_LANE; ++k) {
+        x[a][k] = 32 * k < Tp ? sS[(r0 + a) * TS + rb.lane + 32 * k] : -CUDART_INF_F;  // uniform condition
+        m[a] = fmaxf(m[a], x[a][k]);
+      }
+      m[a] = warp_max(m[a]);
+    }
+#pragma unroll
+    for (int a = 0; a < AT_ONCE; ++a) {
+      s[a] = 0.f;
+#pragma unroll
+      for (int k = 0; k < PER_LANE; ++k) {
+        if (32 * k < Tp) {
+          x[a][k] = expf(x[a][k] - m[a]);
+          s[a] += x[a][k];
+        }
+      }
+      s[a] = warp_sum(s[a]);  // every lane has read row_max and row_sum before lane 0 writes them
+    }
+#pragma unroll
+    for (int a = 0; a < AT_ONCE; ++a) {
+      if constexpr (STORE) {
+#pragma unroll
+        for (int k = 0; k < PER_LANE; ++k) {
+          if (32 * k < Tp) sS[(r0 + a) * TS + rb.lane + 32 * k] = x[a][k];
+        }
+      }
+      if (rb.lane == 0) {
+        const float scale = expf(m_old[a] - m[a]);  // 0 before the first chunk
+        row_sum[r0 + a] = row_sum[r0 + a] * scale + s[a];
+        row_max[r0 + a] = m[a];
+        if (row_scale != nullptr) row_scale[r0 + a] = scale;
+      }
+    }
+  }
+}
+
+// The softmax weights of one chunk from its logits in place, given each
+// row's max and sum over all the keys: W = exp(logit - max) * (1 / sum), the
+// arithmetic of softmax_rows and of B2's key pass.  A warp to a row.
+template <int ROWS>
+__device__ __forceinline__ void normalize_rows(float* sS, int TS, const float* row_max, const float* row_sum) {
+  using Block = RowBlock<ROWS>;
+  const Block rb;
+  const int Tp = TS - 8;
+  for (int r = rb.warp; r < ROWS; r += Block::NWARPS) {
+    const float m = row_max[r], inv = 1.f / row_sum[r];
+    for (int j = rb.lane; j < Tp; j += 32) sS[r * TS + j] = expf(sS[r * TS + j] - m) * inv;
   }
 }
 

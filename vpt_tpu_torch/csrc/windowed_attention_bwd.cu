@@ -55,7 +55,15 @@
 //     and dV accumulators would not fit the registers, so the columns go in
 //     two halves, each recomputing the tile's W and dL;
 //   * pass 3 sums the d b_nd partials in block order, so the result is the
-//     same, bit for bit, from run to run.
+//     same, bit for bit, from run to run;
+//   * past 512 keys, pass 1 walks the keys in chunks of 512 through the same
+//     logit tile, recomputing each chunk's logits in three sweeps: the rows'
+//     max and sum (an online softmax, as B1's), then rowdot, then dL with dQ
+//     (accumulated across chunks in registers), dR and the d b_nd partials
+//     (accumulated in place, each entry by the one thread that owns it).
+//     Q and dO take turns in the one row tile.  Pass 2 already streams the
+//     query rows over tiles of keys and reads pass 1's row statistics.  The
+//     band table stays in shared memory whole: bandsize <= 512.
 // A fully masked row has uniform W, exactly as in the forward: the row max
 // and sum are stored as they are (not as a log-sum-exp, which would lose the
 // row's offsets next to -1e9 in f32).  No (B, H, t, T) tensor and no (n, t, T)
@@ -76,12 +84,15 @@ __host__ __device__ constexpr int key_pass_cols() {  // dK and dV columns a warp
   return D <= 128 ? D : D / 2;
 }
 
+// past KEY_CHUNK keys: a chunk's logit tile, and each row's running max and sum
 template <typename T, int D>
 size_t rows_smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
   const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
   const size_t band = ((size_t)nbasis * bandsize + 3) / 4 * 4;
-  return (rows + 2 * KEY_TILE) * tile +
-         ((size_t)rows * logit_stride(T_keys) + rows * R_STRIDE + RowBlock<64>::SPLIT * rows + band) * sizeof(float);
+  const size_t running = T_keys > KEY_CHUNK ? 2 * rows : 0;
+  const int keys = T_keys < KEY_CHUNK ? T_keys : KEY_CHUNK;
+  return (rows + 2 * KEY_TILE) * tile + ((size_t)rows * logit_stride(keys) + rows * R_STRIDE +
+                                         RowBlock<64>::SPLIT * rows + band + running) * sizeof(float);
 }
 
 template <typename T, int D>
@@ -243,6 +254,202 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
+// pass 1 for T > KEY_CHUNK keys: three sweeps over chunks of KEY_CHUNK keys,
+// each chunk's logits recomputed in every sweep
+template <typename T, int D, int ROWS>
+__global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
+bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
+                        const uint8_t* __restrict__ mask, T* __restrict__ dq, float* __restrict__ dR,
+                        float* __restrict__ stats, float* __restrict__ partial, int BHt, int H, int t, int T_keys,
+                        int nbasis, int bandsize, float alpha) {
+  using Block = RowBlock<ROWS>;
+  constexpr int NTHREADS = Block::NTHREADS;
+  constexpr int SPLIT = Block::SPLIT;
+  constexpr int DS = tile_stride<T, D>();
+  constexpr int DH = D / SPLIT;         // dQ columns of a warp
+  constexpr int KH = KEY_TILE / SPLIT;  // keys of a tile a warp takes
+  const int TS = logit_stride(KEY_CHUNK);
+  extern __shared__ float4 smem4[];
+  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x DS: Q or dO
+  T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K and V tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: a chunk's logits, then W, then dL
+  float* sR = sS + ROWS * TS;          // ROWS x R_STRIDE
+  float* sRd = sR + ROWS * R_STRIDE;   // SPLIT x ROWS: each part's rowdot partial sums
+  float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize
+  float* sM = sB + ((size_t)nbasis * bandsize + 3) / 4 * 4;  // ROWS: running max, then the max
+  float* sL = sM + ROWS;                                      // ROWS: running sum, then the sum
+
+  const Block rb;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int q0 = blockIdx.y * ROWS;
+  const int tid = threadIdx.x;
+  const int g = rb.g, c = rb.c, row0 = rb.row0, lane = rb.lane;
+  const T* qb = q + (size_t)bh * t * D;
+  const T* ob = dout + (size_t)bh * t * D;
+  const T* kb = k + (size_t)bh * T_keys * D;
+  const T* vb = v + (size_t)bh * T_keys * D;
+  const uint8_t* mask_b = mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr;
+
+  // the first chunk's inputs as in bwd_rows_kernel
+  if (nbasis > 0)
+    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, sB, b_nd, bandsize);
+  cp_async_commit();
+  load_rows_async<T, D>(sQ, DS, qb, q0, ROWS, t, tid, NTHREADS);
+  cp_async_commit();
+  prefetch_tile<T, D, NTHREADS>(sKV, kb, KEY_CHUNK, 0);
+  mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, 0, KEY_CHUNK, T_keys);
+  for (int i = tid; i < ROWS; i += NTHREADS) {
+    sM[i] = -CUDART_INF_F;
+    sL[i] = 0.f;
+  }
+  cp_async_wait<2>();
+  __syncthreads();
+
+  // The logits of chunk [c0, c0 + nc) into sS.  Unless `ready` (the first
+  // chunk, whose inputs are in), every warp must be past its last read of sS
+  // and the chunk's mask terms and first K tile are fetched here; Q must be
+  // in sQ or in flight, committed before this call.
+  auto chunk_logits = [&](int c0, int nc, bool ready) {
+    if (!ready) {
+      prefetch_tile<T, D, NTHREADS>(sKV, kb + (size_t)c0 * D, nc, 0);
+      mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, c0, KEY_CHUNK, T_keys);
+      __syncthreads();
+    }
+    if (nbasis > 0) band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, sB, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
+    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * D, nc, alpha, true);
+  };
+  // Q or dO into the row tile, once every warp is past its last read of it
+  auto load_rows = [&](const T* src) {
+    load_rows_async<T, D>(sQ, DS, src, q0, ROWS, t, tid, NTHREADS);
+    cp_async_commit();
+  };
+
+  // 1. each row's max and sum over all the keys
+  for (int c0 = 0; c0 < T_keys; c0 += KEY_CHUNK) {
+    if (c0 > 0) __syncthreads();  // the previous chunk's softmax has read sS
+    chunk_logits(c0, min(KEY_CHUNK, T_keys - c0), c0 == 0);
+    softmax_rows_online<ROWS, false>(sS, TS, sM, sL, nullptr);
+  }
+  __syncthreads();
+  for (int i = tid; i < ROWS; i += NTHREADS) {
+    if (q0 + i < t) {
+      stats[(size_t)bh * t + q0 + i] = sM[i];
+      stats[BHt + (size_t)bh * t + q0 + i] = sL[i];
+    }
+  }
+
+  // 2. rowdot_i = sum_j (dO V^T)_ij W_ij, chunk by chunk, as bwd_rows_kernel's step 3
+  float rd[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
+  for (int c0 = 0; c0 < T_keys; c0 += KEY_CHUNK) {
+    const int nc = min(KEY_CHUNK, T_keys - c0);
+    __syncthreads();  // every warp is past the previous chunk's reads of sS and sQ
+    load_rows(qb);
+    chunk_logits(c0, nc, false);
+    normalize_rows<ROWS>(sS, TS, sM, sL);
+    load_rows(ob);  // every warp is past its last read of Q (block_logits ends with a barrier)
+    stream_tiles<T, D, NTHREADS>(sKV, vb + (size_t)c0 * D, nc, false, [&](int kt0, const T* tile) {
+      float p[KH / 8][4] = {};
+      mma_nt<T, D, KH / 8>(p, sQ + row0 * DS, DS, tile + rb.part * KH * DS, DS, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* wrow = sS + (row0 + g + 8 * h) * TS + kt0 + rb.part * KH + 2 * c;
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) {
+          const float2 w = *reinterpret_cast<const float2*>(wrow + n * 8);
+          rd[h] = fmaf(p[n][2 * h], w.x, rd[h]);
+          rd[h] = fmaf(p[n][2 * h + 1], w.y, rd[h]);
+        }
+      }
+    });
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rd[h] = quad_sum(rd[h]);
+    if (c == 0) sRd[rb.part * ROWS + row0 + g + 8 * h] = rd[h];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + g + 8 * h;
+    rd[h] = sRd[i];
+#pragma unroll
+    for (int p = 1; p < SPLIT; ++p) rd[h] += sRd[p * ROWS + i];
+    if (rb.part == 0 && c == 0 && q0 + i < t) stats[2 * (size_t)BHt + (size_t)bh * t + q0 + i] = rd[h];
+  }
+
+  // 3. chunk by chunk: dL in place, dQ += alpha dL K, dR and the d b_nd partials
+  float acc[DH / 8][4] = {};
+  const int nb = nbasis * bandsize;
+  float* P = partial + ((size_t)bh * gridDim.y + blockIdx.y) * nb;
+  const int nrows = min(ROWS, t - q0);
+  for (int c0 = 0; c0 < T_keys; c0 += KEY_CHUNK) {
+    const int nc = min(KEY_CHUNK, T_keys - c0);
+    __syncthreads();  // every warp is past the previous chunk's reads of sS and sQ
+    load_rows(qb);
+    chunk_logits(c0, nc, false);
+    normalize_rows<ROWS>(sS, TS, sM, sL);
+    load_rows(ob);
+    stream_tiles<T, D, NTHREADS>(sKV, vb + (size_t)c0 * D, nc, false, [&](int kt0, const T* tile) {
+      float p[KH / 8][4] = {};
+      mma_nt<T, D, KH / 8>(p, sQ + row0 * DS, DS, tile + rb.part * KH * DS, DS, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* wrow = sS + (row0 + g + 8 * h) * TS + kt0 + rb.part * KH + 2 * c;
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) {
+          const float2 w = *reinterpret_cast<const float2*>(wrow + n * 8);
+          store2(wrow + n * 8, w.x * (p[n][2 * h] - rd[h]), w.y * (p[n][2 * h + 1] - rd[h]));
+        }
+      }
+    });
+    stream_tiles<T, D, NTHREADS>(sKV, kb + (size_t)c0 * D, nc, false, [&](int kt0, const T* tile) {
+      mma_nn_tile<T, DH>(acc, sS + row0 * TS + kt0, TS, tile + rb.part * DH, DS, lane);
+    });
+    if (nbasis == 0) continue;
+
+    // dR[i, n] += sum over the chunk's keys j on the band of dL_ij b_nd[n, (T - t) + i - j]
+    for (int i = rb.warp; i < ROWS && q0 + i < t; i += Block::NWARPS) {
+      const int off = (T_keys - t) + q0 + i;  // band offset of key 0
+      const int jlo = max(c0, off - bandsize + 1), jhi = min(c0 + nc - 1, off);
+      float acc_n[MAX_NBASIS] = {};
+      for (int j = jlo + lane; j <= jhi; j += 32) {
+        const float dl = sS[i * TS + j - c0];
+#pragma unroll
+        for (int n = 0; n < MAX_NBASIS; ++n) {
+          if (n < nbasis) acc_n[n] += dl * sB[n * bandsize + off - j];  // uniform condition
+        }
+      }
+      const float x = warp_sum16(acc_n, lane);  // lanes 2n and 2n + 1: the sum for n
+      if (lane % 2 == 0 && lane / 2 < nbasis) {
+        float* dst = dR + ((size_t)bh * t + q0 + i) * nbasis + lane / 2;
+        *dst = (c0 == 0 ? 0.f : *dst) + x;
+      }
+    }
+    // this block's partial d b_nd[n, dd] += sum_i dL[i, (T - t) + gi - dd] R[i, n] over the chunk's keys
+    for (int idx = tid; idx < nb; idx += NTHREADS) {
+      const int n = idx / bandsize, dd = idx % bandsize;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, summed in a fixed order
+#pragma unroll 4
+      for (int i = 0; i < nrows; ++i) {
+        const int j = (T_keys - t) + q0 + i - dd;
+        if (j >= c0 && j < c0 + nc) s[i & 3] = fmaf(sS[i * TS + j - c0], sR[i * R_STRIDE + n], s[i & 3]);
+      }
+      P[idx] = (c0 == 0 ? 0.f : P[idx]) + ((s[0] + s[1]) + (s[2] + s[3]));
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gi = q0 + row0 + g + 8 * h;
+    if (gi < t) {
+      T* row = dq + ((size_t)bh * t + gi) * D + rb.part * DH + 2 * c;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) store2(row + n * 8, alpha * acc[n][2 * h], alpha * acc[n][2 * h + 1]);
+    }
+  }
+}
+
 // pass 2: one block per (b, h, 16 * NWARPS keys), a warp per 16 keys
 template <typename T, int D, int NWARPS>
 __global__ void __launch_bounds__(NWARPS * 32)
@@ -373,7 +580,7 @@ template <typename T, int D, int ROWS>
 int launch_rows(const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
                 const uint8_t* mask, T* dq, float* dR, float* stats, float* partial, int B, int H, int t,
                 int T_keys, int nbasis, int bandsize, float alpha, cudaStream_t stream, int* nblocks) {
-  auto kernel = bwd_rows_kernel<T, D, ROWS>;
+  auto kernel = T_keys > KEY_CHUNK ? bwd_rows_chunked_kernel<T, D, ROWS> : bwd_rows_kernel<T, D, ROWS>;
   const size_t smem = rows_smem_bytes<T, D>(ROWS, T_keys, nbasis, bandsize);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -456,10 +663,10 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace
 
-// q and dout (B, H, t, d), k and v (B, H, T, d): contiguous and 16-byte
-// aligned, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1).  R (B, H, t,
-// nbasis) f32 and b_nd (nbasis, bandsize) f32, both null for no relative
-// bias.  mask (B, t, T) bool bytes, null for no mask.  Outputs dq (B, H, t,
+// q and dout (B, H, t, d), k and v (B, H, T, d), any T: contiguous and
+// 16-byte aligned, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1).  R (B,
+// H, t, nbasis) f32 and b_nd (nbasis, bandsize <= 512) f32, both null for no
+// relative bias.  mask (B, t, T) bool bytes, null for no mask.  Outputs dq (B, H, t,
 // d), dk and dv (B, H, T, d) in the input dtype; dR (B, H, t, nbasis) and
 // db_nd (nbasis, bandsize) f32 (unused without R).  Scratch: stats
 // 3 * B * H * t f32, partial B * H * ceil(t / 32) * nbasis * bandsize f32
@@ -470,9 +677,9 @@ extern "C" int vpt_windowed_attention_bwd(const void* q, const void* k, const vo
                                           void* dk, void* dv, float* dR, float* db_nd, float* stats,
                                           float* partial, int B, int H, int t, int T, int d, int nbasis,
                                           int bandsize, int is_bf16, float alpha, void* stream) {
-  if (B < 1 || H < 1 || t < 1 || T < 1 || T > MAX_KEYS) return (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || t < 1 || T < 1) return (int)cudaErrorInvalidValue;
   if ((R == nullptr) != (b_nd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1 || bandsize > MAX_KEYS ||
+  if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1 || bandsize > MAX_BAND ||
                        dR == nullptr || db_nd == nullptr || partial == nullptr))
     return (int)cudaErrorInvalidValue;
   if (R == nullptr) nbasis = bandsize = 0;

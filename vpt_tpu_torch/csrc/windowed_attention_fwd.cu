@@ -40,7 +40,15 @@
 //   * the softmax is the reference's exact two-pass one: the logits of the
 //     block's rows over all T <= 512 keys stay in shared memory, and the
 //     warps normalise them in place (in bf16, W is rounded after it is
-//     normalised, as in the reference).
+//     normalised, as in the reference);
+//   * past 512 keys (IDMAgent.predict_actions carries its state, so N frames
+//     attend over N + maxlen keys) a second kernel walks the keys in chunks
+//     of 512 through the same logit tile: each row's running max and sum
+//     carry from chunk to chunk, the output accumulators are rescaled by
+//     exp(old max - new max) when the max moves, and the rows are divided by
+//     their sum once, at the end (in bf16 the unnormalised weights are
+//     rounded).  A fully masked row still gets uniform weights over all T
+//     keys.  The band table stays in shared memory whole: bandsize <= 512.
 
 #include "attention_mma.cuh"
 
@@ -48,12 +56,15 @@ namespace {
 
 using namespace wattn;
 
+// past KEY_CHUNK keys: a chunk's logit tile, and each row's running max, sum and rescale factor
 template <typename T, int D>
 size_t smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
   const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
   const size_t band = ((size_t)nbasis * bandsize + 3) / 4 * 4;
+  const size_t running = T_keys > KEY_CHUNK ? 3 * rows : 0;
+  const int keys = T_keys < KEY_CHUNK ? T_keys : KEY_CHUNK;
   return (rows + 2 * KEY_TILE) * tile +
-         ((size_t)rows * logit_stride(T_keys) + rows * R_STRIDE + band) * sizeof(float);
+         ((size_t)rows * logit_stride(keys) + rows * R_STRIDE + band + running) * sizeof(float);
 }
 
 template <typename T, int D, int ROWS>
@@ -123,10 +134,104 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
   }
 }
 
+// The kernel above for T > KEY_CHUNK keys: chunks of KEY_CHUNK keys through
+// the one logit tile, with an online softmax across them.
+template <typename T, int D, int ROWS>
+__global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
+windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                      const float* __restrict__ R, const float* __restrict__ b_nd,
+                                      const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int t,
+                                      int T_keys, int nbasis, int bandsize, float alpha) {
+  using Block = RowBlock<ROWS>;
+  constexpr int NTHREADS = Block::NTHREADS;
+  constexpr int DS = tile_stride<T, D>();
+  constexpr int DH = D / Block::SPLIT;  // output columns of a warp
+  constexpr bool BF16 = exact_in_tf32<T>::value;
+  const int TS = logit_stride(KEY_CHUNK);
+  extern __shared__ float4 smem4[];
+  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x DS
+  T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K tiles, then V tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: a chunk's logits, then exp
+  float* sR = sS + ROWS * TS;                                      // ROWS x R_STRIDE
+  float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize
+  float* sM = sB + ((size_t)nbasis * bandsize + 3) / 4 * 4;        // ROWS: running max
+  float* sL = sM + ROWS;                                           // ROWS: running sum
+  float* sC = sL + ROWS;                                           // ROWS: this chunk's rescale factor
+
+  const Block rb;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int q0 = blockIdx.y * ROWS;
+  const int tid = threadIdx.x;
+  const T* kb = k + (size_t)bh * T_keys * D;
+  const T* vb = v + (size_t)bh * T_keys * D;
+  const uint8_t* mask_b = mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr;
+
+  // as the kernel above, for the first chunk
+  if (nbasis > 0) {
+    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, sB, b_nd, bandsize);
+  }
+  cp_async_commit();
+  load_rows_async<T, D>(sQ, DS, q + (size_t)bh * t * D, q0, ROWS, t, tid, NTHREADS);
+  cp_async_commit();
+  prefetch_tile<T, D, NTHREADS>(sKV, kb, KEY_CHUNK, 0);
+  mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, 0, KEY_CHUNK, T_keys);
+  for (int i = tid; i < ROWS; i += NTHREADS) {
+    sM[i] = -CUDART_INF_F;
+    sL[i] = 0.f;
+  }
+  cp_async_wait<2>();
+  __syncthreads();
+
+  float o[DH / 8][4] = {};
+  for (int c0 = 0; c0 < T_keys; c0 += KEY_CHUNK) {
+    const int nc = min(KEY_CHUNK, T_keys - c0);
+    if (c0 > 0) {  // every warp is past the previous chunk (stream_tiles ends with a barrier)
+      prefetch_tile<T, D, NTHREADS>(sKV, kb + (size_t)c0 * D, nc, 0);
+      mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, c0, KEY_CHUNK, T_keys);
+      __syncthreads();
+    }
+    if (nbasis > 0) band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, sB, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
+    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * D, nc, alpha, true);
+    softmax_rows_online<ROWS, true>(sS, TS, sM, sL, sC);
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float scale = sC[rb.row0 + rb.g + 8 * h];
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        o[n][2 * h] *= scale;
+        o[n][2 * h + 1] *= scale;
+      }
+    }
+    const float* wrows = sS + rb.row0 * TS;
+    stream_tiles<T, D, NTHREADS>(sKV, vb + (size_t)c0 * D, nc, false, [&](int kt0, const T* tile) {
+      if constexpr (BF16) {
+        mma_nn_tile_bf16<DH>(o, wrows + kt0, TS, tile + rb.part * DH, DS, rb.lane);
+      } else {
+        mma_nn_tile<T, DH>(o, wrows + kt0, TS, tile + rb.part * DH, DS, rb.lane);
+      }
+    });
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = rb.row0 + rb.g + 8 * h;
+    const int gi = q0 + i;
+    if (gi < t) {
+      const float inv = 1.f / sL[i];
+      T* orow = out + ((size_t)bh * t + gi) * D + rb.part * DH + 2 * rb.c;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) store2(orow + n * 8, o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+    }
+  }
+}
+
 template <typename T, int D, int ROWS>
 int launch(const void* q, const void* k, const void* v, const float* R, const float* b_nd, const uint8_t* mask,
            void* out, int B, int H, int t, int T_keys, int nbasis, int bandsize, float alpha, cudaStream_t stream) {
-  auto kernel = windowed_attention_fwd_kernel<T, D, ROWS>;
+  auto kernel = T_keys > KEY_CHUNK ? windowed_attention_fwd_chunked_kernel<T, D, ROWS>
+                                   : windowed_attention_fwd_kernel<T, D, ROWS>;
   const size_t smem = smem_bytes<T, D>(ROWS, T_keys, nbasis, bandsize);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -170,18 +275,19 @@ int dispatch_d(const void* q, const void* k, const void* v, const float* R, cons
 
 }  // namespace
 
-// q (B, H, t, d), k and v (B, H, T, d): contiguous and 16-byte aligned, all
-// f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1).  R (B, H, t, nbasis) f32 and
-// b_nd (nbasis, bandsize) f32, both null for no relative bias.  mask
+// q (B, H, t, d), k and v (B, H, T, d), any T: contiguous and 16-byte
+// aligned, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1).  R (B, H, t,
+// nbasis) f32 and b_nd (nbasis, bandsize <= 512) f32, both null for no
+// relative bias.  mask
 // (B, t, T) bool bytes, null for no mask.  out (B, H, t, d) in q's dtype.
 // Returns a cudaError_t (0 = launched).
 extern "C" int vpt_windowed_attention_fwd(const void* q, const void* k, const void* v, const float* R,
                                           const float* b_nd, const uint8_t* mask, void* out, int B, int H, int t,
                                           int T, int d, int nbasis, int bandsize, int is_bf16, float alpha,
                                           void* stream) {
-  if (B < 1 || H < 1 || t < 1 || T < 1 || T > MAX_KEYS) return (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || t < 1 || T < 1) return (int)cudaErrorInvalidValue;
   if ((R == nullptr) != (b_nd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1 || bandsize > MAX_KEYS))
+  if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1 || bandsize > MAX_BAND))
     return (int)cudaErrorInvalidValue;
   if (R == nullptr) nbasis = bandsize = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

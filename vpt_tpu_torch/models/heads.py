@@ -107,6 +107,23 @@ def categorical_logprob(logits: torch.Tensor, actions: torch.Tensor, spec: HeadS
     return picked
 
 
+def categorical_entropy(logits: torch.Tensor, spec: HeadSpec) -> torch.Tensor:
+    """−Σ p·log p, reduced over value_shape."""
+    ent = -torch.sum(torch.exp(logits) * logits, dim=-1)
+    for _ in spec.value_shape:
+        ent = ent.sum(dim=-1)
+    return ent
+
+
+def categorical_kl(logits_q: torch.Tensor, logits_p: torch.Tensor, spec: HeadSpec) -> torch.Tensor:
+    """KL(q ‖ p) = Σ exp(q)·(q − p), reduced over value_shape, keepdim on the
+    last axis (reference: lib/action_head.py:209-220)."""
+    kl = torch.sum(torch.exp(logits_q) * (logits_q - logits_p), dim=-1, keepdim=True)
+    for _ in spec.value_shape:
+        kl = kl.sum(dim=-2)
+    return kl
+
+
 def categorical_sample(logits: torch.Tensor, deterministic: bool = False,
                        generator: Optional[torch.Generator] = None,
                        uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -124,6 +141,15 @@ def categorical_sample(logits: torch.Tensor, deterministic: bool = False,
 def dict_logprob(logits: Dict[str, torch.Tensor], actions: Dict[str, torch.Tensor],
                  specs: Tuple[HeadSpec, ...]) -> torch.Tensor:
     return sum(categorical_logprob(logits[s.key], actions[s.key], s) for s in specs)
+
+
+def dict_entropy(logits: Dict[str, torch.Tensor], specs: Tuple[HeadSpec, ...]) -> torch.Tensor:
+    return sum(categorical_entropy(logits[s.key], s) for s in specs)
+
+
+def dict_kl(logits_q: Dict[str, torch.Tensor], logits_p: Dict[str, torch.Tensor],
+            specs: Tuple[HeadSpec, ...]) -> torch.Tensor:
+    return sum(categorical_kl(logits_q[s.key], logits_p[s.key], s) for s in specs)
 
 
 def dict_sample(logits: Dict[str, torch.Tensor], specs: Tuple[HeadSpec, ...],
@@ -147,6 +173,41 @@ def ewma_mean_var(stats: Dict[str, torch.Tensor], epsilon: float = 1e-5):
     return mean, var
 
 
+def ewma_normalize(stats: Dict[str, torch.Tensor], x: torch.Tensor, norm_axes: int = 2,
+                   epsilon: float = 1e-5) -> torch.Tensor:
+    mean, var = ewma_mean_var(stats, epsilon)
+    shape = (1,) * norm_axes + tuple(mean.shape)
+    return (x.float() - mean.reshape(shape)) / torch.sqrt(var.reshape(shape))
+
+
+def ewma_denormalize(stats: Dict[str, torch.Tensor], x: torch.Tensor, norm_axes: int = 2,
+                     epsilon: float = 1e-5) -> torch.Tensor:
+    mean, var = ewma_mean_var(stats, epsilon)
+    shape = (1,) * norm_axes + tuple(mean.shape)
+    return x.float() * torch.sqrt(var.reshape(shape)) + mean.reshape(shape)
+
+
+def ewma_updated_stats(stats: Dict[str, torch.Tensor], target: torch.Tensor, beta: float = 0.99999,
+                       norm_axes: int = 2, per_element_update: bool = False) -> Dict[str, torch.Tensor]:
+    """The stats after folding in a batch of targets (reference:
+    normalize_ewma.py:33-55, as a function of the stats)."""
+    x = target.float()
+    axes = tuple(range(norm_axes))
+    batch_mean = x.mean(dim=axes)
+    batch_sq_mean = (x ** 2).mean(dim=axes)
+    weight = beta
+    if per_element_update:
+        size = 1
+        for a in axes:
+            size *= x.shape[a]
+        weight = beta ** size
+    return {
+        "running_mean": stats["running_mean"] * weight + batch_mean * (1.0 - weight),
+        "running_mean_sq": stats["running_mean_sq"] * weight + batch_sq_mean * (1.0 - weight),
+        "debiasing_term": stats["debiasing_term"] * weight + (1.0 - weight),
+    }
+
+
 class EwmaNormalizer(nn.Module):
     """The EWMA statistics the checkpoint stores as
     ``value_head.normalizer.{running_mean, running_mean_sq, debiasing_term}``."""
@@ -167,8 +228,9 @@ class EwmaNormalizer(nn.Module):
 
 class ScaledMSEHead(nn.Module):
     """Linear value head in EWMA-normalised target space (reference:
-    lib/scaled_mse_head.py).  Serving reads ``denormalize``; the statistics
-    are updated only by training, which is not in this package yet."""
+    lib/scaled_mse_head.py).  Serving reads ``denormalize``; BC leaves the
+    statistics as they are, and PPO (training/rl.py) folds each collected
+    batch's returns into them with ``ewma_updated_stats``."""
 
     def __init__(self, insize: int, output_size: int = 1, norm_axes: int = 2,
                  epsilon: float = 1e-5, dtype: torch.dtype = torch.float32, device=None):
@@ -192,6 +254,4 @@ class ScaledMSEHead(nn.Module):
         return F.linear(x.to(dt), self.linear.weight.to(dt), self.linear.bias.to(dt))
 
     def denormalize(self, x):
-        mean, var = ewma_mean_var(self.normalizer.stats(), self.epsilon)
-        shape = (1,) * self.norm_axes + tuple(mean.shape)
-        return x.float() * torch.sqrt(var.reshape(shape)) + mean.reshape(shape)
+        return ewma_denormalize(self.normalizer.stats(), x, self.norm_axes, self.epsilon)

@@ -11,6 +11,11 @@ backward is kernel B2 (csrc/windowed_attention_bwd.cu): the gradients of q,
 k, v, R and b_nd, with dR and d b_nd reduced in the kernel, so no (B, H, t, T)
 dL reaches device memory either.
 
+Both kernels take any number of keys T: past ``KEY_CHUNK`` keys they walk
+the keys in chunks of that many through shared memory (an online softmax in
+B1, three sweeps over the chunks in B2's first pass).  The band table b_nd
+is held in shared memory whole, so its length is at most ``MAX_BAND``.
+
 Both kernels run their products on tensor cores (mma.sync), at the accuracy
 of the input type: f32 operands are split into TF32 hi and lo parts and
 multiplied in three TF32 products, bf16 ones go straight to the bf16 tensor
@@ -39,7 +44,8 @@ from vpt_tpu_torch.ops.rel_bias import banded_bias_matrix, relattn_bias
 KERNEL = "windowed_attention_fwd"
 BWD_KERNEL = "windowed_attention_bwd"
 SUPPORTED_D = (64, 128, 192)
-MAX_KEYS = 512
+KEY_CHUNK = 512  # keys whose logits a block of the kernels holds at once (csrc/attention_mma.cuh)
+MAX_BAND = 512  # longest band table (b_nd's second axis)
 MAX_NBASIS = 16
 QUERY_TILE = 32  # fewest query rows per block of B2's first pass (csrc/windowed_attention_bwd.cu)
 ALIGN = 16  # bytes: the kernels copy q, k, v and dO 16 bytes at a time
@@ -126,8 +132,8 @@ def _check(q, k, v, mask, R, b_nd) -> None:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     if d not in SUPPORTED_D:
         raise ValueError(f"head dim {d} not supported by the kernel (supports {SUPPORTED_D})")
-    if not 1 <= T <= MAX_KEYS:
-        raise ValueError(f"key length {T} outside the kernel's range 1..{MAX_KEYS}")
+    if T < 1:
+        raise ValueError(f"key length {T} must be at least 1")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share dtype float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     tensors = [q, k, v]
@@ -141,8 +147,8 @@ def _check(q, k, v, mask, R, b_nd) -> None:
         n = R.shape[-1]
         if R.dtype != torch.float32 or R.shape != (B, H, t, n) or not 1 <= n <= MAX_NBASIS:
             raise ValueError(f"R must be float32 (B, H, t, n<= {MAX_NBASIS}), got {R.dtype} {tuple(R.shape)}")
-        if b_nd.dtype != torch.float32 or b_nd.dim() != 2 or b_nd.shape[0] != n or b_nd.shape[1] > MAX_KEYS:
-            raise ValueError(f"b_nd must be float32 ({n}, bandsize<={MAX_KEYS}), got {b_nd.dtype} {tuple(b_nd.shape)}")
+        if b_nd.dtype != torch.float32 or b_nd.dim() != 2 or b_nd.shape[0] != n or b_nd.shape[1] > MAX_BAND:
+            raise ValueError(f"b_nd must be float32 ({n}, bandsize<={MAX_BAND}), got {b_nd.dtype} {tuple(b_nd.shape)}")
         tensors += [R, b_nd]
     for x in tensors:
         if x.device != q.device:

@@ -130,10 +130,12 @@ def inject_episode_firsts(batch: Dict[str, np.ndarray], last_episode: np.ndarray
 
 class ClippedAdam:
     """clip → +wd·θ → Adam → −lr·update, the JAX package's optax chain
-    (vpt_tpu/training/bc.py ``make_optimizer``): ``clip_grad_norm_`` over the
-    parameters, then ``torch.optim.Adam`` with L2 weight decay."""
+    (vpt_tpu/training/bc.py ``make_optimizer``; PPO's, training/rl.py, is the
+    same chain): ``clip_grad_norm_`` over the parameters, then
+    ``torch.optim.Adam`` with L2 weight decay.  ``hp`` is a BCHyperparams or
+    a PPOHyperparams."""
 
-    def __init__(self, params, hp: BCHyperparams):
+    def __init__(self, params, hp):
         self.params: List[torch.nn.Parameter] = list(params)
         self.max_grad_norm = hp.max_grad_norm
         self.adam = torch.optim.Adam(self.params, lr=hp.learning_rate, betas=(0.9, 0.999), eps=1e-8,
