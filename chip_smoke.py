@@ -3,21 +3,29 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run if it fails:
-  1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every CUDA kernel of the main path from the sources in csrc/, and
-     count the tensor-core instructions (HMMA, HGMMA) of each kernel in the
-     built library's SASS (cuobjdump): a kernel with none fails the run;
+  1. the card's name and power limit (nvidia-smi), torch and CUDA versions,
+     the host's cores;
+  2. build every CUDA kernel of the main path from the sources in csrc/ (and,
+     meanwhile, the native host resize, csrc/host_resize.cpp, with g++: the
+     run fails unless it loads), and count the tensor-core instructions
+     (HMMA, HGMMA) of each kernel in the built library's SASS (cuobjdump): a
+     kernel with none fails the run;
   3. kernel B1 (windowed attention forward) against its plain PyTorch
      version at the 2x chunk shape (B=4, H=16, t=128, T=256, d=128) and at
-     d = 64 and 192, with mask and relative bias, with neither, with the
+     d = 64, 192 and 256, with mask and relative bias, with neither, with the
      mask alone and with the bias alone, in float32 and bfloat16; and at the
      4x IDM's shapes (H=32, no mask, with the bias; t=128, T=256 and t=8,
      T=136); with its time in both types, at the 2x chunk and at the IDM's
      labeling shape, beside the plain version's, SDPA's on a materialised
      bias (a yardstick the port never calls) and its bound;
   4. a stepped rollout: the 2x foundation MineRLAgent (random weights from a
-     seed) serving 8 streams for 64 get_action calls on 360x640 frames,
-     with episode resets;
+     seed) serving 8 streams for 64 deterministic get_action calls on
+     360x640 frames, with episode resets, three times: frames resized by
+     numpy on one thread (as before the native resize), by the native resize
+     on the agent's thread pool, and on the device (resize_on_device); each
+     with frames/s and the frame preparation's share; numpy and native give
+     the same actions at every step; the device step in float32, bfloat16
+     compute, and bfloat16 compute and parameters;
   5. stepwise = chunkwise: 4 streams, 128 frames with mid-window resets,
      stepped at t=1 on the ring cache and as one (4, 128) chunked forward,
      which must launch B1 once per block;
@@ -36,6 +44,12 @@ Phases, each of which fails the run if it fails:
      (b) five optimizer steps at B=4, T=128 with the state carried across
      chunks, per-stream resets and a padded tail, launching B1 and B2 once
      per block and step;
+     (c) remat with the CNN in 8 frame chunks: one step at B=2 against the
+     same chunked step without remat (loss 1e-6 relative, grads at (a)'s
+     rules) and the chunked step against the whole CNN's (loss 1e-4, grads
+     on relative L2 as in 9(a)); then three steps at the JAX default batch,
+     B=8, T=128: ms a step and the peak; B1 twice a block and step (the
+     recompute), B2 once;
   8. the 4x inverse dynamics model (IDM_4X_KWARGS: hidsize 4096, 32 heads,
      2 blocks, Impala width 16, conv3d front; random weights from seed 0):
      (a) its logits and one IDMTrainer.train_step (B=1, an 8-frame window) on
@@ -52,6 +66,9 @@ Phases, each of which fails the run if it fails:
      (d) IDMAgent.predict_actions on 512 frames (T = 640 keys, past the
      kernels' 512-key chunk), its logits against the same forward with the
      plain attention on the card, B1 once per block;
+     (e) three IDM train steps at 8 windows of 128 with remat and the CNN in
+     8 chunks: ms a step and the peak;
+     and (b)'s device forward with bfloat16 parameters;
   9. KL-anchored PPO on the 2x policy (random weights from seed 0):
      (a) 2 streams x 16 steps collected on the card, then one update
      (n_epochs 1, n_minibatches 1, ending in one PPG aux step) on the card and
@@ -66,7 +83,16 @@ Phases, each of which fails the run if it fails:
      the host resize's share, the update's split, peak memory, and B1 208 and
      B2 192 launches per update;
      (c) PPOTrainer.evaluate on 4 streams until 4 episodes end: a finite
-     report, the trainer's generators untouched.
+     report, the trainer's generators untouched;
+     (d) one collect and update at (b)'s geometry with a PPG aux phase after
+     it (each aux step on all 4096 frames), remat and the CNN in 8 chunks:
+     its seconds and peak (an out-of-memory error fails the run);
+ 10. the attention shapes past the published models' that vpt_tpu's Pallas
+     kernel takes too: B1 and B2 against their plain versions with a
+     640-wide band table (read from device memory) at d = 128 and 256, past
+     512 keys and at 256 keys; and one transformer block each at d = 256
+     and with a 640-wide band on the card against the CPU, forward and every
+     gradient, through B1 and B2 once each.
 Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
 time them at the IDM's long-call shape and at the PPO minibatch's.
 It prints one JSON line with every kernel's numbers, then, last,
@@ -83,11 +109,23 @@ phases 3 and 6), and prints them as its last line.  It
 drives whichever vpt_tpu_torch package it imports, so run from an unpacked
 older commit with this file copied in, it times that commit's kernels by the
 same clock, for a comparison inside one call.
+
+    python3 chip_smoke.py --profile
+
+builds as phases 1 and 2 do, then traces phase 5's chunked forward, 7(b)'s
+BC step, 8(c)'s IDM step and 9(b)'s PPO update with torch.profiler
+(vpt_tpu_torch/tools/profile_ops.py), prints each one's device time by
+kernel category and its top kernels, writes the full tables to
+profile_*.json in --profile-dir (default profile_tables/), and prints them
+as its last line.  It fails where the trace holds no CUDA kernel.
 """
 
 import argparse
+import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -141,10 +179,37 @@ STATS_RTOL = 1e-6  # the folded EWMA stats, card against CPU
 # ~1e-3 in L2, while a wrong attention gradient is O(1)
 PPO_GRAD_REL_L2 = 1e-2
 TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+# remat and the chunked CNN (phases 7(c), 8(e), 9(d)) at the JAX package's default training batches.  8 chunks
+# of a (B·T = 1024)-frame batch run the CNN on 128 frames at a time: its largest activation (stack 0's conv
+# output, 128 channels at 128x128 for the 2x policy, 256 for the 4x IDM) is then 1.1-2.1 GB a buffer in f32,
+# not 8.6-17 GB, while each convolution still takes 128 frames, a full T=128 chunk of one stream.
+REMAT_CHUNKS = 8
+BC_REMAT_B, BC_REMAT_STEPS = 8, 3  # the JAX package's BC default batch (BCHyperparams.batch_size)
+IDM_REMAT_B, IDM_REMAT_STEPS = 8, 3  # the JAX package's IDM default batch (IDMHyperparams.batch_size)
+REMAT_LOSS_RTOL = 1e-6  # a step with remat against the same step without, on the card
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def reset_launch_counts():
+    """Zero the attention wrapper's counts of B1's and B2's launches."""
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    wa.launches = wa.bwd_launches = 0
+
+
+def release_memory():
+    """Free what the last phase left, reference cycles included (a check
+    that wraps a trainer's method in a closure over the trainer makes one),
+    then return the cached blocks: the next phase's peak is then its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def host_cores():
+    return f"host cores: os.cpu_count() {os.cpu_count()}, this process's affinity {len(os.sched_getaffinity(0))}"
 
 
 def cuda_time_ms(fn, iters=20, warmup=3, tries=3):
@@ -219,6 +284,30 @@ def sass_tensor_core_counts(listing):
         elif function is not None and TENSOR_CORE_OPS.search(line):
             counts[function] += 1
     return counts
+
+
+def ptxas_spills(log):
+    """{function: (spill store bytes, spill load bytes)} of the functions
+    that spill, from nvcc's ``-Xptxas -v`` report."""
+    spills, function = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            function = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and function is not None and (int(m.group(1)) or int(m.group(2))):
+            spills[function] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
+def demangled(names):
+    """C++ names as c++filt prints them, or as given where it is missing."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True, timeout=60).stdout
+    return out.splitlines() if len(out.splitlines()) == len(names) else list(names)
 
 
 def kernels_without_tensor_cores(counts):
@@ -333,7 +422,7 @@ def check_b1(dev):
     from vpt_tpu_torch.ops.attention import attention_alpha
 
     main_err = None
-    for d in (128, 64, 192):
+    for d in (128, 64, 192, 256):
         for dtype in (torch.float32, torch.bfloat16):
             for use_mask, use_rel in MASK_REL_CASES:
                 q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, d, dtype, d)
@@ -347,7 +436,7 @@ def check_b1(dev):
             q, k, v, _, R, b_nd = attention_inputs(dev, IDM_WINDOW_BATCH, 32, t, maxlen, 128, dtype, t)
             check_b1_case(wa, q, k, v, None, R, b_nd, f"IDM H=32 t={t} T={t + maxlen}")
     for t, maxlen in LONG_SHAPES:  # past the 512-key chunk: the kernel walks the keys in chunks
-        for d in (64, 128, 192):
+        for d in (64, 128, 192, 256):
             for dtype in (torch.float32, torch.bfloat16):
                 for use_mask, use_rel in MASK_REL_CASES:
                     q, k, v, mask, R, b_nd = attention_inputs(dev, 2, 16, t, maxlen, d, dtype, d + t)
@@ -399,22 +488,36 @@ def synthetic_obs(rng, n):
     return [{"pov": rng.integers(0, 256, (360, 640, 3), dtype=np.uint8)} for _ in range(n)]
 
 
-def stepped_rollout(dev, steps=64, streams=8):
-    """Phase 4: the 2x agent serving `streams` env streams for `steps` calls."""
-    from vpt_tpu_torch.agent import MineRLAgent
+def numpy_resize(agent):
+    """The agent's host frame preparation as it was before the native
+    library: the numpy cv2-exact resize, on one thread."""
+    from vpt_tpu_torch.ops.resize import resize_uint8_exact
+
+    def env_obs_to_agent(minerl_obs):
+        povs = minerl_obs if isinstance(minerl_obs, list) else [minerl_obs]
+        return np.stack([resize_uint8_exact(o["pov"], agent._resolution) for o in povs])[:, None]
+
+    return env_obs_to_agent
+
+
+def rollout_run(agent, frames, steps, mode):
+    """One stepped rollout of `agent` (deterministic actions, episode resets)
+    with frames prepared in `mode`: "numpy" (one thread), "native" (the C++
+    resize on the thread pool) or "device" (resize_on_device).  Returns the
+    actions of every step (rows: streams) and the timings in ms."""
     from vpt_tpu_torch.agent.agent import TARGET_ACTION_NAMES
     from vpt_tpu_torch.ops import windowed_attention as wa
+    from vpt_tpu_torch.ops.resize import resize_bilinear
 
-    t0 = time.perf_counter()
-    agent = MineRLAgent(device=dev, batch_size=streams, seed=0)
-    torch.cuda.synchronize()
-    log(f"2x MineRLAgent built in {time.perf_counter() - t0:.1f} s "
-        f"({sum(p.numel() for p in agent.policy.parameters())} parameters)")
-    rng = np.random.default_rng(0)
-    frames = [synthetic_obs(rng, streams) for _ in range(4)]
+    streams = agent.batch_size
+    agent.resize_on_device = mode == "device"
+    agent.__dict__.pop("_env_obs_to_agent", None)
+    if mode == "numpy":
+        agent._env_obs_to_agent = numpy_resize(agent)
+    agent.reset()
     resets = {16 + 4 * i: i for i in range(streams)}  # stream i restarts its episode at step 16 + 4 i
-    wa.launches = 0
-    t0 = None
+    reset_launch_counts()
+    actions, t0 = [], None
     for step in range(steps):
         if step == 1:
             torch.cuda.synchronize()
@@ -424,30 +527,108 @@ def stepped_rollout(dev, steps=64, streams=8):
             first[:] = True
         if step in resets:
             first[resets[step]] = True
-        actions = agent.get_action(frames[step % 4], first=first)
-        assert len(actions) == streams
-        for act in actions:
+        acts = agent.get_action(frames[step % len(frames)], first=first, stochastic=False)
+        assert len(acts) == streams
+        for act in acts:
             assert set(act) - {"camera"} <= TARGET_ACTION_NAMES
             assert all(act[k] in (0, 1) for k in act if k != "camera")
             assert act["camera"].shape == (2,) and np.all(np.abs(act["camera"]) <= 10.0)
         assert np.all(np.isfinite(agent._last_vpred))
+        actions.append(np.array([np.concatenate([np.ravel(a[k]) for k in sorted(a)]) for a in acts]))
     seconds = time.perf_counter() - t0
-    log(f"stepped rollout: {streams} streams x {steps} steps, {streams * (steps - 1) / seconds:.1f} frames/s "
-        f"({1e3 * seconds / (steps - 1):.2f} ms/step incl. host resize of 360x640 frames); "
-        f"B1 launches in the ring-cache rollout: {wa.launches}")
+    if wa.launches:
+        raise AssertionError(f"the ring-cache rollout launched B1 {wa.launches} times")
 
-    # the step's two halves, each alone: host resize, then device step + one D2H copy
+    # the step's parts, each alone: host frame preparation, then the device step + one D2H copy
     t0 = time.perf_counter()
     for i in range(8):
-        img = agent._env_obs_to_agent(frames[i % 4])
-    resize_ms = (time.perf_counter() - t0) * 1e3 / 8
+        img = agent._env_obs_to_agent(frames[i % len(frames)])
+    times = {"host_prep_ms": (time.perf_counter() - t0) * 1e3 / 8}
+    if mode == "device":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            raw = torch.from_numpy(img).to(agent.device, non_blocking=True)
+        torch.cuda.synchronize()
+        times["h2d_ms"] = (time.perf_counter() - t0) * 1e3 / 8
+        t0 = time.perf_counter()
+        for _ in range(8):
+            resize_bilinear(raw, agent._resolution)
+        torch.cuda.synchronize()
+        times["device_resize_ms"] = (time.perf_counter() - t0) * 1e3 / 8
     no_reset = np.zeros((streams, 1), bool)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(8):
         packed, agent.hidden_state = agent._step(img, no_reset, True, agent.hidden_state)
         packed.cpu()
-    step_ms = (time.perf_counter() - t0) * 1e3 / 8
-    log(f"  per step: host resize of {streams} frames {resize_ms:.2f} ms, policy step + D2H {step_ms:.2f} ms")
+    times["device_step_ms"] = (time.perf_counter() - t0) * 1e3 / 8
+    times["ms_a_step"] = 1e3 * seconds / (steps - 1)
+    times["frames_per_s"] = streams * (steps - 1) / seconds
+    agent.__dict__.pop("_env_obs_to_agent", None)
+    agent.resize_on_device = False
+    return np.stack(actions), times
+
+
+def device_step_ms(agent, img, calls=8):
+    """ms of the agent's device step (policy step, sampling, decode, one D2H
+    copy) on resized frames, after two warm calls."""
+    no_reset = np.zeros((agent.batch_size, 1), bool)
+    for i in range(calls + 2):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        packed, agent.hidden_state = agent._step(img, no_reset, True, agent.hidden_state)
+        packed.cpu()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def stepped_rollout(dev, steps=64, streams=8):
+    """Phase 4: the 2x agent serving `streams` env streams for `steps` calls,
+    its frames prepared three ways (numpy on one thread, the native resize on
+    the pool, on the device); the device step in bfloat16 compute, and with
+    bfloat16 parameters."""
+    from vpt_tpu_torch.agent import MineRLAgent
+    from vpt_tpu_torch.ops import host_resize
+
+    t0 = time.perf_counter()
+    agent = MineRLAgent(device=dev, batch_size=streams, seed=0)
+    torch.cuda.synchronize()
+    log(f"2x MineRLAgent built in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in agent.policy.parameters())} parameters)")
+    rng = np.random.default_rng(0)
+    frames = [synthetic_obs(rng, streams) for _ in range(4)]
+    backend = host_resize.backend()
+    runs = {}
+    for mode in ("numpy", "native", "device"):
+        actions, t = rollout_run(agent, frames, steps, mode)
+        runs[mode] = actions
+        prep = "host resize" if mode != "device" else "host stack of raw frames"
+        parts = f"{prep} {t['host_prep_ms']:.2f} ms ({100 * t['host_prep_ms'] / t['ms_a_step']:.1f}% of a step)"
+        if mode == "device":
+            parts += (f", H2D of the raw (B, 1, 360, 640, 3) frames {t['h2d_ms']:.2f} ms, device resize "
+                      f"{t['device_resize_ms']:.2f} ms ({100 * t['device_resize_ms'] / t['ms_a_step']:.1f}%)")
+        log(f"stepped rollout ({mode} frame preparation{', backend ' + backend if mode == 'native' else ''}): "
+            f"{streams} streams x {steps} steps, {t['frames_per_s']:.1f} frames/s, {t['ms_a_step']:.2f} ms/step; "
+            f"alone: {parts}, device step + D2H {t['device_step_ms']:.2f} ms; {host_cores()}")
+    if not np.array_equal(runs["numpy"], runs["native"]):
+        raise AssertionError("the native host resize's rollout chose other actions than the numpy resize's")
+    differ = int((runs["device"] != runs["native"]).any(axis=2).sum())
+    log(f"  deterministic actions: numpy and native resize equal at every step; the device resize differs in "
+        f"{differ} of {runs['native'].shape[0] * streams} stream-steps (its frames are up to 1 intensity step "
+        f"off, and random heads have near-ties: not gated)")
+    if backend != "native":
+        raise AssertionError(f"the host resize runs the {backend} fallback: {host_resize.load_error()}")
+
+    img = agent._env_obs_to_agent(frames[0])
+    times = {"float32": device_step_ms(agent, img)}
+    for label, kw in (("bfloat16 compute", dict(compute_dtype="bfloat16")),
+                      ("bfloat16 compute and parameters", dict(compute_dtype="bfloat16", params_dtype="bfloat16"))):
+        other = MineRLAgent(device=dev, batch_size=streams, seed=0, **kw)
+        times[label] = device_step_ms(other, img)
+        del other
+    release_memory()
+    log(f"  device step + D2H at {streams} streams: " + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()))
     return agent
 
 
@@ -476,7 +657,7 @@ def stepwise_equals_chunkwise(agent, dev, B=4, T=128):
         step_vpred.append(out["vpred"])
     torch.cuda.synchronize()
 
-    wa.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     out, _ = policy(img, first, policy_initial_state(cfg, B, ring=False, device=dev))
     torch.cuda.synchronize()
@@ -570,7 +751,7 @@ def check_b2(dev):
     from vpt_tpu_torch.ops import windowed_attention as wa
 
     main_err = None
-    for d in (128, 64, 192):
+    for d in (128, 64, 192, 256):
         for dtype in (torch.float32, torch.bfloat16):
             for use_mask, use_rel in MASK_REL_CASES:
                 q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, d, dtype, d + 1)
@@ -598,7 +779,7 @@ def check_b2(dev):
             if not all(e <= b for e, b in errs.values()):
                 raise AssertionError(f"B2 disagrees with its plain version at the IDM's shape: {errs}")
     for t, maxlen in LONG_SHAPES:  # past the 512-key chunk: pass 1 sweeps the keys in chunks
-        for d in (64, 128, 192):
+        for d in (64, 128, 192, 256):
             for dtype in (torch.float32, torch.bfloat16):
                 for use_mask, use_rel in MASK_REL_CASES:
                     q, k, v, mask, R, b_nd = attention_inputs(dev, 2, 16, t, maxlen, d, dtype, d + t + 1)
@@ -829,7 +1010,7 @@ def train_steps(trainer, dev, B=4, T=128, steps=5):
     state = trainer.initial_state(B)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wa.launches = wa.bwd_launches = 0
+    reset_launch_counts()
     times, losses = [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -855,6 +1036,111 @@ def train_steps(trainer, dev, B=4, T=128, steps=5):
 
     step_split(trainer, batches[0], B, T)
     return b_launches // steps
+
+
+def bc_remat_vs_plain(dev):
+    """Phase 7(c), first: one 2x BC step at B=2, T=128 on the card, from the
+    same weights, three ways: remat with the CNN in REMAT_CHUNKS chunks;
+    the chunks without remat, the same step but for the recompute (loss
+    1e-6 relative, grads at phase 7(a)'s rules); and neither.  The chunks
+    change the convolutions' batch and so cuDNN's arithmetic: against the
+    step without them, grads outside the CNN are held on relative L2 as in
+    phase 9(a) (a flipped ReLU decision of the blocks' MLPs moves a whole
+    term of a row of a weight's grad).  B1 launches twice a block with remat
+    (the recompute), B2 once.  Returns the remat trainer."""
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.ops import windowed_attention as wa
+    from vpt_tpu_torch.training.bc import BCTrainer
+
+    B, T = 2, 128
+    batch = bc_batch(dev, B, T, 128, 9, firsts_at=(None, 40), masked_tail=(0, 100))
+    steps = {}
+    for name, kw in (("remat", dict(remat=True, cnn_scan_chunks=REMAT_CHUNKS)),
+                     ("chunks", dict(cnn_scan_chunks=REMAT_CHUNKS)), ("neither", {})):
+        trainer = BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=0, device=dev, **kw)
+        reset_launch_counts()
+        _, loss, norm = trainer.train_step(batch, trainer.initial_state(B))
+        torch.cuda.synchronize()
+        grads = {n: p.grad.cpu() for n, p in trainer.policy.named_parameters() if p.grad is not None}
+        steps[name] = (loss.item(), norm.item(), grads, (wa.launches, wa.bwd_launches))
+        if name == "remat":
+            remat = trainer
+        del trainer
+
+    def errors(a, b):
+        (la, na, ga, _), (lb, nb, gb, _) = steps[a], steps[b]
+        worst, worst_cnn = grad_errors(ga, gb, (CNN_PREFIX,))
+        worst_l2 = max((rel_l2(ga[n], gb[n]), n) for n in gb if not n.startswith(CNN_PREFIX))
+        return abs(la - lb) / abs(lb), abs(na - nb) / abs(nb), worst, worst_cnn, worst_l2
+
+    def line(a, b, errs):
+        loss_err, norm_err, worst, worst_cnn, worst_l2 = errs
+        return (f"{a} against {b}: loss rel {loss_err:.2e}, grad norm rel {norm_err:.2e}; grads outside the CNN: "
+                f"worst max-abs error / ({GRAD_RTOL} max|grad| + {GRAD_ATOL}) {worst[0]:.3f} ({worst[1]}), worst "
+                f"relative L2 {worst_l2[0]:.2e}; CNN grads: worst relative L2 {worst_cnn[0]:.3e} ({worst_cnn[1]})")
+
+    same, chunked = errors("remat", "chunks"), errors("chunks", "neither")
+    n_blocks = remat.cfg.n_recurrence_layers
+    log(f"BC step (2x, B={B}, T={T}, f32, on the card), remat with {REMAT_CHUNKS} CNN chunks: {line('remat', 'chunks', same)} "
+        f"(tols: loss {REMAT_LOSS_RTOL}, norm {NORM_RTOL}, max-abs 1, CNN {CNN_GRAD_REL_L2}); launches B1, B2 "
+        f"with remat {steps['remat'][3]}, without {steps['chunks'][3]}")
+    log(f"  {line('chunks', 'neither', chunked)} (tols: loss {LOSS_RTOL}, norm {NORM_RTOL}, L2 outside the CNN "
+        f"{PPO_GRAD_REL_L2}, CNN {CNN_GRAD_REL_L2})")
+    if not (same[0] <= REMAT_LOSS_RTOL and same[1] <= NORM_RTOL and same[2][0] <= 1.0
+            and same[3][0] <= CNN_GRAD_REL_L2):
+        raise AssertionError("the BC step with remat disagrees with the step without")
+    if not (chunked[0] <= LOSS_RTOL and chunked[1] <= NORM_RTOL and chunked[4][0] <= PPO_GRAD_REL_L2
+            and chunked[3][0] <= CNN_GRAD_REL_L2):
+        raise AssertionError("the BC step with the chunked CNN disagrees with the step without")
+    if steps["remat"][3] != (2 * n_blocks, n_blocks) or steps["chunks"][3] != (n_blocks, n_blocks):
+        raise AssertionError(f"BC launches (B1, B2): with remat {steps['remat'][3]}, expected "
+                             f"{(2 * n_blocks, n_blocks)}; without {steps['chunks'][3]}")
+    return remat
+
+
+def remat_steps(trainer, batches, label, step):
+    """`step(batch)` on each batch (a trainer with remat): ms a step from the
+    second, frames/s and the peak; B1 twice and B2 once a block and step."""
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    B, T = batches[0]["mask"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(step(batch).item())  # synchronises
+        times.append(time.perf_counter() - t0)
+    launches = (wa.launches, wa.bwd_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = 1e3 * sum(times[1:]) / (len(times) - 1)
+    log(f"{label} ({B}x{T}, f32, remat, {REMAT_CHUNKS} CNN chunks): losses {[round(x, 6) for x in losses]}; "
+        f"{step_ms:.1f} ms/step from the second step ({B * T / step_ms * 1e3:.1f} frames/s), first step "
+        f"{times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB; launches over {len(batches)} steps: B1 "
+        f"{launches[0]}, B2 {launches[1]}")
+    n_blocks = trainer.cfg.n_recurrence_layers * len(batches)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    if launches != (2 * n_blocks, n_blocks):
+        raise AssertionError(f"{label}: B1 launched {launches[0]} and B2 {launches[1]} times, expected "
+                             f"{(2 * n_blocks, n_blocks)}")
+    return step_ms, peak_gb
+
+
+def bc_remat_steps(trainer, dev, B=BC_REMAT_B, T=128, steps=BC_REMAT_STEPS):
+    """Phase 7(c), then: BC steps at the JAX default batch, B=8, T=128, with
+    remat and the chunked CNN, the state carried."""
+    batches = [bc_batch(dev, B, T, 128, 300 + s, firsts_at=[(13 * i + 29 * s) % T if i % 2 else None
+                                                            for i in range(B)])
+               for s in range(steps)]
+    ctx = {"state": trainer.initial_state(B)}
+
+    def step(batch):
+        ctx["state"], loss, _ = trainer.train_step(batch, ctx["state"])
+        return loss
+
+    return remat_steps(trainer, batches, "BC train", step)
 
 
 def idm_batch(B, T, seed, masked_tail=None):
@@ -1001,7 +1287,7 @@ def idm_labeling(dev, frames, compute_dtype):
     del calls[:]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wa.launches = 0
+    reset_launch_counts()
     labeler = StreamingIDMLabeler(agent, window=IDM_WINDOW, stride=IDM_STRIDE, window_batch=IDM_WINDOW_BATCH)
     t0 = time.perf_counter()
     labels = []
@@ -1046,7 +1332,22 @@ def idm_labeling(dev, frames, compute_dtype):
         f"frames/s, H2D and label D2H included)")
     log("  forward split (ms, each ended by a synchronise): "
         + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + f", total {sum(split.values()):.1f}")
-    return agent, labels, launches // max(forwards, 1), {k: v.float() for k, v in logits.items()}
+    return agent, labels, launches // max(forwards, 1), {k: v.float() for k, v in logits.items()}, stack, forward_s
+
+
+def idm_forward_ms(dev, stack, calls=3, **agent_kw):
+    """ms of a 4x IDMAgent's device forward of a window stack (H2D and label
+    D2H included), after one warm call."""
+    from vpt_tpu_torch.agent import IDMAgent
+    from vpt_tpu_torch.config import IDM_4X_KWARGS
+
+    agent = IDMAgent(IDM_4X_KWARGS, {}, device=dev, seed=0, **agent_kw)
+    agent.predict_actions_batched(stack)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        agent.predict_actions_batched(stack)
+    return (time.perf_counter() - t0) * 1e3 / calls
 
 
 def idm_train_steps(trainer, B=IDM_TRAIN_B, T=IDM_WINDOW, steps=IDM_TRAIN_STEPS):
@@ -1059,7 +1360,7 @@ def idm_train_steps(trainer, B=IDM_TRAIN_B, T=IDM_WINDOW, steps=IDM_TRAIN_STEPS)
     before = [p.detach().clone() for p in trainer.policy.parameters()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wa.launches = wa.bwd_launches = 0
+    reset_launch_counts()
     times, losses = [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -1085,6 +1386,18 @@ def idm_train_steps(trainer, B=IDM_TRAIN_B, T=IDM_WINDOW, steps=IDM_TRAIN_STEPS)
     return f_launches // steps, b_launches // steps
 
 
+def idm_remat_steps(dev, B=IDM_REMAT_B, T=IDM_WINDOW, steps=IDM_REMAT_STEPS):
+    """Phase 8(e): 4x IDM train steps at the JAX default batch, 8 windows of
+    128, with remat and the chunked CNN."""
+    from vpt_tpu_torch.config import IDM_4X_KWARGS
+    from vpt_tpu_torch.training.idm import IDMHyperparams, IDMTrainer
+
+    trainer = IDMTrainer(IDM_4X_KWARGS, {}, hp=IDMHyperparams(batch_size=B, window=T), remat=True,
+                         cnn_scan_chunks=REMAT_CHUNKS, seed=0, device=dev)
+    batches = [idm_batch(B, T, 400 + s) for s in range(steps)]
+    return remat_steps(trainer, batches, "IDM train", lambda batch: trainer.train_step(batch)[0])
+
+
 def idm_long_call(dev, n_frames=512):
     """Phase 8(d): IDMAgent.predict_actions on `n_frames` frames from a fresh
     state (T = n_frames + maxlen keys, past the kernels' 512-key chunk): B1
@@ -1100,7 +1413,7 @@ def idm_long_call(dev, n_frames=512):
     frames = np.random.default_rng(1).integers(0, 256, (n_frames, 360, 640, 3), dtype=np.uint8)
     T = n_frames + agent.cfg.maxlen
     torch.cuda.synchronize()
-    wa.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     actions = agent.predict_actions(frames)
     seconds = time.perf_counter() - t0
@@ -1129,22 +1442,29 @@ def idm_long_call(dev, n_frames=512):
 
 
 def check_idm(dev):
-    """Phase 8: the 4x IDM (a) card against CPU, (c) training, (b) labeling
-    in float32 and bfloat16, (d) a 512-frame predict_actions; returns the
-    per-forward and per-step launches."""
+    """Phase 8: the 4x IDM (a) card against CPU, (c) training, (e) training
+    at 8 windows with remat, (b) labeling in float32 and bfloat16 (and the
+    forward with bfloat16 parameters), (d) a 512-frame predict_actions;
+    returns the per-forward and per-step launches."""
     trainer = idm_card_vs_cpu(dev)
     train_launches = idm_train_steps(trainer)
     del trainer
-    torch.cuda.empty_cache()
+    release_memory()
+    idm_remat_steps(dev)
+    release_memory()
 
     rng = np.random.default_rng(0)
     frames = rng.integers(0, 256, (IDM_LABEL_FRAMES, 360, 640, 3), dtype=np.uint8)
-    agent, labels, per_forward, logits = idm_labeling(dev, frames, "float32")
+    agent, labels, per_forward, logits, _, _ = idm_labeling(dev, frames, "float32")
     del agent
-    torch.cuda.empty_cache()
-    agent, labels16, _, logits16 = idm_labeling(dev, frames, "bfloat16")
+    release_memory()
+    agent, labels16, _, logits16, stack, forward16_s = idm_labeling(dev, frames, "bfloat16")
     del agent
-    torch.cuda.empty_cache()
+    release_memory()
+    params16_ms = idm_forward_ms(dev, stack, compute_dtype="bfloat16", params_dtype="bfloat16")
+    release_memory()
+    log(f"IDM device forward of {IDM_WINDOW_BATCH} windows: bfloat16 compute {1e3 * forward16_s:.1f} ms, bfloat16 "
+        f"compute and parameters {params16_ms:.1f} ms")
     err = max((logits16[k] - logits[k]).abs().max().item() for k in logits)
     same = np.mean([all(np.array_equal(a[k], b[k]) for k in a) for (_, a), (_, b) in zip(labels, labels16)])
     log(f"IDM bfloat16 against float32: logits of a window batch max_abs_err {err:.3e} (tol {BF16_LOGIT_TOL}); "
@@ -1152,7 +1472,7 @@ def check_idm(dev):
     if not err <= BF16_LOGIT_TOL:
         raise AssertionError(f"the IDM's bfloat16 logits are {err} from the float32 ones")
     long_call = idm_long_call(dev)
-    torch.cuda.empty_cache()
+    release_memory()
     return per_forward, train_launches, long_call
 
 
@@ -1336,18 +1656,21 @@ def ppo_card_vs_cpu(dev):
 
 
 class Stopwatch:
-    """Seconds spent in wrapped callables, each call ended by a synchronise."""
+    """Seconds spent in wrapped callables, each call ended by a synchronise,
+    and the peak device memory (GB) of each name's calls."""
 
     def __init__(self):
-        self.seconds = {}
+        self.seconds, self.peak_gb = {}, {}
 
     def wrap(self, name, fn):
         def timed(*args, **kwargs):
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+            self.peak_gb[name] = max(self.peak_gb.get(name, 0.0), torch.cuda.max_memory_allocated() / 1e9)
             return out
 
         return timed
@@ -1359,6 +1682,7 @@ def ppo_at_bench_geometry(dev):
     launches."""
     from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
     from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.ops import host_resize
     from vpt_tpu_torch.ops import windowed_attention as wa
     from vpt_tpu_torch.training import rl
 
@@ -1374,11 +1698,13 @@ def ppo_at_bench_geometry(dev):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
+    resident_gb = torch.cuda.memory_allocated() / 1e9  # weights, anchor, Adam, grads after the warm update
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     traj, obs, firsts = trainer.collect(envs, obs, firsts, reward_fn=attack_reward)
     torch.cuda.synchronize()
     collect_s = time.perf_counter() - t0
+    collect_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t0 = time.perf_counter()
     for _ in range(4):
         trainer._resize(obs)
@@ -1391,7 +1717,7 @@ def ppo_at_bench_geometry(dev):
     trainer._fold_return_stats = watch.wrap("stats fold and GAE", trainer._fold_return_stats)
     gae = rl.compute_gae
     rl.compute_gae = watch.wrap("stats fold and GAE", gae)
-    wa.launches = wa.bwd_launches = 0
+    reset_launch_counts()
     try:
         t0 = time.perf_counter()
         metrics = trainer.update(traj)
@@ -1402,14 +1728,17 @@ def ppo_at_bench_geometry(dev):
         for name in ("_anchor_logits", "_ppo_step", "_fold_return_stats"):
             delattr(trainer, name)
     launches = (wa.launches, wa.bwd_launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     split = dict(watch.seconds, other=update_s - sum(watch.seconds.values()))
     log(f"PPO at vpt_tpu's bench geometry (2x, bf16, {streams} streams x {PPO_STEPS} steps, {PPO_GROUPS} collection "
         f"groups, {PPO_MINIBATCHES} minibatches, {PPO_EPOCHS} epochs, anchor chunks of {PPO_ANCHOR_FRAMES} frames): "
         f"warm collect + update {warm_s:.1f} s; collect {collect_s:.2f} s ({frames / collect_s:.1f} frames/s; host "
-        f"resize alone {resize_s:.2f} s, {100 * resize_s / collect_s:.1f}%); update {update_s:.2f} s "
-        f"({frames / update_s:.1f} frames/s) = " + ", ".join(f"{k} {v:.2f} s" for k, v in split.items())
-        + f"; peak memory {peak_gb:.2f} GB; B1 launches {launches[0]}, B2 {launches[1]}")
+        f"resize alone {resize_s:.2f} s, {100 * resize_s / collect_s:.1f}%, backend {host_resize.backend()}; "
+        f"{host_cores()}); update {update_s:.2f} s ({frames / update_s:.1f} frames/s) = "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in split.items())
+        + f"; a collect and update {frames / (collect_s + update_s):.1f} frames/s; B1 launches {launches[0]}, "
+        f"B2 {launches[1]}")
+    log(f"  memory: {resident_gb:.2f} GB resident before the collect; peaks: collect {collect_peak_gb:.2f} GB; " + ", ".join(
+        f"{k} {v:.2f} GB" for k, v in watch.peak_gb.items()) + " (each from the device's state when it starts)")
     log(f"  update metrics: " + json.dumps({k: round(v, 6) for k, v in metrics.items()}))
     n_blocks = trainer.cfg.n_recurrence_layers
     anchor_chunks = streams * PPO_STEPS // (PPO_ANCHOR_FRAMES // PPO_STEPS * PPO_STEPS)
@@ -1445,15 +1774,150 @@ def ppo_evaluate(trainer):
         raise AssertionError("evaluate moved the trainer's generators")
 
 
+def ppo_aux_at_bench_geometry(dev):
+    """Phase 9(d): one collect and update at 9(b)'s geometry with a PPG aux
+    phase after every update (aux_phase_every=1, the default 4 aux epochs),
+    so each aux step trains on the whole 64 x 64 = 4096-frame rollout, with
+    remat and the chunked CNN; its seconds and peak (an OOM fails the run)."""
+    from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.ops import windowed_attention as wa
+    from vpt_tpu_torch.training import rl
+
+    hp = rl.PPOHyperparams(rollout_len=PPO_STEPS, n_collect_groups=PPO_GROUPS, n_minibatches=PPO_MINIBATCHES,
+                           n_epochs=PPO_EPOCHS, anchor_fwd_max_frames=PPO_ANCHOR_FRAMES, aux_phase_every=1)
+    trainer = rl.PPOTrainer(dict(FOUNDATION_POLICY_KWARGS, cnn_scan_chunks=REMAT_CHUNKS), FOUNDATION_PI_HEAD_KWARGS,
+                            hp=hp, compute_dtype="bfloat16", remat=True, seed=0, device=dev)
+    envs = [MockMinecraftEnv(seed=i) for i in range(PPO_STREAMS)]
+    trainer.init()
+    watch = Stopwatch()
+    trainer._aux_phase = watch.wrap("aux phase", trainer._aux_phase)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    label = (f"PPO with the aux phase (2x, bf16, {PPO_STREAMS} streams x {PPO_STEPS} steps, aux_phase_every 1, "
+             f"{hp.aux_epochs} aux epochs on {PPO_STREAMS * PPO_STEPS} frames a step, remat, {REMAT_CHUNKS} CNN chunks)")
+    t0 = time.perf_counter()
+    traj, _, _ = trainer.collect(envs, reward_fn=attack_reward)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    metrics = trainer.update(traj)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = (wa.launches, wa.bwd_launches)
+    log(f"{label}: collect {collect_s:.2f} s, update {seconds - collect_s:.2f} s of which the aux phase "
+        f"{watch.seconds['aux phase']:.2f} s (peak {watch.peak_gb['aux phase']:.2f} GB); peak memory of the collect "
+        f"and update {peak_gb:.2f} GB; B1 launches {launches[0]}, B2 {launches[1]}; aux_v_loss "
+        f"{metrics['aux_v_loss']:.6f}, aux_clone_kl {metrics['aux_clone_kl']:.3e}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"the PPO update with the aux phase has metrics that are not finite: {metrics}")
+    # collection and anchor chunks launch B1 once a block; each PPO and aux step twice (forward, recompute),
+    # and the aux phase's clone-target forward once; B2 once a block and step
+    n_blocks = trainer.cfg.n_recurrence_layers
+    anchor_chunks = PPO_STREAMS * PPO_STEPS // (PPO_ANCHOR_FRAMES // PPO_STEPS * PPO_STEPS)
+    steps = PPO_EPOCHS * PPO_MINIBATCHES + hp.aux_epochs
+    expect = ((anchor_chunks + 1 + 2 * steps) * n_blocks, steps * n_blocks)
+    if launches != expect:
+        raise AssertionError(f"the PPO update with the aux phase launched B1 {launches[0]} and B2 {launches[1]} "
+                             f"times, expected {expect}")
+    return seconds
+
+
 def check_ppo(dev):
-    """Phase 9: (a) card against CPU, (b) vpt_tpu's geometry, (c) evaluate;
-    returns the (b) update's B1 and B2 launches."""
+    """Phase 9: (a) card against CPU, (b) vpt_tpu's geometry, (c) evaluate,
+    (d) the aux phase on a whole rollout with remat; returns the (b)
+    update's B1 and B2 launches."""
     trainer = ppo_card_vs_cpu(dev)
     del trainer
-    torch.cuda.empty_cache()
+    release_memory()
     trainer, launches = ppo_at_bench_geometry(dev)
     ppo_evaluate(trainer)
+    del trainer
+    release_memory()
+    ppo_aux_at_bench_geometry(dev)
+    release_memory()
     return launches
+
+
+# phase 10's blocks: (label, hidsize, heads, timesteps, attention_memory_size); d = hidsize / heads
+WIDE_BLOCKS = (("d=256", 512, 2, 8, 16), ("band 640", 128, 2, 8, 648))
+# phase 10's kernel shapes: (t, T, bandsize) with the band wider than 512 offsets, past 512 keys and within them
+WIDE_BAND_SHAPES = ((128, 768, 640), (128, 256, 640))
+
+
+def wide_band_kernels(dev):
+    """B1 and B2 against their plain versions with a 640-wide band table, at
+    d = 128 and 256, mask and bias, in both types."""
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    for t, T, bandsize in WIDE_BAND_SHAPES:
+        for d in (128, 256):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, mask, R, _ = attention_inputs(dev, 2, 16, t, T - t, d, dtype, d + T)
+                b_nd = 0.2 * torch.randn((R.shape[-1], bandsize), generator=torch.Generator(device=dev).manual_seed(T),
+                                         device=dev)
+                label = f"d={d} t={t} T={T} band {bandsize}"
+                check_b1_case(wa, q, k, v, mask, R, b_nd, label)
+                dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(t), device=dev).to(dtype)
+                got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+                torch.cuda.synchronize()
+                errs = b2_errors(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), dtype)
+                log(f"B2 {label} {str(dtype)[6:]} mask=True rel=True: max_abs_err (tol) "
+                    + ", ".join(f"{n} {e:.3e} ({b:.2e})" for n, (e, b) in errs.items()))
+                if not all(e <= b for e, b in errs.values()):
+                    raise AssertionError(f"B2 disagrees with its plain version ({label}): {errs}")
+
+
+def wide_block(dev, label, hidsize, heads, timesteps, memory):
+    """One transformer block at a shape past the published models', on the
+    card against the CPU from the same weights and inputs: output and every
+    gradient within F32_TOL·(1 + max|ref|), through one B1 and one B2 launch."""
+    import copy
+
+    from vpt_tpu_torch.models.layers import init_parameters
+    from vpt_tpu_torch.models.transformer import ResidualRecurrentBlock
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    cpu_block = ResidualRecurrentBlock(hidsize, timesteps, attention_heads=heads, attention_memory_size=memory)
+    init_parameters(cpu_block, torch.Generator().manual_seed(0))
+    card_block = copy.deepcopy(cpu_block).to(dev)
+    B, T, maxlen = 2, timesteps, memory - timesteps
+    g = torch.Generator().manual_seed(1)
+    x, gout = torch.randn((B, T, hidsize), generator=g), torch.randn((B, T, hidsize), generator=g)
+    first = torch.zeros((B, T), dtype=torch.bool)
+    first[1, T // 2] = True
+    state = {"state_mask": torch.rand((B, maxlen), generator=g) < 0.75,
+             "k": torch.randn((B, maxlen, hidsize), generator=g), "v": torch.randn((B, maxlen, hidsize), generator=g)}
+
+    def run(block, device):
+        xs = x.to(device).requires_grad_(True)
+        out, _ = block(xs, first.to(device), {k: v.to(device) for k, v in state.items()})
+        return [out] + list(torch.autograd.grad(out, [xs] + list(block.parameters()), gout.to(device)))
+
+    reset_launch_counts()
+    got = run(card_block, dev)
+    torch.cuda.synchronize()
+    counts = (wa.launches, wa.bwd_launches)
+    expect = run(cpu_block, torch.device("cpu"))
+    names = ["output", "x"] + [n for n, _ in cpu_block.named_parameters()]
+    errs = {n: (a.cpu() - b).abs().max().item() / (1 + b.abs().max().item()) for n, a, b in zip(names, got, expect)}
+    worst = max(errs, key=errs.get)
+    log(f"{label} on the card (one block: hidsize {hidsize}, {heads} heads, d={hidsize // heads}, t={T}, "
+        f"T={T + maxlen} keys, band {maxlen}): output and {len(names) - 1} grads against the CPU: worst max-abs "
+        f"error / (1 + max|ref|) {errs[worst]:.3e} ({worst}, tol {F32_TOL}); B1 {counts[0]}, B2 {counts[1]}")
+    if counts != (1, 1):
+        raise AssertionError(f"{label}: launches (B1, B2) {counts}, expected (1, 1)")
+    if not errs[worst] <= F32_TOL:
+        raise AssertionError(f"{label}: the block on the card disagrees with the CPU: {errs[worst]} ({worst})")
+
+
+def check_wide_shapes(dev):
+    """Phase 10: d = 256 and a band table wider than 512 offsets go through
+    B1 and B2, held against their plain versions and the CPU."""
+    wide_band_kernels(dev)
+    for block in WIDE_BLOCKS:
+        wide_block(dev, *block)
 
 
 # --time-kernels' shapes besides the 2x chunk: (kernel, label, B, H, t, mask), all T = t + 128 <= 512
@@ -1481,31 +1945,89 @@ def time_kernels(dev):
     return times
 
 
+def profile_phases(dev, out_dir):
+    """--profile: a table of device time by CUDA kernel (tools/profile_ops.py)
+    of phase 5's chunked forward, 7(b)'s BC step, 8(c)'s IDM step and 9(b)'s
+    PPO update; each full table goes to out_dir/profile_<name>.json."""
+    from vpt_tpu_torch.agent import MineRLAgent
+    from vpt_tpu_torch.models.policy import policy_initial_state
+    from vpt_tpu_torch.tools import profile_ops
+
+    agent = MineRLAgent(device=dev, batch_size=4, seed=0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    img = torch.randint(0, 256, (4, 128, 128, 128, 3), generator=g, device=dev, dtype=torch.uint8)
+    first = torch.zeros((4, 128), dtype=torch.bool, device=dev)
+
+    @torch.inference_mode()
+    def chunked_forward():
+        agent.policy(img, first, policy_initial_state(agent.cfg, 4, device=dev))
+
+    steps = (("chunked_forward", "phase 5: 2x chunked forward (4, 128), f32", lambda: chunked_forward, 2, 3),
+             ("bc_step", "phase 7(b): 2x BC train step (4, 128), f32", lambda: profile_ops.make_bc_step(dev), 2, 3),
+             ("idm_step", "phase 8(c): 4x IDM train step (3, 128), f32", lambda: profile_ops.make_idm_step(dev), 2, 3),
+             ("ppo_update", "phase 9(b): 2x PPO update, 64 x 64, bf16", lambda: profile_ops.make_ppo_step(dev), 1, 1))
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tables = {}
+    for name, label, make, warmup, iters in steps:
+        t0 = time.perf_counter()
+        table = profile_ops.profile_step(make(), warmup=warmup, iters=iters, top=15)
+        with open(out_dir / f"profile_{name}.json", "w") as f:
+            json.dump(dict(table, label=label), f, indent=1)
+        tables[name] = {k: table[k] for k in ("device_total_us", "iters", "categories")}
+        tables[name]["top_ops"] = [{k: r[k] for k in ("op", "category", "self_time_share", "count")}
+                                   for r in table["top_ops"]]
+        log(f"profile of {label} ({iters} traced, {time.perf_counter() - t0:.1f} s with set-up): device time "
+            f"{table['device_total_us'] / 1e3 / iters:.1f} ms a step; " + ", ".join(
+                f"{k} {100 * v:.1f}%" for k, v in table["categories"].items()))
+        for r in table["top_ops"][:8]:
+            log(f"    {100 * r['self_time_share']:5.1f}%  {r['count'] // iters:5d}x  {r['category']:<11} {r['op'][:110]}")
+        if name == "chunked_forward":
+            del agent
+        release_memory()  # the step's trainer, before the next one's
+    return tables
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--time-kernels", action="store_true", help="time kernels B1 and B2 alone and stop")
+    parser.add_argument("--profile", action="store_true",
+                        help="trace the chunked forward, the BC and IDM steps and the PPO update and stop")
+    parser.add_argument("--profile-dir", default="profile_tables", help="where --profile writes its full tables")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from vpt_tpu_torch.ops import cuda_build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vpt_tpu_torch.ops import cuda_build, host_resize
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(smi.splitlines()[0])
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}; {host_cores()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    report = cuda_build.build(KERNELS)
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:  # g++ builds the host resize while nvcc builds the kernels
+        host_build = pool.submit(host_resize.backend)
+        report = cuda_build.build(KERNELS)
+        backend = host_build.result()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s; host resize backend: {backend}")
     for name, r in report.items():
-        ptxas = [ln for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
-        log(f"  {name}: {r['seconds']:.1f} s; " + " | ".join(ptxas))
+        spills = ptxas_spills(r["log"])
+        log(f"  {name}: {r['seconds']:.1f} s; {r['log'].count('Function properties for')} functions, "
+            f"{len(spills)} spill (store, load bytes): "
+            + "; ".join(f"{f} {b}" for f, b in zip(demangled(list(spills)), spills.values())))
+    if backend != "native":
+        raise AssertionError(f"the native host resize did not build or load: {host_resize.load_error()}")
     if args.time_kernels:
         print(json.dumps({"kernel_times": time_kernels(dev), "device": smi.splitlines()[0]}), flush=True)
+        return 0
+    if args.profile:
+        print(json.dumps({"profiles": profile_phases(dev, args.profile_dir), "device": smi.splitlines()[0]}), flush=True)
         return 0
     check_tensor_cores(KERNELS)
 
@@ -1514,18 +2036,24 @@ def main():
     b1["launches"] = stepwise_equals_chunkwise(agent, dev)
     del agent
     b2 = check_b2(dev)
-    torch.cuda.empty_cache()
+    release_memory()
     trainer = train_card_vs_cpu(dev)
     b2["launches"] = train_steps(trainer, dev)
     del trainer
-    torch.cuda.empty_cache()
+    release_memory()
+    trainer = bc_remat_vs_plain(dev)
+    release_memory()
+    bc_remat_steps(trainer, dev)
+    del trainer
+    release_memory()
     per_forward, (b1_per_step, b2_per_step), long_call = check_idm(dev)
     b1["idm_launches"] = {"labeling_forward": per_forward, "train_step": b1_per_step, "long_call": long_call}
     b2["idm_launches"] = {"train_step": b2_per_step}
-    torch.cuda.empty_cache()
+    release_memory()
     b1_update, b2_update = check_ppo(dev)
     b1["rl_launches"] = {"update": b1_update}
     b2["rl_launches"] = {"update": b2_update}
+    check_wide_shapes(dev)
 
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

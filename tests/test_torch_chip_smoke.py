@@ -164,3 +164,44 @@ def test_owned_labels_rederive_the_streaming_labeler(n_frames, window, stride, w
     assert [i for i, _ in direct] == [i for i, _ in labels] == list(range(n_frames))
     for (i, a), (_, b) in zip(labels, direct):
         assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a), i
+
+
+def test_ptxas_spills_names_the_functions_that_spill():
+    log = """ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    40 bytes stack frame, 40 bytes spill stores, 56 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 40 bytes cumulative stack size
+"""
+    assert cs.ptxas_spills(log) == {"_Z1bv": (40, 56)}
+    assert cs.ptxas_spills("") == {}
+    assert len(cs.demangled(["_Z1bv"])) == 1
+
+
+def test_reset_launch_counts_zeroes_both_kernels_counts():
+    """Every main path reads B1's and B2's launches from zero."""
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    counts = (wa.launches, wa.bwd_launches)
+    try:
+        wa.launches, wa.bwd_launches = 3, 4
+        cs.reset_launch_counts()
+        assert (wa.launches, wa.bwd_launches) == (0, 0)
+    finally:
+        wa.launches, wa.bwd_launches = counts
+
+
+def test_numpy_resize_is_the_agents_host_preparation():
+    """Phase 4's numpy run prepares the same frames as the native pool."""
+    import numpy as np
+
+    from vpt_tpu_torch.agent import MineRLAgent
+
+    kwargs = dict(hidsize=64, impala_chans=[4, 8], img_shape=[32, 32, 3], n_recurrence_layers=1, timesteps=4,
+                  attention_heads=4, attention_memory_size=8, recurrence_type="transformer")
+    agent = MineRLAgent(device="cpu", policy_kwargs=kwargs, batch_size=3)
+    obs = [{"pov": np.random.default_rng(i).integers(0, 256, (36, 64, 3), dtype=np.uint8)} for i in range(3)]
+    np.testing.assert_array_equal(cs.numpy_resize(agent)(obs), agent._env_obs_to_agent(obs))

@@ -23,6 +23,7 @@ from vpt_tpu.data import loader as jax_loader
 from vpt_tpu.data import video as jax_video
 from vpt_tpu_torch.actions import json_actions
 from vpt_tpu_torch.data import loader, video
+from vpt_tpu_torch.ops import host_resize
 
 W, H = 128, 72  # small 16:9 video
 
@@ -159,7 +160,8 @@ def test_video_binding_matches_vpt_tpu(native, tmp_path):
     ours.close()
     theirs.close()
     img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
-    np.testing.assert_array_equal(video.native_resize_u8(img, (128, 128)), jax_video.native_resize_u8(img, (128, 128)))
+    np.testing.assert_array_equal(host_resize.native_resize_u8(img, (128, 128)),
+                                  jax_video.native_resize_u8(img, (128, 128)))
 
 
 def _dataset(path, n=3):

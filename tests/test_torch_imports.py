@@ -30,6 +30,8 @@ def test_every_module_imports_without_jax_or_vpt_tpu():
     assert "vpt_tpu_torch.run_inverse_dynamics_model" in names and "vpt_tpu_torch.inverse_dynamics_train" in names
     assert {"vpt_tpu_torch.training.rl", "vpt_tpu_torch.agent.rollout", "vpt_tpu_torch.agent.evaluation",
             "vpt_tpu_torch.data.annotate", "vpt_tpu_torch.rl_fine_tune"} <= set(names)
+    assert {"vpt_tpu_torch.ops.host_resize", "vpt_tpu_torch.utils.profiling",
+            "vpt_tpu_torch.tools.profile_ops"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"

@@ -73,7 +73,7 @@ def _inputs(dev, B, H, t, maxlen, d, dtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("t,maxlen", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False), (False, True, True)])
@@ -119,14 +119,15 @@ def test_b1_kernel_fully_masked_row_is_uniform(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["head_dim", "band", "dtype", "contiguity", "alignment"])
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "contiguity", "alignment"])
 def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
+    """What the kernels do not take raises on CUDA, and nothing is routed
+    elsewhere; a band table of any length is taken
+    (test_kernels_take_the_wide_shapes)."""
     q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 8, 8, 64, torch.float32, 1)
     if bad == "head_dim":
         q = k = v = torch.zeros((1, 1, 4, 96), device=cuda)
         mask = R = b_nd = None
-    elif bad == "band":  # the band table is held in shared memory whole: at most MAX_BAND offsets
-        b_nd = torch.zeros((10, wa.MAX_BAND + 1), device=cuda)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "alignment":  # contiguous, but one float past a 16-byte boundary
@@ -135,6 +136,82 @@ def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((ValueError, TypeError)):
         wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
+
+
+# the shapes past the published models' that vpt_tpu's Pallas kernel takes
+# too: hidsize 4096 at 16 heads' d = 256, a band table of 640 offsets
+# (attention_memory_size - timesteps > 512, read from device memory), both;
+# and the tiny test configs' d = 16, which only the CPU runs
+WIDE = [(256, 8), (64, 640), (256, 640)]
+
+
+@pytest.mark.parametrize("d,bandsize", [(16, 8), (96, 8), (384, 8), (64, 8), (128, 512), (192, 1)] + WIDE)
+def test_kernels_take_the_supported_head_dims_and_any_band(d, bandsize):
+    """The check the wrappers make before a launch: a head dim in
+    SUPPORTED_D and a band table of any length; anything else raises."""
+    q, k, v = torch.zeros((1, 2, 4, d)), torch.zeros((1, 2, 12, d)), torch.zeros((1, 2, 12, d))
+    R, b_nd = torch.zeros((1, 2, 4, 10)), torch.zeros((10, bandsize))
+    if d in wa.SUPPORTED_D:
+        wa._check(q, k, v, None, R, b_nd)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            wa._check(q, k, v, None, R, b_nd)
+
+
+@pytest.mark.parametrize("d,bandsize", [(16, 8)] + WIDE)
+def test_cpu_runs_every_shape_plain_and_uncounted(d, bandsize):
+    """On the CPU every shape runs the plain version (the device decides,
+    not the shape), the ones the kernels do not take included, and no
+    launch is counted."""
+    q, k, v, mask, R, _ = _inputs(torch.device("cpu"), 1, 2, 8, 8, d, torch.float32, 2)
+    b_nd = torch.randn((10, bandsize), generator=torch.Generator().manual_seed(3))
+    q.requires_grad_(True)
+    counts = (wa.launches, wa.bwd_launches)
+    out = wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True)
+    out.sum().backward()
+    torch.testing.assert_close(out, wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True), rtol=0, atol=0)
+    assert (wa.launches, wa.bwd_launches) == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bandsize", WIDE)
+@pytest.mark.parametrize("t", [8, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_take_the_wide_shapes(cuda, d, bandsize, t, dtype):
+    """d = 256 and a 640-wide band table go through B1 and B2 (forward and
+    autograd), against the plain version; with the band, T = t + 640 > 512,
+    so the keys go in chunks too."""
+    dtype = getattr(torch, dtype)
+    q, k, v, mask, R, b_nd = _inputs(cuda, 2, 2, t, bandsize, d, dtype, d + bandsize + t)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, R, b_nd)]
+    counts = (wa.launches, wa.bwd_launches)
+    out = wa.windowed_attention_fwd(leaves[0], leaves[1], leaves[2], mask, leaves[3], leaves[4], True)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda).to(dtype)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (wa.launches, wa.bwd_launches) == (counts[0] + 1, counts[1] + 1)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v, R, b_nd)]
+    expect_out = wa.windowed_attention_fwd_plain(plain[0], plain[1], plain[2], mask, plain[3], plain[4], True)
+    torch.testing.assert_close(out.float(), expect_out.float(), rtol=tol, atol=tol)
+    _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, g.contiguous(), True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b1_b2_take_a_band_wider_than_the_keys(cuda, dtype):
+    """A 640-wide band table at T = 256 keys (no chunks): the ≤ 512-key
+    kernels read it from device memory."""
+    dtype = getattr(torch, dtype)
+    q, k, v, mask, R, _ = _inputs(cuda, 2, 4, 128, 128, 128, dtype, 11)
+    b_nd = torch.randn((10, 640), generator=torch.Generator(device=cuda).manual_seed(12), device=cuda)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(wa.windowed_attention_fwd(q, k, v, mask, R, b_nd, True).float(),
+                               wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True).float(),
+                               rtol=tol, atol=tol)
+    dO = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(13), device=cuda).to(dtype)
+    _b2_close(wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True),
+              wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), dtype)
 
 
 def _b2_close(got, expect, dtype):
@@ -151,7 +228,7 @@ def _b2_close(got, expect, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("t,maxlen", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("use_mask,use_rel,muP", [(True, True, True), (False, False, False), (False, True, True)])
@@ -187,7 +264,7 @@ def test_kernels_at_idm_shapes(cuda, t, maxlen, dtype, kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("t,maxlen", LONG_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("use_mask,use_rel", MASK_REL_CASES)

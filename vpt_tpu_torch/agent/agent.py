@@ -2,15 +2,20 @@
 vpt_tpu/agent/agent.py; reference agent.py).
 
 One step serves ``batch_size`` env streams: the host resizes each frame
-(cv2-bit-exact numpy), the device runs the policy at t=1 on the recurrent
-state, samples the joint action, decodes it to the factored env space and
-packs it with the value estimate into one (B, 23) array, which comes back to
-the host in one copy.  ``dispatch_action`` enqueues a step and returns at
-once; ``collect_action`` waits for it.
+(cv2-bit-exact, in the native library of ops/host_resize.py on a pool of
+``min(16, batch_size)`` threads), the device runs the policy at t=1 on the
+recurrent state, samples the joint action, decodes it to the factored env
+space and packs it with the value estimate into one (B, 23) array, which
+comes back to the host in one copy.  With ``resize_on_device`` the raw
+frames go to the card instead, and the step resizes them there
+(``resize_bilinear``, float, at most 1 intensity step from the host path).
+``dispatch_action`` enqueues a step and returns at once; ``collect_action``
+waits for it.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -18,7 +23,7 @@ import torch
 
 from vpt_tpu_torch.actions import ActionTransformer, CameraHierarchicalMapping
 from vpt_tpu_torch.actions.device_decode import DeviceActionDecoder, env_action_from_decoded
-from vpt_tpu_torch.checkpoint import load_state_dict_report, load_weights
+from vpt_tpu_torch.checkpoint import cast_params, load_state_dict_report, load_weights
 from vpt_tpu_torch.config import (
     ACTION_TRANSFORMER_KWARGS,
     FOUNDATION_PI_HEAD_KWARGS,
@@ -29,7 +34,8 @@ from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.models.heads import dict_sample, head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
-from vpt_tpu_torch.ops.resize import resize_uint8_exact
+from vpt_tpu_torch.ops.host_resize import native_resize_u8
+from vpt_tpu_torch.ops.resize import resize_bilinear
 from vpt_tpu_torch.spaces import DictType
 
 ENV_KWARGS = dict(  # reference: agent.py:47-54
@@ -75,6 +81,11 @@ class MineRLAgent:
     :param compute_dtype: "float32" or "bfloat16"
     :param ring_cache: step on the rotating head-split cache (one slot
         written per step) instead of the linear cache
+    :param resize_on_device: send the raw env frames to the device and
+        resize them inside the step (float bilinear, at most 1 intensity
+        step from the cv2-exact host path), for a host that cannot keep up
+    :param params_dtype: "float32", or "bfloat16" to store every parameter
+        of two or more dims in bfloat16 for serving (``cast_params``)
     """
 
     def __init__(
@@ -87,12 +98,16 @@ class MineRLAgent:
         seed: int = 0,
         compute_dtype: str = "float32",
         ring_cache: bool = True,
+        resize_on_device: bool = False,
+        params_dtype: str = "float32",
     ):
         if env is not None:
             validate_env(env)
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.ring_cache = ring_cache
+        self.resize_on_device = resize_on_device
+        self.params_dtype = params_dtype
         self.action_mapper = CameraHierarchicalMapping(n_camera_bins=11)
         self.action_transformer = ActionTransformer(**ACTION_TRANSFORMER_KWARGS)
         policy_kwargs = dict(policy_kwargs or FOUNDATION_POLICY_KWARGS)
@@ -104,15 +119,19 @@ class MineRLAgent:
         ).eval()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         init_parameters(self.policy, self._generator)
+        cast_params(self.policy, params_dtype)
         self.decoder = DeviceActionDecoder(self.action_mapper, self.action_transformer.quantizer, self.device)
         # cv2 (width, height) order from the model's (h, w, c) img_shape
         self._resolution = (self.cfg.img_shape[1], self.cfg.img_shape[0])
         self.hidden_state = policy_initial_state(self.cfg, batch_size, self.ring_cache, self.device)
         self._last_vpred = None
+        # the native resize releases the GIL, so the streams' frames resize in parallel
+        self._resize_pool = ThreadPoolExecutor(max_workers=min(16, batch_size)) if batch_size > 1 else None
 
     def load_weights(self, path: str) -> None:
         """Load a reference ``.weights`` file (strict=False) and reset state."""
         report = load_state_dict_report(self.policy, load_weights(path))
+        cast_params(self.policy, self.params_dtype)
         if report["unexpected"] or report["shape_mismatch"]:
             print(
                 f"[vpt_tpu_torch] load_weights: ignored {len(report['unexpected'])} unexpected keys, "
@@ -125,15 +144,24 @@ class MineRLAgent:
         self.hidden_state = policy_initial_state(self.cfg, self.batch_size, self.ring_cache, self.device)
 
     def _env_obs_to_agent(self, minerl_obs) -> np.ndarray:
-        """(list of) env obs → (B, 1, h, w, 3) uint8 frames at the model's resolution."""
+        """(list of) env obs → (B, 1, h, w, 3) uint8 frames at the model's
+        resolution, or the raw (B, 1, H, W, 3) frames with ``resize_on_device``."""
         povs = minerl_obs if isinstance(minerl_obs, list) else [minerl_obs]
-        return np.stack([resize_uint8_exact(o["pov"], self._resolution) for o in povs])[:, None]
+        if self.resize_on_device:
+            return np.stack([o["pov"] for o in povs])[:, None]
+        if self._resize_pool is not None and len(povs) > 1:
+            frames = list(self._resize_pool.map(lambda o: native_resize_u8(o["pov"], self._resolution), povs))
+        else:
+            frames = [native_resize_u8(o["pov"], self._resolution) for o in povs]
+        return np.stack(frames)[:, None]
 
     @torch.inference_mode()
     def _step(self, img: np.ndarray, first: np.ndarray, stochastic: bool, state):
         """One policy step on ``state``; returns the packed (B, 23) decoded
         action and value, and the state after the step."""
         img_t = torch.from_numpy(img).to(self.device, non_blocking=True)
+        if self.resize_on_device:
+            img_t = resize_bilinear(img_t, self._resolution)  # float32; the policy scales it as it does uint8
         first_t = torch.from_numpy(first).to(self.device, non_blocking=True)
         out, state = self.policy(img_t, first_t, state)
         logits = {k: v[:, -1] for k, v in out["pi_logits"].items()}

@@ -9,6 +9,10 @@ axis: ``predict_actions_batched`` labels B windows in one forward.
 ``dispatch_actions_batched`` enqueues that forward and the copy of its labels
 to the host and returns at once; ``collect_actions`` waits for them, so the
 host can decode the next frames meanwhile.
+
+Frames are resized with the numpy cv2-exact ``resize_image`` on one thread,
+as the JAX package's ``IDMAgent`` and labeler do; the policy agent and the
+PPO collection use the native host resize (ops/host_resize.py).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.actions import ActionTransformer, IDMActionMapping
-from vpt_tpu_torch.checkpoint import load_state_dict_report, load_weights
+from vpt_tpu_torch.checkpoint import cast_params, load_state_dict_report, load_weights
 from vpt_tpu_torch.config import ACTION_TRANSFORMER_KWARGS, PolicyConfig
 from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.models.heads import head_specs_from_space
@@ -49,23 +53,27 @@ class IDMAgent:
     :param seed: seeds the random initial weights (drawn on the CPU, so every
         device starts from the same weights)
     :param compute_dtype: "float32" or "bfloat16"
+    :param params_dtype: "float32", or "bfloat16" to store every parameter
+        of two or more dims in bfloat16 (``cast_params``)
     """
 
     def __init__(self, idm_net_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any], device=None,
-                 compute_dtype: str = "float32", seed: int = 0):
+                 compute_dtype: str = "float32", seed: int = 0, params_dtype: str = "float32"):
         self.device = resolve_device(device)
+        self.params_dtype = params_dtype
         self.action_mapper = IDMActionMapping(n_camera_bins=11)
         self.action_transformer = ActionTransformer(**ACTION_TRANSFORMER_KWARGS)
         self.cfg = PolicyConfig.from_kwargs(dict(idm_net_kwargs)).replace(compute_dtype=compute_dtype)
         self.head_specs = head_specs_from_space(DictType(**self.action_mapper.get_action_space_update()))
         policy = InverseActionPolicy(self.cfg, self.head_specs, float(pi_head_kwargs.get("temperature", 1.0)))
         init_parameters(policy, torch.Generator().manual_seed(seed))
-        self.policy = policy.to(self.device).eval()
+        self.policy = cast_params(policy.to(self.device).eval(), params_dtype)
         self.hidden_state = policy_initial_state(self.cfg, 1, device=self.device)
 
     def load_weights(self, path: str) -> None:
         """Load a reference ``.weights`` file (strict=False) and reset state."""
         report = load_state_dict_report(self.policy, load_weights(path))
+        cast_params(self.policy, self.params_dtype)
         if report["unexpected"] or report["shape_mismatch"]:
             print(
                 f"[vpt_tpu_torch] load_weights: ignored {len(report['unexpected'])} unexpected keys, "

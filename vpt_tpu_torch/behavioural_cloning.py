@@ -4,7 +4,8 @@ behavioural_cloning.py):
 
     python -m vpt_tpu_torch.behavioural_cloning --data-dir DIR --in-model M.model \\
         --in-weights M.weights --out-weights OUT.weights [--batch-size 8] [--chunk-len 128] \\
-        [--epochs 2] [--compute-dtype float32] [--labels-dir DIR] [--device cuda]
+        [--epochs 2] [--compute-dtype float32] [--remat] [--cnn-scan-chunks N] [--labels-dir DIR] \\
+        [--device cuda]
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -15,9 +16,11 @@ from vpt_tpu_torch.training.bc import BCHyperparams, BCTrainer
 
 
 def behavioural_cloning_train(data_dir, in_model, in_weights, out_weights, batch_size=8, chunk_len=128,
-                              epochs=2, compute_dtype="float32", device=None, labels_dir=None):
+                              epochs=2, compute_dtype="float32", device=None, remat=False, cnn_scan_chunks=0,
+                              labels_dir=None):
     hp = BCHyperparams(batch_size=batch_size, chunk_len=chunk_len, epochs=epochs)
-    trainer = BCTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, device=device)
+    trainer = BCTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, remat=remat,
+                                   cnn_scan_chunks=cnn_scan_chunks, device=device)
     steps = trainer.train(data_dir, out_weights, labels_dir=labels_dir)
     print(f"Finished: {steps} optimizer steps → {out_weights}")
 
@@ -32,6 +35,9 @@ def main(argv=None):
     parser.add_argument("--chunk-len", type=int, default=128, help="Sequence window length (1 = reference single-step mode)")
     parser.add_argument("--epochs", type=int, default=2)
     parser.add_argument("--compute-dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--remat", action="store_true", help="Recompute activations in the backward (memory for FLOPs)")
+    parser.add_argument("--cnn-scan-chunks", type=int, default=0,
+                        help="Run the CNN over N frame chunks to bound its activation memory")
     parser.add_argument("--labels-dir", type=str, default=None,
                         help="Train on IDM pseudo-labels: a directory of <video_id>.jsonl files "
                              "instead of the jsonl beside each video")
@@ -39,7 +45,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     behavioural_cloning_train(args.data_dir, args.in_model, args.in_weights, args.out_weights,
                               batch_size=args.batch_size, chunk_len=args.chunk_len, epochs=args.epochs,
-                              compute_dtype=args.compute_dtype, device=args.device, labels_dir=args.labels_dir)
+                              compute_dtype=args.compute_dtype, device=args.device, remat=args.remat,
+                              cnn_scan_chunks=args.cnn_scan_chunks, labels_dir=args.labels_dir)
 
 
 if __name__ == "__main__":

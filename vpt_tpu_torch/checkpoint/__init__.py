@@ -1,4 +1,5 @@
 from vpt_tpu_torch.checkpoint.torch_import import (
+    cast_params,
     from_jax_variables,
     load_model_parameters,
     load_state_dict_report,
@@ -8,6 +9,7 @@ from vpt_tpu_torch.checkpoint.torch_import import (
 )
 
 __all__ = [
+    "cast_params",
     "from_jax_variables",
     "load_model_parameters",
     "load_state_dict_report",

@@ -72,6 +72,22 @@ def save_weights(path: str, model: torch.nn.Module) -> None:
     torch.save({k: v.detach().cpu().clone() for k, v in model.state_dict().items()}, path)
 
 
+def cast_params(module: torch.nn.Module, params_dtype: str) -> torch.nn.Module:
+    """Cast ``module``'s float32 parameters of two or more dims (matrices,
+    convolution kernels, the band tables) to bfloat16 in place, for serving:
+    half the weight bytes a step reads.  Vectors (norm scales, biases) and
+    buffers stay float32; the layers cast weights to their compute dtype, so
+    the arithmetic is unchanged but for the rounded weights.  A no-op unless
+    ``params_dtype`` is "bfloat16" (counterpart of the JAX ``cast_params``)."""
+    if params_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"params_dtype must be float32 or bfloat16, got {params_dtype!r}")
+    if params_dtype == "bfloat16":
+        for p in module.parameters():
+            if p.dtype == torch.float32 and p.dim() >= 2:
+                p.data = p.data.to(torch.bfloat16)
+    return module
+
+
 def _torch_leaf(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     if name == "kernel":
         if value.ndim == 2:

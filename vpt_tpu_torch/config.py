@@ -2,10 +2,10 @@
 
 ``PolicyConfig.from_kwargs`` accepts a raw kwargs dict from a ``.model``
 pickle and ignores keys it does not know, as the reference's
-``MinecraftPolicy.__init__`` swallows ``**unused_kwargs``.  The JAX package's
-TPU-only fields (``remat``, ``pool_impl``, ``cnn_scan_chunks``) and the
-field of a module not ported yet (``quantize_dense``) are not here:
-``from_kwargs`` ignores them.
+``MinecraftPolicy.__init__`` swallows ``**unused_kwargs``.  The memory
+fields ``remat`` and ``cnn_scan_chunks`` are the JAX package's; its
+TPU-only ``pool_impl`` and the field of a module not ported yet
+(``quantize_dense``) are not here: ``from_kwargs`` ignores them.
 """
 
 from __future__ import annotations
@@ -59,6 +59,16 @@ class PolicyConfig:
     # IDM conv3d front end (reference: policy.py:361-372), e.g. {"inchan": 3,
     # "outchan": 128, "kernel_size": [5, 1, 1], "padding": [2, 0, 0]}
     conv3d_params: Optional[Dict[str, Any]] = None
+
+    # Rematerialization: the backward recomputes each Impala stack and each
+    # transformer block from its input (torch.utils.checkpoint) instead of
+    # keeping their activations; memory for FLOPs.
+    remat: bool = False
+
+    # Run the (B·T)-folded Impala CNN as a loop over this many frame chunks
+    # (0 = off), each chunk's whole CNN checkpointed under ``remat``: the
+    # CNN's activations then live for (B·T / chunks) frames at a time.
+    cnn_scan_chunks: int = 0
 
     # "float32" or "bfloat16".  Parameters stay float32; attention logits and
     # softmax, layer norms and the head log-softmax stay float32 regardless.

@@ -28,7 +28,7 @@
 namespace wattn {
 
 constexpr int MAX_NBASIS = 16;
-constexpr int MAX_BAND = 512;   // longest band table (b_nd's second axis), held in shared memory
+constexpr int MAX_BAND = 512;   // longest band table (b_nd's second axis) held in shared memory
 constexpr int KEY_CHUNK = 512;  // keys whose logits a row block holds in shared memory at once
 constexpr int KEY_TILE = 64;             // keys per shared-memory tile of the row-block passes
 constexpr int R_STRIDE = MAX_NBASIS + 1;  // row stride of the R tile (odd: rows on distinct banks)
@@ -39,6 +39,30 @@ template <typename T, int D>
 __host__ __device__ constexpr int tile_stride() {
   return D + 16 / (int)sizeof(T);
 }
+
+// floats of shared memory that hold the band table: the whole (nbasis,
+// bandsize) table up to MAX_BAND offsets, none past that.  A longer table
+// (attention_memory_size - timesteps > 512) stays in device memory, where
+// the warps read it through L1 and L2 (with_band_table).
+__host__ __device__ inline int band_smem_floats(int nbasis, int bandsize) {
+  return bandsize <= MAX_BAND ? (nbasis * bandsize + 3) / 4 * 4 : 0;
+}
+
+// body(table) on the band table where it sits: the shared copy sB up to
+// MAX_BAND offsets, else b_nd in device memory.  A branch, not a select of
+// the two pointers: a pointer that may be either is read with generic
+// loads, slower than the shared path's shared loads.
+template <typename Body>
+__device__ __forceinline__ void with_band_table(const float* sB, const float* b_nd, int bandsize, Body&& body) {
+  if (bandsize <= MAX_BAND) {
+    body(sB);
+  } else {
+    body(b_nd);
+  }
+}
+
+// the shared copy to fill with the band table, or null where it stays in device memory
+__device__ __forceinline__ float* band_copy(float* sB, int bandsize) { return bandsize <= MAX_BAND ? sB : nullptr; }
 
 // row stride, in floats, of a logit tile over T keys padded to whole key tiles
 __host__ __device__ inline int logit_stride(int T) {
@@ -333,8 +357,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// Row blocks (B1 and B2's first pass): ROWS query rows (64, or 32 where
-// shared memory demands), 16 to each group of SPLIT warps.  In the products
+// Row blocks (B1 and B2's first pass): ROWS query rows (64, or 32 or, at
+// d = 256, 16 where shared memory demands), 16 to each group of SPLIT warps.  In the products
 // over keys a group's warps take a SPLIT-th of every 64-key tile each; in
 // the products over the depth d, a SPLIT-th of d each.  Four warps a group
 // keep four warps on each of an SM's schedulers to hide each other's
@@ -411,7 +435,8 @@ __device__ __forceinline__ void mask_window(float* out, int ld, const uint8_t* m
 }
 
 // The band bias added on the tensor cores: P = R b_nd, (rows x nbasis) x
-// (nbasis x bandsize), and P[i, dd] goes to key j = (T - t) + r0 + i - dd,
+// (nbasis x bandsize), b_nd read from sB (shared or device memory, see
+// with_band_table), and P[i, dd] goes to key j = (T - t) + r0 + i - dd,
 // so each key on the band gets sum_n R[r0 + i, n] b_nd[n, dd] once.  The
 // target is out[i * ldi + (j - j0) * ldj] for the rows i < nrows (a
 // multiple of 16; sR holds them, row stride R_STRIDE) and the keys j0 <= j <

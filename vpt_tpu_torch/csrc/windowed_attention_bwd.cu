@@ -62,8 +62,14 @@
 //     (accumulated across chunks in registers), dR and the d b_nd partials
 //     (accumulated in place, each entry by the one thread that owns it).
 //     Q and dO take turns in the one row tile.  Pass 2 already streams the
-//     query rows over tiles of keys and reads pass 1's row statistics.  The
-//     band table stays in shared memory whole: bandsize <= 512.
+//     query rows over tiles of keys and reads pass 1's row statistics;
+//   * the band table sits in shared memory whole up to 512 offsets; a longer
+//     one (attention_memory_size - timesteps > 512, no published model)
+//     stays in device memory, and the band bias and dR read it there,
+//     through L1 and L2 (the d b_nd partials are in device memory anyway);
+//   * d = 256 (hidsize 4096 at 16 heads) takes 16-row blocks of 4 warps in
+//     pass 1 and 2-warp blocks in pass 2 where larger ones would not fit
+//     the shared memory.
 // A fully masked row has uniform W, exactly as in the forward: the row max
 // and sum are stored as they are (not as a log-sum-exp, which would lose the
 // row's offsets next to -1e9 in f32).  No (B, H, t, T) tensor and no (n, t, T)
@@ -88,7 +94,7 @@ __host__ __device__ constexpr int key_pass_cols() {  // dK and dV columns a warp
 template <typename T, int D>
 size_t rows_smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
   const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
-  const size_t band = ((size_t)nbasis * bandsize + 3) / 4 * 4;
+  const size_t band = band_smem_floats(nbasis, bandsize);
   const size_t running = T_keys > KEY_CHUNK ? 2 * rows : 0;
   const int keys = T_keys < KEY_CHUNK ? T_keys : KEY_CHUNK;
   return (rows + 2 * KEY_TILE) * tile + ((size_t)rows * logit_stride(keys) + rows * R_STRIDE +
@@ -99,7 +105,7 @@ template <typename T, int D>
 size_t keys_smem_bytes(int nwarps, int nbasis, int bandsize) {
   const size_t keys = 16 * nwarps;
   const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
-  const size_t band = ((size_t)nbasis * bandsize + 3) / 4 * 4;
+  const size_t band = band_smem_floats(nbasis, bandsize);
   return (2 * keys + 2 * QUERY_TILE) * tile +
          (keys * BIAS_STRIDE + QUERY_TILE * R_STRIDE + 3 * QUERY_TILE + band) * sizeof(float);
 }
@@ -125,7 +131,7 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: logits, then W, then dL
   float* sR = sS + ROWS * TS;          // ROWS x R_STRIDE
   float* sRd = sR + ROWS * R_STRIDE;   // SPLIT x ROWS: each part's rowdot partial sums
-  float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize
+  float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize (up to MAX_BAND)
 
   const Block rb;
   const int bh = blockIdx.x;
@@ -139,7 +145,8 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   // R's rows and the band table, then Q, then K's first tile, each a group of
   // copies in flight while the mask terms load; the bias waits for the first only
   if (nbasis > 0)
-    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, sB, b_nd, bandsize);
+    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, band_copy(sB, bandsize),
+                                     b_nd, bandsize);
   cp_async_commit();
   load_rows_async<T, D>(sQ, DS, q + (size_t)bh * t * D, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
@@ -150,7 +157,11 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   __syncthreads();
 
   // 1. the logits and their softmax W in place, keeping each row's max and sum
-  if (nbasis > 0) band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, sB, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
+  if (nbasis > 0) {
+    with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+      band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
+    });
+  }
   block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, T_keys, alpha, true);
   softmax_rows<ROWS, false>(sS, TS, q0, t, stats + (size_t)bh * t, stats + BHt + (size_t)bh * t);
 
@@ -223,20 +234,22 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   // 6. dR[i, n] = sum_j dL_ij b_nd[n, (T - t) + i - j] over the band, a warp
   //    to a row, every n at once
-  for (int i = rb.warp; i < ROWS && q0 + i < t; i += Block::NWARPS) {
-    const int off = (T_keys - t) + q0 + i;  // band offset of key 0
-    const int jlo = max(0, off - bandsize + 1), jhi = min(T_keys - 1, off);
-    float acc_n[MAX_NBASIS] = {};
-    for (int j = jlo + lane; j <= jhi; j += 32) {
-      const float dl = sS[i * TS + j];
+  with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+    for (int i = rb.warp; i < ROWS && q0 + i < t; i += Block::NWARPS) {
+      const int off = (T_keys - t) + q0 + i;  // band offset of key 0
+      const int jlo = max(0, off - bandsize + 1), jhi = min(T_keys - 1, off);
+      float acc_n[MAX_NBASIS] = {};
+      for (int j = jlo + lane; j <= jhi; j += 32) {
+        const float dl = sS[i * TS + j];
 #pragma unroll
-      for (int n = 0; n < MAX_NBASIS; ++n) {
-        if (n < nbasis) acc_n[n] += dl * sB[n * bandsize + off - j];  // uniform condition
+        for (int n = 0; n < MAX_NBASIS; ++n) {
+          if (n < nbasis) acc_n[n] += dl * band[n * bandsize + off - j];  // uniform condition
+        }
       }
+      const float x = warp_sum16(acc_n, lane);  // lanes 2n and 2n + 1: the sum for n
+      if (lane % 2 == 0 && lane / 2 < nbasis) dR[((size_t)bh * t + q0 + i) * nbasis + lane / 2] = x;
     }
-    const float x = warp_sum16(acc_n, lane);  // lanes 2n and 2n + 1: the sum for n
-    if (lane % 2 == 0 && lane / 2 < nbasis) dR[((size_t)bh * t + q0 + i) * nbasis + lane / 2] = x;
-  }
+  });
 
   // 7. this block's partial d b_nd[n, dd] = sum_i dL[i, (T - t) + gi - dd] R[i, n]
   const int nb = nbasis * bandsize;
@@ -276,8 +289,8 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: a chunk's logits, then W, then dL
   float* sR = sS + ROWS * TS;          // ROWS x R_STRIDE
   float* sRd = sR + ROWS * R_STRIDE;   // SPLIT x ROWS: each part's rowdot partial sums
-  float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize
-  float* sM = sB + ((size_t)nbasis * bandsize + 3) / 4 * 4;  // ROWS: running max, then the max
+  float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize (up to MAX_BAND)
+  float* sM = sB + band_smem_floats(nbasis, bandsize);        // ROWS: running max, then the max
   float* sL = sM + ROWS;                                      // ROWS: running sum, then the sum
 
   const Block rb;
@@ -294,7 +307,8 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 
   // the first chunk's inputs as in bwd_rows_kernel
   if (nbasis > 0)
-    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, sB, b_nd, bandsize);
+    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, band_copy(sB, bandsize),
+                                     b_nd, bandsize);
   cp_async_commit();
   load_rows_async<T, D>(sQ, DS, qb, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
@@ -317,7 +331,11 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
       mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, c0, KEY_CHUNK, T_keys);
       __syncthreads();
     }
-    if (nbasis > 0) band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, sB, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
+    if (nbasis > 0) {
+      with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+        band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
+      });
+    }
     block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * D, nc, alpha, true);
   };
   // Q or dO into the row tile, once every warp is past its last read of it
@@ -410,23 +428,25 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     if (nbasis == 0) continue;
 
     // dR[i, n] += sum over the chunk's keys j on the band of dL_ij b_nd[n, (T - t) + i - j]
-    for (int i = rb.warp; i < ROWS && q0 + i < t; i += Block::NWARPS) {
-      const int off = (T_keys - t) + q0 + i;  // band offset of key 0
-      const int jlo = max(c0, off - bandsize + 1), jhi = min(c0 + nc - 1, off);
-      float acc_n[MAX_NBASIS] = {};
-      for (int j = jlo + lane; j <= jhi; j += 32) {
-        const float dl = sS[i * TS + j - c0];
+    with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+      for (int i = rb.warp; i < ROWS && q0 + i < t; i += Block::NWARPS) {
+        const int off = (T_keys - t) + q0 + i;  // band offset of key 0
+        const int jlo = max(c0, off - bandsize + 1), jhi = min(c0 + nc - 1, off);
+        float acc_n[MAX_NBASIS] = {};
+        for (int j = jlo + lane; j <= jhi; j += 32) {
+          const float dl = sS[i * TS + j - c0];
 #pragma unroll
-        for (int n = 0; n < MAX_NBASIS; ++n) {
-          if (n < nbasis) acc_n[n] += dl * sB[n * bandsize + off - j];  // uniform condition
+          for (int n = 0; n < MAX_NBASIS; ++n) {
+            if (n < nbasis) acc_n[n] += dl * band[n * bandsize + off - j];  // uniform condition
+          }
+        }
+        const float x = warp_sum16(acc_n, lane);  // lanes 2n and 2n + 1: the sum for n
+        if (lane % 2 == 0 && lane / 2 < nbasis) {
+          float* dst = dR + ((size_t)bh * t + q0 + i) * nbasis + lane / 2;
+          *dst = (c0 == 0 ? 0.f : *dst) + x;
         }
       }
-      const float x = warp_sum16(acc_n, lane);  // lanes 2n and 2n + 1: the sum for n
-      if (lane % 2 == 0 && lane / 2 < nbasis) {
-        float* dst = dR + ((size_t)bh * t + q0 + i) * nbasis + lane / 2;
-        *dst = (c0 == 0 ? 0.f : *dst) + x;
-      }
-    }
+    });
     // this block's partial d b_nd[n, dd] += sum_i dL[i, (T - t) + gi - dd] R[i, n] over the chunk's keys
     for (int idx = tid; idx < nb; idx += NTHREADS) {
       const int n = idx / bandsize, dd = idx % bandsize;
@@ -470,7 +490,7 @@ bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* sBias = reinterpret_cast<float*>(sdO + QUERY_TILE * DS);  // KEYS x BIAS_STRIDE
   float* sR = sBias + KEYS * BIAS_STRIDE;                          // QUERY_TILE x R_STRIDE
   float* sStat = sR + QUERY_TILE * R_STRIDE;                       // 3 x QUERY_TILE: row max, 1 / row sum, rowdot
-  float* sB = sStat + 3 * QUERY_TILE;                              // nbasis x bandsize
+  float* sB = sStat + 3 * QUERY_TILE;                              // nbasis x bandsize (up to MAX_BAND)
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -495,7 +515,7 @@ bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       // while Q and dO fly
       if (nbasis > 0)
         load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, i0, QUERY_TILE, t, nbasis,
-                                         c0 == 0 && i0 == 0 ? sB : nullptr, b_nd, bandsize);
+                                         c0 == 0 && i0 == 0 ? band_copy(sB, bandsize) : nullptr, b_nd, bandsize);
       cp_async_commit();
       load_rows_async<T, D>(sQ, DS, qb, i0, QUERY_TILE, t, tid, NTHREADS);
       load_rows_async<T, D>(sdO, DS, ob, i0, QUERY_TILE, t, tid, NTHREADS);
@@ -511,7 +531,9 @@ bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
       // the band bias of the tile added while Q and dO fly
       if (nbasis > 0)
-        band_bias_mma<NWARPS>(sBias, 1, BIAS_STRIDE, sR, sB, i0, QUERY_TILE, t, T_keys, k0, KEYS, nbasis, bandsize);
+        with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+          band_bias_mma<NWARPS>(sBias, 1, BIAS_STRIDE, sR, band, i0, QUERY_TILE, t, T_keys, k0, KEYS, nbasis, bandsize);
+        });
       cp_async_wait<0>();
       __syncthreads();
 
@@ -604,6 +626,30 @@ int launch_keys(const T* q, const T* k, const T* v, const T* dout, const float* 
   return (int)cudaGetLastError();
 }
 
+// pass 1's rows a block: 64 where they fit the card's shared memory, else
+// 32, else (d = 256 only) 16
+template <typename T, int D>
+int rows_per_block(int T_keys, int nbasis, int bandsize, int limit) {
+  if (rows_smem_bytes<T, D>(64, T_keys, nbasis, bandsize) <= (size_t)limit) return 64;
+  if (D <= 192 || rows_smem_bytes<T, D>(32, T_keys, nbasis, bandsize) <= (size_t)limit) return 32;
+  return 16;
+}
+
+// pass 2's warps a block: 8 where they fit the card's shared memory, else
+// 4, else (d = 256 only) 2
+template <typename T, int D>
+int key_warps(int nbasis, int bandsize, int limit) {
+  if (keys_smem_bytes<T, D>(8, nbasis, bandsize) <= (size_t)limit) return 8;
+  if (D <= 192 || keys_smem_bytes<T, D>(4, nbasis, bandsize) <= (size_t)limit) return 4;
+  return 2;
+}
+
+int smem_limit(int* limit) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return (int)cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
 template <typename T, int D>
 int launch(const void* q_, const void* k_, const void* v_, const void* dout_, const float* R, const float* b_nd,
            const uint8_t* mask, void* dq_, void* dk_, void* dv_, float* dR, float* db, float* stats,
@@ -616,24 +662,42 @@ int launch(const void* q_, const void* k_, const void* v_, const void* dout_, co
   auto* dq = static_cast<T*>(dq_);
   auto* dk = static_cast<T*>(dk_);
   auto* dv = static_cast<T*>(dv_);
-  int dev = 0, limit = 0, nblocks = 0;
-  cudaGetDevice(&dev);
-  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  // pass 1 takes 64-row blocks and pass 2 8-warp blocks where they fit the
-  // card's shared memory, else 32-row and 4-warp blocks
-  int rc = rows_smem_bytes<T, D>(64, T_keys, nbasis, bandsize) <= (size_t)limit
-               ? launch_rows<T, D, 64>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys,
-                                       nbasis, bandsize, alpha, stream, &nblocks)
-               : launch_rows<T, D, 32>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys,
-                                       nbasis, bandsize, alpha, stream, &nblocks);
+  int limit = 0, nblocks = 0;
+  int rc = smem_limit(&limit);
   if (rc != 0) return rc;
-  const size_t keys8 = keys_smem_bytes<T, D>(8, nbasis, bandsize);
-  rc = keys8 <= (size_t)limit
-           ? launch_keys<T, D, 8>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
-                                  alpha, keys8, stream)
-           : launch_keys<T, D, 4>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
-                                  alpha, keys_smem_bytes<T, D>(4, nbasis, bandsize), stream);
+  switch (rows_per_block<T, D>(T_keys, nbasis, bandsize, limit)) {
+    case 64:
+      rc = launch_rows<T, D, 64>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, nbasis,
+                                 bandsize, alpha, stream, &nblocks);
+      break;
+    case 32:
+      rc = launch_rows<T, D, 32>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, nbasis,
+                                 bandsize, alpha, stream, &nblocks);
+      break;
+    default:
+      if constexpr (D > 192) {
+        rc = launch_rows<T, D, 16>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, nbasis,
+                                   bandsize, alpha, stream, &nblocks);
+      }
+  }
+  if (rc != 0) return rc;
+  const int warps = key_warps<T, D>(nbasis, bandsize, limit);
+  const size_t keys_smem = keys_smem_bytes<T, D>(warps, nbasis, bandsize);
+  switch (warps) {
+    case 8:
+      rc = launch_keys<T, D, 8>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
+                                alpha, keys_smem, stream);
+      break;
+    case 4:
+      rc = launch_keys<T, D, 4>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
+                                alpha, keys_smem, stream);
+      break;
+    default:
+      if constexpr (D > 192) {
+        rc = launch_keys<T, D, 2>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
+                                  alpha, keys_smem, stream);
+      }
+  }
   if (rc != 0 || R == nullptr) return rc;
   const int size = nbasis * bandsize;
   db_reduce_kernel<<<(size + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, stream>>>(partial, db,
@@ -656,22 +720,50 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* dout, co
     case 192:
       return launch<T, 192>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
                             nbasis, bandsize, alpha, s);
+    case 256:
+      return launch<T, 256>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+                            nbasis, bandsize, alpha, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+int rows_d(int T_keys, int d, int nbasis, int bandsize, int limit) {
+  switch (d) {
+    case 64:
+      return rows_per_block<T, 64>(T_keys, nbasis, bandsize, limit);
+    case 128:
+      return rows_per_block<T, 128>(T_keys, nbasis, bandsize, limit);
+    case 192:
+      return rows_per_block<T, 192>(T_keys, nbasis, bandsize, limit);
+    case 256:
+      return rows_per_block<T, 256>(T_keys, nbasis, bandsize, limit);
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q and dout (B, H, t, d), k and v (B, H, T, d), any T: contiguous and
-// 16-byte aligned, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1).  R (B,
-// H, t, nbasis) f32 and b_nd (nbasis, bandsize <= 512) f32, both null for no
-// relative bias.  mask (B, t, T) bool bytes, null for no mask.  Outputs dq (B, H, t,
-// d), dk and dv (B, H, T, d) in the input dtype; dR (B, H, t, nbasis) and
-// db_nd (nbasis, bandsize) f32 (unused without R).  Scratch: stats
-// 3 * B * H * t f32, partial B * H * ceil(t / 32) * nbasis * bandsize f32
-// (unused without R; pass 1's blocks have at least 32 rows).  Returns a
-// cudaError_t (0 = launched).
+// The query rows of one block of pass 1 at this shape (64, 32 or 16), which
+// size the caller's d b_nd scratch; a negative cudaError_t on failure.
+extern "C" int vpt_windowed_attention_bwd_rows(int T, int d, int nbasis, int bandsize, int is_bf16) {
+  int limit = 0;
+  const int err = smem_limit(&limit);
+  if (err != 0) return -err;
+  return is_bf16 ? rows_d<__nv_bfloat16>(T, d, nbasis, bandsize, limit) : rows_d<float>(T, d, nbasis, bandsize, limit);
+}
+
+// q and dout (B, H, t, d), k and v (B, H, T, d), d in {64, 128, 192, 256},
+// any T: contiguous and 16-byte aligned, all f32 (is_bf16 = 0) or all bf16
+// (is_bf16 = 1).  R (B, H, t, nbasis) f32 and b_nd (nbasis, bandsize) f32,
+// any bandsize, both null for no relative bias.  mask (B, t, T) bool bytes,
+// null for no mask.  Outputs dq (B, H, t, d), dk and dv (B, H, T, d) in the
+// input dtype; dR (B, H, t, nbasis) and db_nd (nbasis, bandsize) f32 (unused
+// without R).  Scratch: stats 3 * B * H * t f32, partial B * H * ceil(t /
+// rows) * nbasis * bandsize f32 with rows from vpt_windowed_attention_bwd_rows
+// (unused without R).  Returns a cudaError_t (0 = launched).
 extern "C" int vpt_windowed_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                           const float* R, const float* b_nd, const uint8_t* mask, void* dq,
                                           void* dk, void* dv, float* dR, float* db_nd, float* stats,
@@ -679,8 +771,8 @@ extern "C" int vpt_windowed_attention_bwd(const void* q, const void* k, const vo
                                           int bandsize, int is_bf16, float alpha, void* stream) {
   if (B < 1 || H < 1 || t < 1 || T < 1) return (int)cudaErrorInvalidValue;
   if ((R == nullptr) != (b_nd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1 || bandsize > MAX_BAND ||
-                       dR == nullptr || db_nd == nullptr || partial == nullptr))
+  if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1 || dR == nullptr || db_nd == nullptr ||
+                       partial == nullptr))
     return (int)cudaErrorInvalidValue;
   if (R == nullptr) nbasis = bandsize = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

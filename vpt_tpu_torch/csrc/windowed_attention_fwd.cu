@@ -48,7 +48,13 @@
 //     exp(old max - new max) when the max moves, and the rows are divided by
 //     their sum once, at the end (in bf16 the unnormalised weights are
 //     rounded).  A fully masked row still gets uniform weights over all T
-//     keys.  The band table stays in shared memory whole: bandsize <= 512.
+//     keys;
+//   * the band table sits in shared memory whole up to 512 offsets; a longer
+//     one (attention_memory_size - timesteps > 512, no published model)
+//     stays in device memory, and the band bias reads it there, through L1
+//     and L2;
+//   * d = 256 (hidsize 4096 at 16 heads) takes 16-row blocks of 4 warps
+//     where 32 rows would not fit the shared memory (f32, or long bands).
 
 #include "attention_mma.cuh"
 
@@ -60,7 +66,7 @@ using namespace wattn;
 template <typename T, int D>
 size_t smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
   const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
-  const size_t band = ((size_t)nbasis * bandsize + 3) / 4 * 4;
+  const size_t band = band_smem_floats(nbasis, bandsize);
   const size_t running = T_keys > KEY_CHUNK ? 3 * rows : 0;
   const int keys = T_keys < KEY_CHUNK ? T_keys : KEY_CHUNK;
   return (rows + 2 * KEY_TILE) * tile +
@@ -83,7 +89,7 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
   T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K tiles, then V tiles
   float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: logits, then W
   float* sR = sS + ROWS * TS;                                      // ROWS x R_STRIDE
-  float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize
+  float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize (up to MAX_BAND)
 
   const Block rb;
   const int bh = blockIdx.x;
@@ -94,8 +100,8 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
   // R's rows and the band table, then Q, then K's first tile, each a group of
   // copies in flight while the mask terms load; the bias waits for the first only
   if (nbasis > 0) {
-    load_bias_inputs_async<Block::NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, sB, b_nd,
-                                            bandsize);
+    load_bias_inputs_async<Block::NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis,
+                                            band_copy(sB, bandsize), b_nd, bandsize);
   }
   cp_async_commit();
   load_rows_async<T, D>(sQ, DS, q + (size_t)bh * t * D, q0, ROWS, t, tid, Block::NTHREADS);
@@ -107,7 +113,11 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
   __syncthreads();
 
   // pass 1: the bias and mask terms, plus alpha Q K^T; then the softmax of each row
-  if (nbasis > 0) band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, sB, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
+  if (nbasis > 0) {
+    with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+      band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
+    });
+  }
   block_logits<T, D, ROWS>(sS, TS, sQ, sKV, k + (size_t)bh * T_keys * D, T_keys, alpha, true);
   softmax_rows<ROWS, BF16>(sS, TS, q0, t, nullptr, nullptr);
 
@@ -153,8 +163,8 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
   T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K tiles, then V tiles
   float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: a chunk's logits, then exp
   float* sR = sS + ROWS * TS;                                      // ROWS x R_STRIDE
-  float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize
-  float* sM = sB + ((size_t)nbasis * bandsize + 3) / 4 * 4;        // ROWS: running max
+  float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize (up to MAX_BAND)
+  float* sM = sB + band_smem_floats(nbasis, bandsize);             // ROWS: running max
   float* sL = sM + ROWS;                                           // ROWS: running sum
   float* sC = sL + ROWS;                                           // ROWS: this chunk's rescale factor
 
@@ -169,7 +179,8 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
 
   // as the kernel above, for the first chunk
   if (nbasis > 0) {
-    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, sB, b_nd, bandsize);
+    load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, band_copy(sB, bandsize),
+                                     b_nd, bandsize);
   }
   cp_async_commit();
   load_rows_async<T, D>(sQ, DS, q + (size_t)bh * t * D, q0, ROWS, t, tid, NTHREADS);
@@ -191,7 +202,11 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
       mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, c0, KEY_CHUNK, T_keys);
       __syncthreads();
     }
-    if (nbasis > 0) band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, sB, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
+    if (nbasis > 0) {
+      with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+        band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
+      });
+    }
     block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * D, nc, alpha, true);
     softmax_rows_online<ROWS, true>(sS, TS, sM, sL, sC);
     __syncthreads();
@@ -243,7 +258,8 @@ int launch(const void* q, const void* k, const void* v, const float* R, const fl
   return (int)cudaGetLastError();
 }
 
-// 64-row blocks where they fit the card's shared memory, else 32-row blocks
+// 64-row blocks where they fit the card's shared memory, else 32-row blocks,
+// else (d = 256 only) 16-row blocks
 template <typename T, int D>
 int launch_rows(const void* q, const void* k, const void* v, const float* R, const float* b_nd,
                 const uint8_t* mask, void* out, int B, int H, int t, int T_keys, int nbasis, int bandsize,
@@ -254,6 +270,10 @@ int launch_rows(const void* q, const void* k, const void* v, const float* R, con
   if (err != cudaSuccess) return (int)err;
   if (smem_bytes<T, D>(64, T_keys, nbasis, bandsize) <= (size_t)limit)
     return launch<T, D, 64>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+  if constexpr (D > 192) {
+    if (smem_bytes<T, D>(32, T_keys, nbasis, bandsize) > (size_t)limit)
+      return launch<T, D, 16>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+  }
   return launch<T, D, 32>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
 }
 
@@ -268,6 +288,8 @@ int dispatch_d(const void* q, const void* k, const void* v, const float* R, cons
       return launch_rows<T, 128>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
     case 192:
       return launch_rows<T, 192>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+    case 256:
+      return launch_rows<T, 256>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -275,10 +297,10 @@ int dispatch_d(const void* q, const void* k, const void* v, const float* R, cons
 
 }  // namespace
 
-// q (B, H, t, d), k and v (B, H, T, d), any T: contiguous and 16-byte
-// aligned, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1).  R (B, H, t,
-// nbasis) f32 and b_nd (nbasis, bandsize <= 512) f32, both null for no
-// relative bias.  mask
+// q (B, H, t, d), k and v (B, H, T, d), d in {64, 128, 192, 256}, any T:
+// contiguous and 16-byte aligned, all f32 (is_bf16 = 0) or all bf16
+// (is_bf16 = 1).  R (B, H, t, nbasis) f32 and b_nd (nbasis, bandsize) f32,
+// any bandsize, both null for no relative bias.  mask
 // (B, t, T) bool bytes, null for no mask.  out (B, H, t, d) in q's dtype.
 // Returns a cudaError_t (0 = launched).
 extern "C" int vpt_windowed_attention_fwd(const void* q, const void* k, const void* v, const float* R,
@@ -287,7 +309,7 @@ extern "C" int vpt_windowed_attention_fwd(const void* q, const void* k, const vo
                                           void* stream) {
   if (B < 1 || H < 1 || t < 1 || T < 1) return (int)cudaErrorInvalidValue;
   if ((R == nullptr) != (b_nd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1 || bandsize > MAX_BAND))
+  if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1))
     return (int)cudaErrorInvalidValue;
   if (R == nullptr) nbasis = bandsize = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

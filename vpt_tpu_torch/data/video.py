@@ -95,8 +95,6 @@ def _load_library() -> ctypes.CDLL:
     lib.vpt_video_writer_write.argtypes = [ptr, u8p]
     lib.vpt_video_writer_close.restype = i32
     lib.vpt_video_writer_close.argtypes = [ptr]
-    lib.vpt_resize_u8.restype = None
-    lib.vpt_resize_u8.argtypes = [u8p, i32, i32, i32, u8p, i32, i32]
     _lib = lib
     return lib
 
@@ -217,15 +215,3 @@ class VideoWriter:
 
     def __del__(self):
         self.close()
-
-
-def native_resize_u8(img: np.ndarray, target_resolution: Tuple[int, int]) -> np.ndarray:
-    """cv2-exact uint8 resize in the native library (the same arithmetic as
-    ops/resize.py ``resize_uint8_exact``); ``target_resolution`` is (w, h)."""
-    lib = _load_library()
-    dst_w, dst_h = target_resolution
-    img = np.ascontiguousarray(img)
-    ch = img.shape[2] if img.ndim == 3 else 1
-    out = np.empty((dst_h, dst_w) + img.shape[2:], np.uint8)
-    lib.vpt_resize_u8(_u8ptr(img), img.shape[0], img.shape[1], ch, _u8ptr(out), dst_h, dst_w)
-    return out

@@ -3,7 +3,8 @@ port (counterpart of the root inverse_dynamics_train.py):
 
     python -m vpt_tpu_torch.inverse_dynamics_train --data-dir DIR --in-model IDM.model \\
         --out-weights OUT.weights [--in-weights IDM.weights] [--val-dir DIR] [--batch-size 8] \\
-        [--window 128] [--epochs 2] [--compute-dtype float32] [--device cuda]
+        [--window 128] [--epochs 2] [--compute-dtype float32] [--remat] [--cnn-scan-chunks N] \\
+        [--device cuda]
 
 Takes BC's dataset layout (mp4 + jsonl pairs).  ``--in-weights`` warm-starts
 from existing IDM weights, else training starts from random weights;
@@ -17,9 +18,10 @@ from vpt_tpu_torch.training.idm import IDMHyperparams, IDMTrainer
 
 
 def inverse_dynamics_train(data_dir, in_model, out_weights, in_weights=None, batch_size=8, window=128, epochs=2,
-                           compute_dtype="float32", device=None, val_dir=None):
+                           compute_dtype="float32", device=None, remat=False, cnn_scan_chunks=0, val_dir=None):
     hp = IDMHyperparams(batch_size=batch_size, window=window, epochs=epochs)
-    trainer = IDMTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, device=device)
+    trainer = IDMTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, remat=remat,
+                                    cnn_scan_chunks=cnn_scan_chunks, device=device)
     steps = trainer.train(data_dir, out_weights)
     print(f"Finished: {steps} optimizer steps → {out_weights}")
     if val_dir:
@@ -38,11 +40,15 @@ def main(argv=None):
     parser.add_argument("--window", type=int, default=128, help="Frames a training window (the published IDM's geometry)")
     parser.add_argument("--epochs", type=int, default=2)
     parser.add_argument("--compute-dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--remat", action="store_true", help="Recompute activations in the backward (memory for FLOPs)")
+    parser.add_argument("--cnn-scan-chunks", type=int, default=0,
+                        help="Run the CNN over N frame chunks to bound its activation memory")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
     args = parser.parse_args(argv)
     return inverse_dynamics_train(args.data_dir, args.in_model, args.out_weights, in_weights=args.in_weights,
                            batch_size=args.batch_size, window=args.window, epochs=args.epochs,
-                           compute_dtype=args.compute_dtype, device=args.device, val_dir=args.val_dir)
+                           compute_dtype=args.compute_dtype, device=args.device, remat=args.remat,
+                           cnn_scan_chunks=args.cnn_scan_chunks, val_dir=args.val_dir)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vpt_tpu_torch.models.layers import FanInInitLayer, GroupNorm
+from vpt_tpu_torch.models.layers import FanInInitLayer, GroupNorm, remat_call
+
+
+def fold_frames(x_bthwc: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) frames → (B·T, C, H, W), a view."""
+    b, t = x_bthwc.shape[:2]
+    return x_bthwc.reshape((b * t,) + tuple(x_bthwc.shape[2:])).permute(0, 3, 1, 2)
 
 
 class CnnBasicBlock(nn.Module):
@@ -70,13 +76,16 @@ class CnnDownStack(nn.Module):
 
 class ImpalaCNN(nn.Module):
     """Stacked downsampling stages + channel-major flatten + dense
-    (reference: impala_cnn.py:132-195)."""
+    (reference: impala_cnn.py:132-195).  With ``remat`` the backward
+    recomputes each stack from its input instead of keeping its activations
+    (vpt_tpu/models/impala.py remats each ``CnnDownStack`` the same way)."""
 
     def __init__(self, inshape: Sequence[int], chans: Sequence[int], outsize: int, nblock: int,
                  post_pool_groups: Optional[int] = None, group_norm_groups: Optional[int] = None,
                  first_conv_norm: bool = False, dense_layer_norm: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, remat: bool = False, device=None):
         super().__init__()
+        self.remat = remat
         h, w, c = inshape
         stacks = []
         for i, outchan in enumerate(chans):
@@ -93,11 +102,12 @@ class ImpalaCNN(nn.Module):
 
     def forward(self, x_bthwc: torch.Tensor) -> torch.Tensor:
         b, t = x_bthwc.shape[:2]
-        x = x_bthwc.reshape((b * t,) + tuple(x_bthwc.shape[2:])).permute(0, 3, 1, 2)
-        return self.forward_nchw(x).reshape(b, t, self.outsize)
+        return self.forward_nchw(fold_frames(x_bthwc)).reshape(b, t, self.outsize)
 
-    def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, C, H, W) frames → (N, outsize)."""
+    def forward_nchw(self, x: torch.Tensor, remat: Optional[bool] = None) -> torch.Tensor:
+        """(N, C, H, W) frames → (N, outsize); ``remat`` overrides the
+        module's per-stack setting."""
+        remat = self.remat if remat is None else remat
         for stack in self.stacks:
-            x = stack(x)
+            x = remat_call(stack, x) if remat else stack(x)
         return self.dense(x.reshape(x.shape[0], -1))  # NCHW flatten is channel-major

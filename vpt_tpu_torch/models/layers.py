@@ -22,8 +22,18 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-5  # torch LayerNorm/GroupNorm default epsilon
+
+
+def remat_call(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (non-reentrant ``torch.utils.checkpoint``; the counterpart of flax's
+    ``nn.remat``).  With grad off nothing is kept anyway: a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 @torch.no_grad()

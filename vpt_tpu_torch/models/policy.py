@@ -30,8 +30,8 @@ from torch import nn
 from vpt_tpu_torch.config import PolicyConfig
 from vpt_tpu_torch.device import torch_dtype
 from vpt_tpu_torch.models.heads import DictActionHead, HeadSpec, ScaledMSEHead, dict_logprob, dict_sample
-from vpt_tpu_torch.models.impala import ImpalaCNN
-from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm
+from vpt_tpu_torch.models.impala import ImpalaCNN, fold_frames
+from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm, remat_call
 from vpt_tpu_torch.models.transformer import (
     ResidualRecurrentBlocks,
     masked_attention_initial_state,
@@ -63,28 +63,48 @@ class ImgPreprocessing(nn.Module):
 
 class ImgObsProcess(nn.Module):
     """ImpalaCNN followed by a linear projection to hidsize
-    (reference: policy.py:48-80)."""
+    (reference: policy.py:48-80).
+
+    With ``cnn_scan_chunks`` the (B·T)-folded CNN runs as a loop over that
+    many frame chunks where they divide B·T (vpt_tpu/models/policy.py scans
+    them); per-stack remat is then off, and with ``remat`` each chunk's whole
+    CNN is recomputed in the backward instead, so the CNN's activations live
+    for one chunk at a time."""
 
     def __init__(self, cfg: PolicyConfig, device=None):
         super().__init__()
         dtype = torch_dtype(cfg.compute_dtype)
         if cfg.batch_norm:
             raise NotImplementedError("batch_norm policies are not ported")
+        self.remat = cfg.remat
+        self.cnn_scan_chunks = cfg.cnn_scan_chunks
         self.cnn = ImpalaCNN(
             inshape=cfg.img_shape, chans=cfg.chans, outsize=cfg.obs_processing_width,
             nblock=cfg.impala_nblock, post_pool_groups=cfg.impala_post_pool_groups,
             group_norm_groups=cfg.group_norm_groups, first_conv_norm=cfg.first_conv_norm,
-            dense_layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device,
+            dense_layer_norm=cfg.dense_use_layer_norm, dtype=dtype, remat=cfg.remat, device=device,
         )
         self.linear = FanInInitLayer(cfg.obs_processing_width, cfg.hidsize, layer_type="linear",
                                      layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)
 
     def forward(self, x):
-        return self.linear(self.cnn(x))
+        """(B, T, H, W, C) frames → (B, T, hidsize)."""
+        return self.forward_nchw(fold_frames(x), *x.shape[:2])
 
     def forward_nchw(self, x: torch.Tensor, b: int, t: int) -> torch.Tensor:
         """(B·T, C, H, W) frames → (B, T, hidsize)."""
-        return self.linear(self.cnn.forward_nchw(x).reshape(b, t, -1))
+        return self.linear(self._cnn(x).reshape(b, t, -1))
+
+    def _cnn_chunk(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cnn.forward_nchw(x, remat=False)
+
+    def _cnn(self, x: torch.Tensor) -> torch.Tensor:
+        chunks, n = self.cnn_scan_chunks, x.shape[0]
+        if not (chunks > 1 and n % chunks == 0 and n > chunks):
+            return self.cnn.forward_nchw(x)
+        if self.remat:
+            return torch.cat([remat_call(self._cnn_chunk, xc) for xc in x.chunk(chunks)])
+        return torch.cat([self._cnn_chunk(xc) for xc in x.chunk(chunks)])
 
 
 class MinecraftPolicy(nn.Module):
@@ -106,7 +126,7 @@ class MinecraftPolicy(nn.Module):
             use_pointwise_layer=cfg.use_pointwise_layer, pointwise_ratio=cfg.pointwise_ratio,
             pointwise_use_activation=cfg.pointwise_use_activation,
             attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
-            attention_mask_style=cfg.attention_mask_style, dtype=dtype, device=device,
+            attention_mask_style=cfg.attention_mask_style, dtype=dtype, remat=cfg.remat, device=device,
         )
         self.lastlayer = FanInInitLayer(cfg.hidsize, cfg.hidsize, layer_type="linear",
                                         layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)
@@ -196,7 +216,7 @@ class InverseActionNet(nn.Module):
             use_pointwise_layer=cfg.use_pointwise_layer, pointwise_ratio=cfg.pointwise_ratio,
             pointwise_use_activation=cfg.pointwise_use_activation,
             attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
-            attention_mask_style=cfg.attention_mask_style, dtype=dtype, device=device,
+            attention_mask_style=cfg.attention_mask_style, dtype=dtype, remat=cfg.remat, device=device,
         )
         self.lastlayer = FanInInitLayer(cfg.hidsize, cfg.hidsize, layer_type="linear",
                                         layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)

@@ -21,7 +21,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm, normed_dense
+from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm, normed_dense, remat_call
 from vpt_tpu_torch.ops.attention import NEG_BIAS, attention_alpha, merge_heads, split_heads
 from vpt_tpu_torch.ops.masks import clipped_causal_mask, initial_state_mask
 from vpt_tpu_torch.ops.windowed_attention import windowed_attention_fwd
@@ -92,7 +92,7 @@ class SelfAttentionLayer(nn.Module):
             split_heads(V_full, self.heads).contiguous(),
             mask_btT,
             None if R is None else R.contiguous(),
-            self.b_nd if self.relattn else None,
+            self.b_nd.float() if self.relattn else None,  # float32 also where params_dtype stored it in bf16
             self.use_muP_factor,
         )
         out = self.proj_layer(merge_heads(A))
@@ -255,11 +255,20 @@ class ResidualRecurrentBlock(nn.Module):
 
 
 class ResidualRecurrentBlocks(nn.Module):
-    """Stack of n residual recurrent blocks (reference: lib/util.py:91-129)."""
+    """Stack of n residual recurrent blocks (reference: lib/util.py:91-129).
+
+    With ``remat`` the backward recomputes each block from its input instead
+    of keeping its activations (vpt_tpu remats each block the same way).  The
+    chunked path a training step takes is pure (it builds the new KV cache
+    and mask rather than writing the old ones), so the recompute sees the
+    same inputs; its attention launches kernel B1 a second time.  The ring
+    step writes in place and runs with grad off, where nothing is
+    recomputed."""
 
     def __init__(self, hidsize: int, timesteps: int, n_block: int = 2, is_residual: bool = True,
-                 **block_kwargs):
+                 remat: bool = False, **block_kwargs):
         super().__init__()
+        self.remat = remat
         init_scale = n_block ** -0.5 if is_residual else 1.0
         self.blocks = nn.ModuleList([
             ResidualRecurrentBlock(hidsize, timesteps, init_scale=init_scale,
@@ -273,6 +282,6 @@ class ResidualRecurrentBlocks(nn.Module):
         )
         state_out = []
         for block, s in zip(self.blocks, state):
-            x, s = block(x, first, s)
+            x, s = remat_call(block, x, first, s) if self.remat else block(x, first, s)
             state_out.append(s)
         return x, state_out

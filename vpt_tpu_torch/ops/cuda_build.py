@@ -25,6 +25,7 @@ BUILD = PACKAGE / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile=0",  # the device code's many template instances optimised on every core
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -23,8 +23,16 @@ reference's 640x360 -> 128x128 hot path):
     come out biased low vs. naive rounding — reproducing that double floor
     is required for bit-exactness.
 
-``resize_uint8_exact`` is the numpy fixed-point host path, bit-equal to the
-JAX package's host resize (tests/test_torch_actions.py holds the two together).
+Three implementations, as in the JAX package:
+  * ``resize_uint8_exact``: numpy fixed point on the host, bit-equal to the
+    JAX package's host resize (tests/test_torch_actions.py holds the two
+    together);
+  * ``resize_bilinear``: a float bilinear in PyTorch tensor ops with cv2's
+    half-pixel mapping, on any device (the agent's ``resize_on_device``),
+    the counterpart of ``resize_bilinear_jnp``; at most 1 intensity step from
+    the fixed-point result;
+  * the native host resize (ops/host_resize.py, csrc/host_resize.cpp): the
+    same fixed-point loop in C++, called without the GIL.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
+import torch
 
 COEF_BITS = 11
 COEF_SCALE = 1 << COEF_BITS  # 2048
@@ -83,6 +92,32 @@ def resize_uint8_exact(img: np.ndarray, target_resolution: Tuple[int, int]) -> n
     )
     out = np.clip(out >> 2, 0, 255).astype(np.uint8)
     return out.reshape((dst_h, dst_w) + img.shape[2:])
+
+
+def resize_bilinear(img: torch.Tensor, target_resolution: Tuple[int, int]) -> torch.Tensor:
+    """Float bilinear with cv2's half-pixel mapping, on ``img``'s device.
+
+    (..., H, W, C) of any float or uint dtype → float32 (..., h, w, C):
+    cv2's taps and weights (``_linear_coeffs``, the weights as fractions of
+    2048), gathered with ``index_select``, the horizontal pass first.
+    ``target_resolution`` is (width, height).
+    """
+    dst_w, dst_h = target_resolution
+    src_h, src_w = img.shape[-3], img.shape[-2]
+    sx, ax0, _ = _linear_coeffs(src_w, dst_w)
+    sy, by0, _ = _linear_coeffs(src_h, dst_h)
+
+    def taps(s, n):
+        return (torch.from_numpy(np.clip(s, 0, n - 1)).to(img.device),
+                torch.from_numpy(np.clip(s + 1, 0, n - 1)).to(img.device))
+
+    fax0 = torch.from_numpy((ax0 / COEF_SCALE).astype(np.float32)).to(img.device)
+    fby0 = torch.from_numpy((by0 / COEF_SCALE).astype(np.float32)).to(img.device)
+    x0, x1 = taps(sx, src_w)
+    y0, y1 = taps(sy, src_h)
+    x = img.float()
+    rows = x.index_select(-2, x0) * fax0[:, None] + x.index_select(-2, x1) * (1.0 - fax0)[:, None]
+    return rows.index_select(-3, y0) * fby0[:, None, None] + rows.index_select(-3, y1) * (1.0 - fby0)[:, None, None]
 
 
 def resize_image(img: np.ndarray, target_resolution: Tuple[int, int]) -> np.ndarray:

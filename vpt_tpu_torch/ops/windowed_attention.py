@@ -13,8 +13,13 @@ dL reaches device memory either.
 
 Both kernels take any number of keys T: past ``KEY_CHUNK`` keys they walk
 the keys in chunks of that many through shared memory (an online softmax in
-B1, three sweeps over the chunks in B2's first pass).  The band table b_nd
-is held in shared memory whole, so its length is at most ``MAX_BAND``.
+B1, three sweeps over the chunks in B2's first pass).  They take a band
+table b_nd of any length: up to 512 offsets it is held in shared memory,
+past that (attention_memory_size - timesteps > 512) the kernels read it
+from device memory.  They take the head dims in ``SUPPORTED_D``: those of
+the published models (64, 128, 192) and hidsize 4096 at 16 heads' 256,
+which vpt_tpu's ``dispatch`` sends to its Pallas kernel too (it takes any
+d % 128 = 0).
 
 Both kernels run their products on tensor cores (mma.sync), at the accuracy
 of the input type: f32 operands are split into TF32 hi and lo parts and
@@ -25,9 +30,16 @@ cores (csrc/attention_mma.cuh).  The arithmetic does not depend on
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``windowed_attention_fwd_plain``, differentiated by autograd, and
 ``windowed_attention_bwd_plain``).  On a CUDA tensor it launches its kernel
-or raises: there is no shape or dtype it routes elsewhere.  ``launches``
+or raises: there is no shape or dtype it routes elsewhere (the tiny test
+configs' d = 16, which vpt_tpu runs on XLA, raises on CUDA).  ``launches``
 counts B1's launches and ``bwd_launches`` B2's, so a run can show that its
 path went through both.
+
+The launches go through two operators of the ``vpt_torch`` library,
+``windowed_attention_fwd`` and ``windowed_attention_bwd``, whose FLOP
+formulas (``attention_flops``) are registered with
+``torch.utils.flop_counter``: a ``FlopCounterMode`` counts a step on the
+card as it counts the plain version's aten products on the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from vpt_tpu_torch.ops import cuda_build
 from vpt_tpu_torch.ops.attention import NEG_BIAS, attention_alpha, windowed_attention
@@ -43,11 +56,9 @@ from vpt_tpu_torch.ops.rel_bias import banded_bias_matrix, relattn_bias
 
 KERNEL = "windowed_attention_fwd"
 BWD_KERNEL = "windowed_attention_bwd"
-SUPPORTED_D = (64, 128, 192)
+SUPPORTED_D = (64, 128, 192, 256)
 KEY_CHUNK = 512  # keys whose logits a block of the kernels holds at once (csrc/attention_mma.cuh)
-MAX_BAND = 512  # longest band table (b_nd's second axis)
 MAX_NBASIS = 16
-QUERY_TILE = 32  # fewest query rows per block of B2's first pass (csrc/windowed_attention_bwd.cu)
 ALIGN = 16  # bytes: the kernels copy q, k, v and dO 16 bytes at a time
 
 launches = 0
@@ -118,9 +129,25 @@ def _bwd_library() -> ctypes.CDLL:
         # q k v dout R b_nd mask dq dk dv dR db stats partial | B H t T d nbasis bandsize is_bf16 | alpha stream
         fn.argtypes = [ptr] * 14 + [i32] * 8 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
+        lib.vpt_windowed_attention_bwd_rows.argtypes = [i32] * 5  # T d nbasis bandsize is_bf16
+        lib.vpt_windowed_attention_bwd_rows.restype = ctypes.c_int
         lib.vpt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def attention_flops(q, k, R, b_nd) -> Tuple[int, int]:
+    """(forward, backward) FLOPs of one call, as ``FlopCounterMode`` counts
+    the plain version and its autograd backward: QKᵀ and W·V forward, their
+    four products backward (B2's recompute of the logits is not counted), and
+    the relative bias's contraction over every (query, key) pair, once
+    forward and twice backward (dR and d b_nd).  The kernels' operators
+    count these, so a FLOP count of a step is the same on the card as on
+    the CPU."""
+    B, H, t, d = q.shape
+    pairs = B * H * t * k.shape[2]
+    bias = 2 * pairs * R.shape[-1] if R is not None else 0
+    return 4 * pairs * d + bias, 8 * pairs * d + 2 * bias
 
 
 def _check(q, k, v, mask, R, b_nd) -> None:
@@ -128,10 +155,10 @@ def _check(q, k, v, mask, R, b_nd) -> None:
         raise ValueError("q, k, v must be (B, H, t, d), (B, H, T, d), (B, H, T, d)")
     B, H, t, d = q.shape
     T = k.shape[2]
-    if k.shape != (B, H, T, d) or v.shape != (B, H, T, d):
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     if d not in SUPPORTED_D:
         raise ValueError(f"head dim {d} not supported by the kernel (supports {SUPPORTED_D})")
+    if k.shape != (B, H, T, d) or v.shape != (B, H, T, d):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     if T < 1:
         raise ValueError(f"key length {T} must be at least 1")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -147,8 +174,8 @@ def _check(q, k, v, mask, R, b_nd) -> None:
         n = R.shape[-1]
         if R.dtype != torch.float32 or R.shape != (B, H, t, n) or not 1 <= n <= MAX_NBASIS:
             raise ValueError(f"R must be float32 (B, H, t, n<= {MAX_NBASIS}), got {R.dtype} {tuple(R.shape)}")
-        if b_nd.dtype != torch.float32 or b_nd.dim() != 2 or b_nd.shape[0] != n or b_nd.shape[1] > MAX_BAND:
-            raise ValueError(f"b_nd must be float32 ({n}, bandsize<={MAX_BAND}), got {b_nd.dtype} {tuple(b_nd.shape)}")
+        if b_nd.dtype != torch.float32 or b_nd.dim() != 2 or b_nd.shape[0] != n:
+            raise ValueError(f"b_nd must be float32 ({n}, bandsize), got {b_nd.dtype} {tuple(b_nd.shape)}")
         tensors += [R, b_nd]
     for x in tensors:
         if x.device != q.device:
@@ -169,7 +196,6 @@ def _raise_on(lib, err: int, name: str) -> None:
 
 
 def _launch_fwd(q, k, v, mask, R, b_nd, use_muP_factor: bool) -> torch.Tensor:
-    _check(q, k, v, mask, R, b_nd)
     B, H, t, d = q.shape
     T = k.shape[2]
     lib = _library()
@@ -189,12 +215,80 @@ def _launch_fwd(q, k, v, mask, R, b_nd, use_muP_factor: bool) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(q, k, v, mask, R, b_nd, dO, use_muP_factor: bool):
+    B, H, t, d = q.shape
+    T = k.shape[2]
+    nbasis, bandsize = (R.shape[-1], b_nd.shape[1]) if R is not None else (0, 0)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    lib = _bwd_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stats = torch.empty(3 * B * H * t, **f32)  # per query row: softmax max, sum, rowdot
+    dR = db = partial = None
+    with torch.cuda.device(q.device):
+        if R is not None:
+            rows = lib.vpt_windowed_attention_bwd_rows(T, d, nbasis, bandsize, is_bf16)  # pass 1's rows a block
+            if rows <= 0:
+                _raise_on(lib, -rows, BWD_KERNEL)
+            dR, db = torch.empty_like(R), torch.empty_like(b_nd)
+            partial = torch.empty(B * H * ((t + rows - 1) // rows) * nbasis * bandsize, **f32)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.vpt_windowed_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(), _ptr(R), _ptr(b_nd), _ptr(mask),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dR), _ptr(db), stats.data_ptr(), _ptr(partial),
+            B, H, t, T, d, nbasis, bandsize, is_bf16, attention_alpha(d, use_muP_factor), stream,
+        )
+    _raise_on(lib, err, BWD_KERNEL)
+    global bwd_launches
+    bwd_launches += 1
+    if R is None:  # the operator returns tensors: empty ones stand for no dR and d b_nd
+        dR, db = torch.empty(0, **f32), torch.empty(0, **f32)
+    return dq, dk, dv, dR, db
+
+
+# B1 and B2 as operators, so that torch.utils.flop_counter sees their launches
+# (a ctypes call is no aten op).  B2's dR and d b_nd are empty without R.
+_ops = torch.library.Library("vpt_torch", "DEF")
+_ops.define("windowed_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, Tensor? R, Tensor? b_nd, "
+            "bool use_muP_factor) -> Tensor")
+_ops.define("windowed_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor? mask, Tensor? R, Tensor? b_nd, "
+            "Tensor dO, bool use_muP_factor) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+_ops.impl("windowed_attention_fwd", _launch_fwd, "CUDA")
+_ops.impl("windowed_attention_bwd", _launch_bwd, "CUDA")
+
+
+def _fwd_meta(q, k, v, mask, R, b_nd, use_muP_factor):
+    return torch.empty_like(q)
+
+
+def _bwd_meta(q, k, v, mask, R, b_nd, dO, use_muP_factor):
+    if R is None:
+        dR, db = q.new_empty(0, dtype=torch.float32), q.new_empty(0, dtype=torch.float32)
+    else:
+        dR, db = torch.empty_like(R), torch.empty_like(b_nd)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), dR, db
+
+
+_ops.impl("windowed_attention_fwd", _fwd_meta, "Meta")
+_ops.impl("windowed_attention_bwd", _bwd_meta, "Meta")
+
+
+@register_flop_formula(torch.ops.vpt_torch.windowed_attention_fwd, get_raw=True)
+def _fwd_flops(q, k, v, mask, R, b_nd, use_muP_factor, out_val=None) -> int:
+    return attention_flops(q, k, R, b_nd)[0]
+
+
+@register_flop_formula(torch.ops.vpt_torch.windowed_attention_bwd, get_raw=True)
+def _bwd_flops(q, k, v, mask, R, b_nd, dO, use_muP_factor, out_val=None) -> int:
+    return attention_flops(q, k, R, b_nd)[1]
+
+
 class WindowedAttention(torch.autograd.Function):
     """B1 forward, B2 backward, on CUDA tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, R, b_nd, use_muP_factor: bool):
-        out = _launch_fwd(q, k, v, mask, R, b_nd, use_muP_factor)
+        out = torch.ops.vpt_torch.windowed_attention_fwd(q, k, v, mask, R, b_nd, use_muP_factor)
         ctx.save_for_backward(q, k, v, mask, R, b_nd)
         ctx.use_muP_factor = use_muP_factor
         return out
@@ -227,9 +321,10 @@ def windowed_attention_fwd(
         return windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, use_muP_factor)
     if q.device.type != "cuda":
         raise ValueError(f"windowed_attention_fwd runs on cpu or cuda, not {q.device}")
+    _check(q, k, v, mask, R, b_nd)
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (q, k, v, R, b_nd)):
         return WindowedAttention.apply(q, k, v, mask, R, b_nd, use_muP_factor)
-    return _launch_fwd(q, k, v, mask, R, b_nd, use_muP_factor)
+    return torch.ops.vpt_torch.windowed_attention_fwd(q, k, v, mask, R, b_nd, use_muP_factor)
 
 
 def windowed_attention_bwd(
@@ -257,27 +352,5 @@ def windowed_attention_bwd(
             or dO.data_ptr() % ALIGN):
         raise ValueError(f"dO must be a contiguous, {ALIGN}-byte aligned {q.dtype} {tuple(q.shape)} on {q.device}, "
                          f"got {dO.dtype} {tuple(dO.shape)} on {dO.device}")
-    B, H, t, d = q.shape
-    T = k.shape[2]
-    nbasis, bandsize = (R.shape[-1], b_nd.shape[1]) if R is not None else (0, 0)
-    lib = _bwd_library()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    stats = torch.empty(3 * B * H * t, **f32)  # per query row: softmax max, sum, rowdot
-    dR = db = partial = None
-    if R is not None:
-        dR, db = torch.empty_like(R), torch.empty_like(b_nd)
-        blocks = B * H * ((t + QUERY_TILE - 1) // QUERY_TILE)
-        partial = torch.empty(blocks * nbasis * bandsize, **f32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.vpt_windowed_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(), _ptr(R), _ptr(b_nd), _ptr(mask),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dR), _ptr(db), stats.data_ptr(), _ptr(partial),
-            B, H, t, T, d, nbasis, bandsize, int(q.dtype == torch.bfloat16),
-            attention_alpha(d, use_muP_factor), stream,
-        )
-    _raise_on(lib, err, BWD_KERNEL)
-    global bwd_launches
-    bwd_launches += 1
-    return dq, dk, dv, dR, db
+    dq, dk, dv, dR, db = torch.ops.vpt_torch.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, use_muP_factor)
+    return (dq, dk, dv, dR, db) if R is not None else (dq, dk, dv, None, None)

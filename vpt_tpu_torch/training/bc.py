@@ -13,12 +13,14 @@ weight decay ever touches them.  On CUDA the attention of every block runs
 kernel B1 forward and kernel B2 backward (ops/windowed_attention.py).
 
 Hyperparameters default to the reference's (behavioural_cloning.py:25-40).
-Not ported yet: mid-run checkpoints and resume, multi-process and sharded
-training, remat and QAT (``qat_dense``).
+``remat`` and ``cnn_scan_chunks`` (config.py) trade recompute for memory, so
+a card holds larger batches.  Not ported yet: mid-run checkpoints and resume,
+multi-process and sharded training, and QAT (``qat_dense``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import queue
 import threading
@@ -37,6 +39,7 @@ from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.utils.metrics import MetricsLogger
+from vpt_tpu_torch.utils.profiling import compiled_flops
 
 # the batch entries a step consumes, and their tensor types
 TRAIN_KEYS = {"frames": torch.uint8, "buttons": torch.int64, "camera": torch.int64,
@@ -158,12 +161,30 @@ def make_optimizer(params, hp: BCHyperparams) -> ClippedAdam:
     return ClippedAdam(params, hp)
 
 
+def step_flops(trainer, *step_args) -> Optional[float]:
+    """FLOPs of one ``trainer.train_step(*step_args)`` (forward, backward and
+    optimizer; ``utils.profiling.compiled_flops``), with the weights, the
+    optimizer state and the step count put back afterwards."""
+    trainer.init()
+    weights = {k: v.detach().clone() for k, v in trainer.policy.state_dict().items()}
+    adam = copy.deepcopy(trainer.optimizer.adam.state_dict())
+    steps = trainer.step_count
+    try:
+        return compiled_flops(trainer.train_step, *step_args)
+    finally:
+        trainer.policy.load_state_dict(weights)
+        trainer.optimizer.adam.load_state_dict(adam)
+        trainer.optimizer.zero_grad()
+        trainer.step_count = steps
+
+
 class BCTrainer:
     """Sequence-chunked BC fine-tuning on one device.
 
     :param device: torch device; None means CUDA, which must then exist
     :param seed: seeds the initial weights (drawn on the CPU, so every
         device starts from the same weights) and the loader's shuffle
+    :param remat, cnn_scan_chunks: the config's memory options (config.py)
     """
 
     def __init__(
@@ -172,12 +193,15 @@ class BCTrainer:
         pi_head_kwargs: Dict[str, Any],
         hp: Optional[BCHyperparams] = None,
         compute_dtype: str = "float32",
+        remat: bool = False,
+        cnn_scan_chunks: int = 0,
         seed: int = 0,
         device=None,
     ):
         self.hp = hp or BCHyperparams()
         self.device = resolve_device(device)
-        self.cfg = PolicyConfig.from_kwargs(dict(policy_kwargs)).replace(compute_dtype=compute_dtype)
+        self.cfg = PolicyConfig.from_kwargs(dict(policy_kwargs)).replace(
+            compute_dtype=compute_dtype, remat=remat, cnn_scan_chunks=cnn_scan_chunks)
         self.temperature = float(pi_head_kwargs.get("temperature", 1.0))
         self.action_mapper = CameraHierarchicalMapping(n_camera_bins=11)
         self.head_specs = head_specs_from_space(DictType(**self.action_mapper.get_action_space_update()))
@@ -245,6 +269,11 @@ class BCTrainer:
         self.step_count += 1
         state_out = [{k: v.detach() for k, v in s.items()} for s in state_out]
         return state_out, loss.detach(), grad_norm
+
+    def train_step_flops(self, batch, state) -> Optional[float]:
+        """FLOPs of one :meth:`train_step` on ``batch`` from ``state``, which
+        leaves the trainer as it was (None where nothing is counted)."""
+        return step_flops(self, batch, state)
 
     # ------------------------------------------------------------- evaluation
 

@@ -21,8 +21,9 @@ How it differs from BC training (training/bc.py), all forced by the model:
 The optimizer is BC's chain (clip → L2 → Adam, ``training.bc.ClippedAdam``)
 at BC's fine-tuning values: the VPT paper publishes no IDM schedule.  On
 CUDA the attention of every block runs kernel B1 forward and kernel B2
-backward.  Not ported yet: the mesh, remat, ``cnn_scan_chunks``, QAT and
-mid-run checkpoints and resume.
+backward.  ``remat`` and ``cnn_scan_chunks`` (config.py) trade recompute
+for memory.  Not ported yet: the mesh, QAT and mid-run checkpoints and
+resume.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from vpt_tpu_torch.models.heads import dict_logprob, head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import InverseActionPolicy, policy_initial_state
 from vpt_tpu_torch.spaces import DictType
-from vpt_tpu_torch.training.bc import TRAIN_KEYS, DevicePrefetcher, batch_to_tensors, make_optimizer
+from vpt_tpu_torch.training.bc import TRAIN_KEYS, DevicePrefetcher, batch_to_tensors, make_optimizer, step_flops
 from vpt_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -75,14 +76,16 @@ class IDMTrainer:
     :param device: torch device; None means CUDA, which must then exist
     :param seed: seeds the initial weights (drawn on the CPU, so every
         device starts from the same weights) and the loader's shuffle
+    :param remat, cnn_scan_chunks: the config's memory options (config.py)
     """
 
     def __init__(self, idm_net_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any],
-                 hp: Optional[IDMHyperparams] = None, compute_dtype: str = "float32", seed: int = 0,
-                 device=None):
+                 hp: Optional[IDMHyperparams] = None, compute_dtype: str = "float32", remat: bool = False,
+                 cnn_scan_chunks: int = 0, seed: int = 0, device=None):
         self.hp = hp or IDMHyperparams()
         self.device = resolve_device(device)
-        self.cfg = PolicyConfig.from_kwargs(dict(idm_net_kwargs)).replace(compute_dtype=compute_dtype)
+        self.cfg = PolicyConfig.from_kwargs(dict(idm_net_kwargs)).replace(
+            compute_dtype=compute_dtype, remat=remat, cnn_scan_chunks=cnn_scan_chunks)
         assert self.hp.window <= self.cfg.timesteps, (
             f"window {self.hp.window} exceeds the model geometry timesteps={self.cfg.timesteps}"
         )
@@ -171,6 +174,11 @@ class IDMTrainer:
         grad_norm = self.optimizer.step()
         self.step_count += 1
         return loss.detach(), grad_norm
+
+    def train_step_flops(self, batch, state=None) -> Optional[float]:
+        """FLOPs of one :meth:`train_step`, which leaves the trainer as it
+        was (None where nothing is counted)."""
+        return step_flops(self, batch, state)
 
     # ------------------------------------------------------------- evaluation
 

@@ -26,8 +26,9 @@ module is its port to one device:
 
 The optimizer is the JAX package's chain, clip → optional L2 → Adam
 (``ClippedAdam`` of training/bc.py), over every parameter, the value head's
-included.  Not ported yet: meshes and multi-process collection, checkpoints
-and resume, remat.
+included.  ``remat`` (and ``cnn_scan_chunks`` through ``policy_kwargs``)
+trade recompute for memory in the update and the aux phase.  Not ported yet:
+meshes and multi-process collection, checkpoints and resume.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from vpt_tpu_torch.models.heads import (
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
 from vpt_tpu_torch.models.transformer import ring_state_to_linear
-from vpt_tpu_torch.ops.resize import resize_uint8_exact
+from vpt_tpu_torch.ops.host_resize import native_resize_u8
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.training.bc import ClippedAdam
 from vpt_tpu_torch.utils.metrics import MetricsLogger
@@ -180,6 +181,7 @@ class PPOTrainer:
     :param seed: seeds the initial weights (drawn on the CPU, so every
         device starts from the same weights), the action sampling and the
         epochs' stream permutations (one generator each, on ``device``)
+    :param remat: recompute the blocks and the CNN in the backward (config.py)
     """
 
     def __init__(
@@ -188,12 +190,13 @@ class PPOTrainer:
         pi_head_kwargs: Dict[str, Any],
         hp: Optional[PPOHyperparams] = None,
         compute_dtype: str = "float32",
+        remat: bool = False,
         seed: int = 0,
         device=None,
     ):
         self.hp = hp or PPOHyperparams()
         self.device = resolve_device(device)
-        self.cfg = PolicyConfig.from_kwargs(dict(policy_kwargs)).replace(compute_dtype=compute_dtype)
+        self.cfg = PolicyConfig.from_kwargs(dict(policy_kwargs)).replace(compute_dtype=compute_dtype, remat=remat)
         assert self.hp.rollout_len <= self.cfg.timesteps, (
             f"rollout_len {self.hp.rollout_len} exceeds the policy's chunk geometry timesteps={self.cfg.timesteps}"
         )
@@ -265,7 +268,7 @@ class PPOTrainer:
 
     def _resize(self, obs_list) -> np.ndarray:
         res = (self.cfg.img_shape[1], self.cfg.img_shape[0])
-        return np.stack([resize_uint8_exact(o["pov"], res) for o in obs_list])
+        return np.stack([native_resize_u8(o["pov"], res) for o in obs_list])
 
     def collect(self, envs: List, obs: Optional[List] = None, firsts: Optional[np.ndarray] = None,
                 reward_fn: Optional[Callable] = None):
