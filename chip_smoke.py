@@ -92,9 +92,43 @@ Phases, each of which fails the run if it fails:
      640-wide band table (read from device memory) at d = 128 and 256, past
      512 keys and at 256 keys; and one transformer block each at d = 256
      and with a 640-wide band on the card against the CPU, forward and every
-     gradient, through B1 and B2 once each.
+     gradient, through B1 and B2 once each;
+ 11. int8 serving and QAT at full width (random weights from seed 0):
+     (a) the 2x MineRLAgent with quantize_dense beside the float32 agent from
+     the same seed: its int8 codes and scales on the card equal byte for byte
+     those the CPU derives from the float weights; four layers' int8
+     products (torch._int_mm, at the 8 stepped rows, padded, and at 512) on
+     the card equal the CPU's exactly; 64 lockstep steps x 8 streams hold
+     the value within 0.15 and each head's log-probabilities within 0.25
+     relative L2 of the float agent's (vpt_tpu's rules), every int8 product
+     on CUDA; frames/s of both through the native pool, the device step
+     alone (int8 with float32 and bfloat16 compute) and the resident weight
+     bytes;
+     (b) the 4x IDM with quantize_dense labels 8(b)'s 512 frames as 8(b)
+     does (every frame once, in order, its owning window's prediction, B1
+     once per block and forward): frames/s, the device forward against
+     8(b)'s float32 and bfloat16 ones, the peak, the share of labels equal
+     to the float32 agent's and the log-probabilities within 0.25;
+     (c) BCTrainer(qat_dense=True): one step on the card against the CPU at
+     7(a)'s size and rules, then three steps at B=4, T=128 (ms, peak, B1 and
+     B2 once per block and step);
+     (d) IDMTrainer(qat_dense=True): 8(a)'s logits and step, card against
+     CPU, then one step with B1 and B2 once per block;
+ 12. resume at full width: BC (2x, B=4, T=128, the recurrent state carried),
+     IDM (4x, 8(a)'s size) and PPO (2x, 9(a)'s 2 streams x 16 steps, 2
+     epochs of 2 minibatches, each update's env streams fresh): two
+     uninterrupted 3-step runs from the same state give the card's spread;
+     2 steps, a save through checkpoint/native.py, a restore into a fresh
+     trainer of another seed and step 3 there must come within twice that
+     spread of the first run (exactly where it is 0), in loss and in every
+     parameter; the checkpoint's bytes and the save and restore seconds;
+     B1 and B2 launched as a step of that trainer launches them.
 Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
-time them at the IDM's long-call shape and at the PPO minibatch's.
+time them at the IDM's long-call shape and at the PPO minibatch's.  The CPU
+side of every train step held against the card (7(a), 8(a), 9(a), 11(c),
+11(d)) replays the card's ReLU decisions of the dense layers outside the
+CNN: a decision that rounding flips between the two would move a whole term
+of a gradient.
 It prints one JSON line with every kernel's numbers, then, last,
 {"ok": true, "device": {...}}.  It exits non-zero, with no "ok" line, where
 there is no CUDA device.
@@ -121,6 +155,8 @@ as its last line.  It fails where the trace holds no CUDA kernel.
 """
 
 import argparse
+import contextlib
+import copy
 import gc
 import json
 import os
@@ -128,6 +164,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -187,6 +224,7 @@ REMAT_CHUNKS = 8
 BC_REMAT_B, BC_REMAT_STEPS = 8, 3  # the JAX package's BC default batch (BCHyperparams.batch_size)
 IDM_REMAT_B, IDM_REMAT_STEPS = 8, 3  # the JAX package's IDM default batch (IDMHyperparams.batch_size)
 REMAT_LOSS_RTOL = 1e-6  # a step with remat against the same step without, on the card
+RESUME_RUNS = 4  # phase 12: uninterrupted step 3s from the saved state, whose largest pairwise gap is the spread
 
 
 def log(msg):
@@ -880,6 +918,17 @@ def rel_l2(got, expect):
     return ((got - expect).norm() / expect.norm().clamp_min(1e-30)).item()
 
 
+def cloned(tree):
+    """A deep copy of nested dicts and lists of tensors (and plain values)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: cloned(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cloned(v) for v in tree)
+    return tree
+
+
 def same_tensors(a, b):
     return a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
 
@@ -934,6 +983,63 @@ def grad_errors(gpu_grads, cpu_grads, cnn_prefixes):
     return worst, worst_cnn
 
 
+class ReluDecisions:
+    """The ReLU decisions of the dense layers outside the CNN (the blocks'
+    first MLP layers, the CNN's projection, lastlayer), recorded in the
+    card's forwards of a step and replayed in the CPU's forwards of the same
+    step: rounding near 0 flips a few decisions between the two, and each
+    flip moves a whole term of its weight's gradient (and of every gradient
+    that sums over that frame), which is not what the comparison is after.
+    Replayed, the CPU's layer outputs its own pre-activation where the card
+    passed it and 0 where the card did not."""
+
+    def __init__(self):
+        self.masks, self.flipped, self.total = [], 0, 0
+
+    @staticmethod
+    def _layers(model):
+        from vpt_tpu_torch.models.layers import FanInInitLayer
+
+        return [m for n, m in model.named_modules() if isinstance(m, FanInInitLayer) and m.layer_type == "linear"
+                and m.use_activation and not n.startswith(CNN_PREFIX)]
+
+    @contextlib.contextmanager
+    def _hooked(self, model, hook):
+        hooks = [m.register_forward_hook(hook) for m in self._layers(model)]
+        try:
+            yield self
+        finally:
+            for h in hooks:
+                h.remove()
+
+    def record(self, model):
+        return self._hooked(model, lambda m, args, out: self.masks.append((out > 0).cpu()))
+
+    @contextlib.contextmanager
+    def replay(self, model):
+        masks = iter(self.masks)
+
+        def hook(m, args, out):
+            mask = next(masks).to(out.device)
+            self.flipped += int((mask != (out > 0)).sum())
+            self.total += mask.numel()
+            m.use_activation = False
+            try:
+                pre = m.forward(args[0])
+            finally:
+                m.use_activation = True
+            return torch.where(mask, pre, torch.zeros_like(pre))
+
+        with self._hooked(model, hook):
+            yield self
+        if next(masks, None) is not None:
+            raise AssertionError("the CPU's step ran fewer dense ReLUs than the card's")
+
+    def report(self):
+        return (f"the CPU replayed the card's {self.total} dense ReLU decisions, {self.flipped} of them other than "
+                f"its own")
+
+
 def step_split(trainer, batch, B, T):
     """Log where one train step's time goes: forward, backward, optimizer,
     each ended by a synchronise."""
@@ -954,15 +1060,16 @@ def step_split(trainer, batch, B, T):
         f"clip + Adam {1e3 * (t3 - t2):.1f} ms")
 
 
-def train_card_vs_cpu(dev):
-    """Phase 7(a): one 2x train_step on the card and on the CPU from the same
-    weights and batch; returns the card's trainer."""
+def train_card_vs_cpu(dev, label="train_step", **trainer_kw):
+    """Phase 7(a) (and 11(c) with qat_dense): one 2x train_step on the card
+    and on the CPU from the same weights and batch, the CPU replaying the
+    card's dense ReLU decisions; returns the card's trainer."""
     from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
     from vpt_tpu_torch.training.bc import BCTrainer
 
     t0 = time.perf_counter()
-    gpu = BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=0, device=dev)
-    cpu = BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=0, device="cpu")
+    gpu = BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=0, device=dev, **trainer_kw)
+    cpu = BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=0, device="cpu", **trainer_kw)
     gpu.init()
     cpu.init()
     log(f"2x BCTrainer on the card and on the CPU built in {time.perf_counter() - t0:.1f} s "
@@ -974,20 +1081,24 @@ def train_card_vs_cpu(dev):
     batch = bc_batch(torch.device("cpu"), 2, 4, gpu.cfg.img_shape[0], 7, firsts_at=(None, 2), masked_tail=(0, 3))
     calib = cudnn_calibration(gpu, batch, (CNN_PREFIX,))
 
-    state_g, loss_g, norm_g = gpu.train_step({k: v.to(dev) for k, v in batch.items()}, gpu.initial_state(2))
+    relus = ReluDecisions()
+    with relus.record(gpu.policy):
+        state_g, loss_g, norm_g = gpu.train_step({k: v.to(dev) for k, v in batch.items()}, gpu.initial_state(2))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state_c, loss_c, norm_c = cpu.train_step(batch, cpu.initial_state(2))
+    with relus.replay(cpu.policy):
+        state_c, loss_c, norm_c = cpu.train_step(batch, cpu.initial_state(2))
     cpu_s = time.perf_counter() - t0
     if any(p.grad is not None for t in (gpu, cpu) for p in t.policy.value_head.parameters()):
         raise AssertionError("the value head has a gradient")
     loss_err, norm_err, worst, worst_cnn = step_errors(gpu, cpu, (loss_g, norm_g), (loss_c, norm_c), (CNN_PREFIX,))
-    log(f"train_step card vs CPU (2x, B=2, T=4, f32): loss {loss_g.item():.6f} vs {loss_c.item():.6f} "
+    log(f"{label} card vs CPU (2x, B=2, T=4, f32): loss {loss_g.item():.6f} vs {loss_c.item():.6f} "
         f"(rel {loss_err:.2e}, tol {LOSS_RTOL}), grad norm {norm_g.item():.6f} vs {norm_c.item():.6f} "
         f"(rel {norm_err:.2e}, tol {NORM_RTOL}); CPU step {cpu_s:.1f} s")
     log(f"  grads outside the CNN: worst max-abs error / ({GRAD_RTOL} max|grad| + {GRAD_ATOL}) {worst[0]:.3f} "
         f"({worst[1]}); CNN grads: worst relative L2 error {worst_cnn[0]:.3e} ({worst_cnn[1]}, tol "
-        f"{CNN_GRAD_REL_L2}), against {calib:.3e} between cuDNN's and torch's convolutions on the card")
+        f"{CNN_GRAD_REL_L2}), against {calib:.3e} between cuDNN's and torch's convolutions on the card; "
+        f"{relus.report()}")
     if not (loss_err <= LOSS_RTOL and norm_err <= NORM_RTOL and worst[0] <= 1.0 and worst_cnn[0] <= CNN_GRAD_REL_L2):
         raise AssertionError("the train step on the card disagrees with the CPU's")
     if not (same_tensors(value_head_copy(gpu), vh) and same_tensors(value_head_copy(cpu), vh)):
@@ -995,9 +1106,10 @@ def train_card_vs_cpu(dev):
     return gpu
 
 
-def train_steps(trainer, dev, B=4, T=128, steps=5):
-    """Phase 7(b): `steps` optimizer steps at (B, T) with the state carried,
-    per-stream resets and a padded tail; B1 and B2 launch once per block and step."""
+def train_steps(trainer, dev, B=4, T=128, steps=5, label="BC train"):
+    """Phase 7(b) (and 11(c)): `steps` optimizer steps at (B, T) with the
+    state carried, per-stream resets and a padded tail; B1 and B2 launch
+    once per block and step."""
     from vpt_tpu_torch.ops import windowed_attention as wa
 
     batches = [bc_batch(dev, B, T, trainer.cfg.img_shape[0], 100 + s,
@@ -1021,7 +1133,7 @@ def train_steps(trainer, dev, B=4, T=128, steps=5):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = 1e3 * sum(times[1:]) / (steps - 1)
     moved = max((p.detach() - b).abs().max().item() for p, b in zip(trainer.trainable_parameters(), before))
-    log(f"BC train ({B}x{T}, 2x, f32): losses {[round(x, 6) for x in losses]}, last grad norm {norm.item():.4f}; "
+    log(f"{label} ({B}x{T}, 2x, f32): losses {[round(x, 6) for x in losses]}, last grad norm {norm.item():.4f}; "
         f"{step_ms:.1f} ms/step from the second step ({B * T / step_ms * 1e3:.1f} frames/s), "
         f"first step {times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB; largest parameter change {moved:.3e}; "
         f"launches over {steps} steps: B1 {f_launches}, B2 {b_launches}")
@@ -1155,17 +1267,18 @@ def idm_batch(B, T, seed, masked_tail=None):
             "firsts": np.zeros((B, T), bool), "mask": mask}
 
 
-def idm_card_vs_cpu(dev):
-    """Phase 8(a): the 4x IDM's logits and one train step (B=1, an 8-frame
-    window, T=136 keys) on the card and on the CPU from the same weights;
-    returns the card's trainer."""
+def idm_card_vs_cpu(dev, label="IDM", **trainer_kw):
+    """Phase 8(a) (and 11(d) with qat_dense): the 4x IDM's logits and one
+    train step (B=1, an 8-frame window, T=136 keys) on the card and on the
+    CPU from the same weights, the CPU's step replaying the card's dense
+    ReLU decisions; returns the card's trainer."""
     from vpt_tpu_torch.config import IDM_4X_KWARGS
     from vpt_tpu_torch.training.idm import IDMHyperparams, IDMTrainer
 
     t0 = time.perf_counter()
     hp = IDMHyperparams(batch_size=1, window=8)
-    gpu = IDMTrainer(IDM_4X_KWARGS, {}, hp=hp, seed=0, device=dev)
-    cpu = IDMTrainer(IDM_4X_KWARGS, {}, hp=hp, seed=0, device="cpu")
+    gpu = IDMTrainer(IDM_4X_KWARGS, {}, hp=hp, seed=0, device=dev, **trainer_kw)
+    cpu = IDMTrainer(IDM_4X_KWARGS, {}, hp=hp, seed=0, device="cpu", **trainer_kw)
     gpu.init()
     cpu.init()
     log(f"4x IDMTrainer on the card and on the CPU built in {time.perf_counter() - t0:.1f} s "
@@ -1178,23 +1291,27 @@ def idm_card_vs_cpu(dev):
         got = gpu.logits(gpu.to_device(batch)["frames"])
         expect = cpu.logits(cpu.to_device(batch)["frames"])
     logit_errs = {k: (got[k].cpu() - expect[k]).abs().max().item() for k in expect}
-    log(f"4x IDM logits card vs CPU (B=1, 8 frames, f32): max_abs_err {logit_errs} (tol {STEP_TOL})")
+    log(f"4x {label} logits card vs CPU (B=1, 8 frames, f32): max_abs_err {logit_errs} (tol {STEP_TOL})")
     if not all(e <= STEP_TOL for e in logit_errs.values()):
         raise AssertionError(f"the IDM's logits on the card disagree with the CPU's: {logit_errs}")
 
     calib = cudnn_calibration(gpu, batch, IDM_CNN_PREFIXES)
-    loss_g, norm_g = gpu.train_step(batch)
+    relus = ReluDecisions()
+    with relus.record(gpu.policy):
+        loss_g, norm_g = gpu.train_step(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss_c, norm_c = cpu.train_step(batch)
+    with relus.replay(cpu.policy):
+        loss_c, norm_c = cpu.train_step(batch)
     cpu_s = time.perf_counter() - t0
     loss_err, norm_err, worst, worst_cnn = step_errors(gpu, cpu, (loss_g, norm_g), (loss_c, norm_c), IDM_CNN_PREFIXES)
-    log(f"IDM train_step card vs CPU (4x, B=1, T=8, f32): loss {loss_g.item():.6f} vs {loss_c.item():.6f} "
+    log(f"{label} train_step card vs CPU (4x, B=1, T=8, f32): loss {loss_g.item():.6f} vs {loss_c.item():.6f} "
         f"(rel {loss_err:.2e}, tol {LOSS_RTOL}), grad norm {norm_g.item():.6f} vs {norm_c.item():.6f} "
         f"(rel {norm_err:.2e}, tol {NORM_RTOL}); CPU step {cpu_s:.1f} s")
     log(f"  grads outside the conv3d and CNN: worst max-abs error / ({GRAD_RTOL} max|grad| + {GRAD_ATOL}) "
         f"{worst[0]:.3f} ({worst[1]}); conv3d and CNN grads: worst relative L2 error {worst_cnn[0]:.3e} "
-        f"({worst_cnn[1]}, tol {CNN_GRAD_REL_L2}), against {calib:.3e} between cuDNN's and torch's convolutions")
+        f"({worst_cnn[1]}, tol {CNN_GRAD_REL_L2}), against {calib:.3e} between cuDNN's and torch's convolutions; "
+        f"{relus.report()}")
     if not (loss_err <= LOSS_RTOL and norm_err <= NORM_RTOL and worst[0] <= 1.0 and worst_cnn[0] <= CNN_GRAD_REL_L2):
         raise AssertionError("the IDM train step on the card disagrees with the CPU's")
     return gpu
@@ -1269,16 +1386,18 @@ def idm_forward_split(policy, img):
     return {k: 1e3 * (marks[i + 1] - marks[i]) for i, k in enumerate(("conv3d", "impala_cnn", "blocks", "head"))}
 
 
-def idm_labeling(dev, frames, compute_dtype):
-    """Phase 8(b): StreamingIDMLabeler over `frames` with the 4x IDM in
-    `compute_dtype`; returns (agent, labels, per-forward B1 launches, the
-    logits of the first window batch)."""
+def idm_labeling(dev, frames, compute_dtype, **agent_kw):
+    """Phase 8(b) (and 11(b) with quantize_dense): StreamingIDMLabeler over
+    `frames` with the 4x IDM in `compute_dtype`; returns (agent, labels,
+    per-forward B1 launches, the logits of the first window batch, that
+    window stack, the device forward's seconds)."""
     from vpt_tpu_torch.agent import IDMAgent, StreamingIDMLabeler
     from vpt_tpu_torch.config import IDM_4X_KWARGS
     from vpt_tpu_torch.models.policy import policy_initial_state
     from vpt_tpu_torch.ops import windowed_attention as wa
 
-    agent = IDMAgent(IDM_4X_KWARGS, {}, device=dev, compute_dtype=compute_dtype, seed=0)
+    agent = IDMAgent(IDM_4X_KWARGS, {}, device=dev, compute_dtype=compute_dtype, seed=0, **agent_kw)
+    kind = compute_dtype + "".join(f", {k}" for k, v in agent_kw.items() if v)
     n_blocks = agent.cfg.n_recurrence_layers
     calls = counted_dispatches(agent)
     warm = StreamingIDMLabeler(agent, window=IDM_WINDOW, stride=IDM_STRIDE, window_batch=IDM_WINDOW_BATCH)
@@ -1323,7 +1442,7 @@ def idm_labeling(dev, frames, compute_dtype):
         first = torch.zeros(stack.shape[:2], dtype=torch.bool, device=dev)
         logits = agent.policy(img, first, policy_initial_state(agent.cfg, len(stack), device=dev))[0]["pi_logits"]
     frames_per_forward = IDM_WINDOW_BATCH * IDM_WINDOW
-    log(f"IDM labeling ({compute_dtype}): {n} frames of 640x360, window {IDM_WINDOW}, stride {IDM_STRIDE}, "
+    log(f"IDM labeling ({kind}): {n} frames of 640x360, window {IDM_WINDOW}, stride {IDM_STRIDE}, "
         f"{IDM_WINDOW_BATCH} windows a forward: {n / seconds:.1f} frames/s end to end ({seconds:.2f} s, "
         f"{forwards} forwards, B1 launches {launches}); peak memory {peak_gb:.2f} GB; every label its owning "
         f"window's direct prediction")
@@ -1445,7 +1564,8 @@ def check_idm(dev):
     """Phase 8: the 4x IDM (a) card against CPU, (c) training, (e) training
     at 8 windows with remat, (b) labeling in float32 and bfloat16 (and the
     forward with bfloat16 parameters), (d) a 512-frame predict_actions;
-    returns the per-forward and per-step launches."""
+    returns the per-forward and per-step launches, and the float32
+    labeling's frames, labels, first-batch logits and forward times."""
     trainer = idm_card_vs_cpu(dev)
     train_launches = idm_train_steps(trainer)
     del trainer
@@ -1455,7 +1575,7 @@ def check_idm(dev):
 
     rng = np.random.default_rng(0)
     frames = rng.integers(0, 256, (IDM_LABEL_FRAMES, 360, 640, 3), dtype=np.uint8)
-    agent, labels, per_forward, logits, _, _ = idm_labeling(dev, frames, "float32")
+    agent, labels, per_forward, logits, _, forward32_s = idm_labeling(dev, frames, "float32")
     del agent
     release_memory()
     agent, labels16, _, logits16, stack, forward16_s = idm_labeling(dev, frames, "bfloat16")
@@ -1473,7 +1593,9 @@ def check_idm(dev):
         raise AssertionError(f"the IDM's bfloat16 logits are {err} from the float32 ones")
     long_call = idm_long_call(dev)
     release_memory()
-    return per_forward, train_launches, long_call
+    float_labeling = {"frames": frames, "labels": labels, "logits": {k: v.cpu() for k, v in logits.items()},
+                      "forward_ms": {"float32": 1e3 * forward32_s, "bfloat16": 1e3 * forward16_s}}
+    return per_forward, train_launches, long_call, float_labeling
 
 
 def attack_reward(env_action, obs, reward, done):
@@ -1513,6 +1635,24 @@ def reforward_errors(trainer, groups):
         logp = dict_logprob(out["pi_logits"], actions, trainer.head_specs).cpu().numpy()
     return (float(np.abs(logp - traj["logp_old"]).max()),
             float(np.abs(out["vpred"][..., 0].cpu().numpy() - traj["values"]).max()))
+
+
+def ppo_state(trainer):
+    """A PPO trainer's state that an update or an aux phase reads (and its
+    frozen anchor), cloned."""
+    return {"policy": cloned(trainer.policy.state_dict()), "anchor": cloned(trainer.anchor.state_dict()),
+            "adam": cloned(trainer.optimizer.adam.state_dict()),
+            "gens": (trainer.sample_generator.get_state(), trainer.perm_generator.get_state()),
+            "kl_coef": trainer.kl_coef, "update_count": trainer.update_count, "aux_buffer": list(trainer._aux_buffer)}
+
+
+def ppo_load(trainer, s):
+    trainer.policy.load_state_dict(s["policy"])
+    trainer.optimizer.adam.load_state_dict(cloned(s["adam"]))
+    trainer.sample_generator.set_state(s["gens"][0])
+    trainer.perm_generator.set_state(s["gens"][1])
+    trainer.kl_coef, trainer.update_count = s["kl_coef"], s["update_count"]
+    trainer._aux_buffer = list(s["aux_buffer"])
 
 
 def ppo_card_vs_cpu(dev):
@@ -1601,16 +1741,21 @@ def ppo_card_vs_cpu(dev):
     del with_kernels, with_plain
 
     grads_g, grads_c = captured_grads(gpu), captured_grads(cpu)
-    m_g = gpu.update(traj)
+    relus = ReluDecisions(), ReluDecisions()
+    with relus[0].record(gpu.policy):
+        m_g = gpu.update(traj)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    m_c = cpu.update(traj_cpu)
+    with relus[0].replay(cpu.policy):
+        m_c = cpu.update(traj_cpu)
     cpu_s = time.perf_counter() - t0
     stats_err = max(rel_l2(a.cpu(), b) for a, b in zip(gpu.policy.value_head.normalizer.buffers(),
                                                         cpu.policy.value_head.normalizer.buffers()))
     cpu.policy.load_state_dict(gpu.policy.state_dict())
-    m_g.update(gpu._aux_phase())
-    m_c.update(cpu._aux_phase())
+    with relus[1].record(gpu.policy):
+        m_g.update(gpu._aux_phase())
+    with relus[1].replay(cpu.policy):
+        m_c.update(cpu._aux_phase())
 
     keys = ("pg_loss", "v_loss", "entropy", "anchor_kl", "approx_kl", "aux_v_loss")
     rel = {k: abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in keys}
@@ -1629,7 +1774,7 @@ def ppo_card_vs_cpu(dev):
     if len(grads_g) != 2 or len(grads_c) != 2:
         raise AssertionError(f"expected a PPO step and an aux step, got {len(grads_g)} and {len(grads_c)}")
     worst_l2 = []
-    for name, g, c in zip(("PPO step", "aux step"), grads_g, grads_c):
+    for name, g, c, relu in zip(("PPO step", "aux step"), grads_g, grads_c, relus):
         # at the first aux step the action heads' grads are zero in exact arithmetic (only the clone KL
         # reaches them, and π_θ = π_old is its minimum): both sides hold rounding noise there
         noise = sorted(n for n in c if name == "aux step" and n.startswith("pi_head."))
@@ -1640,7 +1785,7 @@ def ppo_card_vs_cpu(dev):
         worst_l2.append((l2, wc))
         log(f"  {name} grads outside the CNN: worst relative L2 error {l2[0]:.3e} ({l2[1]}, tol {PPO_GRAD_REL_L2}), "
             f"worst max-abs error / ({GRAD_RTOL} max|grad| + {GRAD_ATOL}) {w[0]:.3f} ({w[1]}); CNN grads: worst "
-            f"relative L2 error {wc[0]:.3e} ({wc[1]}, tol {CNN_GRAD_REL_L2})"
+            f"relative L2 error {wc[0]:.3e} ({wc[1]}, tol {CNN_GRAD_REL_L2}); {relu.report()}"
             + (f"; the action heads' {len(noise)} grads, zero but for rounding (largest norm {noise_norm:.3e} on "
                f"the CPU), not compared" if noise else ""))
     log(f"  calibrations on the card: cuDNN's against torch's convolutions, CNN grads {calib:.3e}; kernels B1 and B2 "
@@ -1920,6 +2065,439 @@ def check_wide_shapes(dev):
         wide_block(dev, *block)
 
 
+# ------------------------------------------------------------------ phase 11
+
+INT8_VALUE_ATOL = 0.15   # int8 against float value estimates (tests/test_int8.py, vpt_tpu's rule)
+INT8_LOGIT_REL_L2 = 0.25  # int8 against float log-probabilities, relative L2 a head (tests/test_int8.py)
+INT8_PRODUCT_LAYERS = ("net.recurrent_layer.blocks.0.r.orc_block.q_layer", "net.recurrent_layer.blocks.0.r.orc_block.r_layer",
+                       "net.recurrent_layer.blocks.0.mlp0.layer", "net.recurrent_layer.blocks.0.mlp1.layer")
+
+
+class CountedIntMM:
+    """Counts the calls of torch._int_mm while active (the library product
+    the int8 layers run on), and whether each was on CUDA tensors."""
+
+    def __enter__(self):
+        self.calls, self._real = [], torch._int_mm
+
+        def counted(a, b):
+            self.calls.append(a.is_cuda and b.is_cuda)
+            return self._real(a, b)
+
+        torch._int_mm = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch._int_mm = self._real
+
+
+def weight_bytes(model, dtype=None):
+    """Bytes of a model's parameters and buffers (of `dtype` only, if given)."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    return sum(t.numel() * t.element_size() for t in tensors if dtype is None or t.dtype == dtype)
+
+
+def quant_layers(model):
+    from vpt_tpu_torch.ops.int8 import QuantLinear
+
+    return sum(isinstance(m, QuantLinear) for m in model.modules())
+
+
+def quantized_weights_match_cpu(float_model, quant_model):
+    """The int8 codes and scales a quantized model holds on the card against
+    those the CPU derives from the float model's weights: the names that
+    differ in any byte, and the count compared."""
+    from vpt_tpu_torch.ops.int8 import quantize_state_dict
+
+    float_cpu = {k: v.cpu() for k, v in float_model.state_dict().items()}
+    got = quant_model.state_dict()
+    want = quantize_state_dict(float_cpu, got)
+    keys = [k for k in want if k.endswith((".weight_q8", ".weight_scale"))]
+    bad = [k for k in want if want[k].dtype != got[k].dtype or not torch.equal(want[k], got[k].cpu())]
+    return bad, len(keys)
+
+
+def int8_products_match_cpu(model, dev, rows_list):
+    """int8_product of some layers of `model` on the card against the CPU's,
+    exactly, and int8_matmul's largest difference, at each row count."""
+    from vpt_tpu_torch.ops import int8
+
+    g = torch.Generator().manual_seed(5)
+    out = []
+    for name in INT8_PRODUCT_LAYERS:
+        layer = model.get_submodule(name)
+        w_q, w_s = layer.weight_q8, layer.weight_scale
+        for rows in rows_list:
+            x = torch.randn((rows, w_q.shape[1]), generator=g)
+            x_q, _ = int8.dynamic_quantize_rows(x)
+            exact = torch.equal(int8.int8_product(x_q.to(dev), w_q).cpu(), x_q.int() @ w_q.cpu().int().t())
+            y_err = (int8.int8_matmul(x.to(dev), w_q, w_s).cpu() - int8.int8_matmul(x, w_q.cpu(), w_s.cpu())).abs().max().item()
+            out.append((name.rsplit(".", 2)[-2] + "." + name.rsplit(".", 1)[-1], tuple(w_q.shape), rows, exact, y_err))
+    return out
+
+
+@torch.inference_mode()
+def lockstep_int8_vs_float(f_agent, q_agent, frames, steps):
+    """Both agents' policies stepped at t=1 on the ring cache over the same
+    resized frames (resets as in rollout_run): the largest value gap, the
+    largest relative L2 gap of a head's log-probabilities, the share of
+    stream-steps whose argmax action agrees, and the int8 layer calls."""
+    from vpt_tpu_torch.models.policy import policy_initial_state
+
+    streams, dev = f_agent.batch_size, f_agent.device
+    states = [policy_initial_state(a.cfg, streams, ring=True, device=dev) for a in (f_agent, q_agent)]
+    resets = {16 + 4 * i: i for i in range(streams)}
+    v_err = logit_rel = 0.0
+    agree = []
+    with CountedIntMM() as mm:
+        for step in range(steps):
+            first = np.zeros(streams, bool)
+            first[:] = step == 0
+            if step in resets:
+                first[resets[step]] = True
+            img = torch.from_numpy(f_agent._env_obs_to_agent(frames[step % len(frames)])).to(dev)
+            first_t = torch.from_numpy(first).to(dev)[:, None]
+            outs = []
+            for i, agent in enumerate((f_agent, q_agent)):
+                out, states[i] = agent.policy(img, first_t, states[i])
+                outs.append(out)
+            v_err = max(v_err, (outs[1]["vpred"] - outs[0]["vpred"]).abs().max().item())
+            for k in outs[0]["pi_logits"]:
+                a, b = outs[0]["pi_logits"][k].float(), outs[1]["pi_logits"][k].float()
+                logit_rel = max(logit_rel, rel_l2(b, a))
+                agree.append((a.argmax(-1) == b.argmax(-1)).float().mean().item())
+    return v_err, logit_rel, float(np.mean(agree)), mm.calls
+
+
+def int8_serving(dev, steps=64, streams=8):
+    """Phase 11(a): the 2x MineRLAgent with quantize_dense serving `streams`
+    streams for `steps` deterministic steps through the native pool, beside
+    the float agent from the same seed."""
+    from vpt_tpu_torch.agent import MineRLAgent
+
+    t0 = time.perf_counter()
+    f_agent = MineRLAgent(device=dev, batch_size=streams, seed=0)
+    q_agent = MineRLAgent(device=dev, batch_size=streams, seed=0, quantize_dense=True)
+    torch.cuda.synchronize()
+    n_quant = quant_layers(q_agent.policy)
+    log(f"2x MineRLAgent float32 and quantize_dense built in {time.perf_counter() - t0:.1f} s; "
+        f"{n_quant} int8 layers")
+    bad, n_keys = quantized_weights_match_cpu(f_agent.policy, q_agent.policy)
+    log(f"  int8 weights on the card against the CPU's from the same float weights: {n_keys} code and scale "
+        f"tensors, {len(bad)} differ in any byte")
+    if bad or not n_keys:
+        raise AssertionError(f"the card's int8 weights differ from the CPU's: {bad[:4]}")
+    f_bytes, q_bytes, q8_bytes = weight_bytes(f_agent.policy), weight_bytes(q_agent.policy), weight_bytes(
+        q_agent.policy, torch.int8)
+    log(f"  resident weight bytes: float32 {f_bytes / 1e6:.1f} MB, quantize_dense {q_bytes / 1e6:.1f} MB "
+        f"(int8 codes {q8_bytes / 1e6:.1f} MB; the convolutions, norms and heads stay float32)")
+    products = int8_products_match_cpu(q_agent.policy, dev, (streams, 512))
+    log("  int8 products card vs CPU (torch._int_mm, exact int32; then dequantized, max_abs_err): "
+        + "; ".join(f"{n} {s} x {r} rows: {'exact' if e else 'DIFFER'}, {err:.1e}" for n, s, r, e, err in products))
+    if not all(e and err == 0.0 for *_, e, err in products):
+        raise AssertionError("an int8 product on the card differs from the CPU's")
+
+    rng = np.random.default_rng(0)
+    frames = [synthetic_obs(rng, streams) for _ in range(4)]
+    v_err, logit_rel, agree, calls = lockstep_int8_vs_float(f_agent, q_agent, frames, steps)
+    log(f"  int8 against float32, {steps} steps x {streams} streams in lockstep: value max_abs_err {v_err:.4f} "
+        f"(tol {INT8_VALUE_ATOL}), log-probabilities worst relative L2 a head and step {logit_rel:.4f} "
+        f"(tol {INT8_LOGIT_REL_L2}); argmax actions agree at {100 * agree:.1f}% (not gated); torch._int_mm "
+        f"{len(calls)} calls ({n_quant} a step), all on CUDA: {all(calls)}")
+    if not (v_err <= INT8_VALUE_ATOL and logit_rel <= INT8_LOGIT_REL_L2):
+        raise AssertionError("the int8 agent strays from the float agent")
+    if len(calls) != n_quant * steps or not all(calls):
+        raise AssertionError(f"{len(calls)} int8 products in {steps} steps, expected {n_quant * steps} on CUDA")
+
+    rates = {}
+    for label, agent in (("float32", f_agent), ("int8", q_agent)):
+        _, t = rollout_run(agent, frames, steps, "native")
+        rates[label] = t
+    img = q_agent._env_obs_to_agent(frames[0])
+    q16 = MineRLAgent(device=dev, batch_size=streams, seed=0, quantize_dense=True, compute_dtype="bfloat16")
+    step16 = device_step_ms(q16, img)
+    del q16
+    log(f"  stepped rollout, native resize, {streams} streams x {steps} steps: "
+        + ", ".join(f"{k} {t['frames_per_s']:.1f} frames/s ({t['ms_a_step']:.2f} ms/step; device step + D2H alone "
+                    f"{t['device_step_ms']:.2f} ms)" for k, t in rates.items())
+        + f"; int8 with bfloat16 compute: device step + D2H {step16:.2f} ms")
+    del f_agent, q_agent
+    release_memory()
+
+
+def int8_labeling(dev, float_labeling):
+    """Phase 11(b): the 4x IDM with quantize_dense labels phase 8(b)'s frames;
+    its labels and first-batch logits against the float32 agent's.  Returns
+    B1's launches a forward."""
+    with CountedIntMM() as mm:
+        agent, labels, per_forward, logits, _, forward_s = idm_labeling(
+            dev, float_labeling["frames"], "float32", quantize_dense=True)
+    n_quant = quant_layers(agent.policy)
+    del agent
+    release_memory()
+    same = np.mean([all(np.array_equal(a[k], b[k]) for k in a)
+                    for (_, a), (_, b) in zip(labels, float_labeling["labels"])])
+    rel = {k: rel_l2(logits[k].cpu(), v) for k, v in float_labeling["logits"].items()}
+    ms = float_labeling["forward_ms"]
+    log(f"  int8 IDM device forward of {IDM_WINDOW_BATCH} windows {1e3 * forward_s:.1f} ms against float32 "
+        f"{ms['float32']:.1f} and bfloat16 {ms['bfloat16']:.1f} (8(b)); {100 * same:.1f}% of the frames get the "
+        f"float32 agent's label (not gated); log-probabilities relative L2 against float32 "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rel.items())
+        + f" (tol {INT8_LOGIT_REL_L2}); torch._int_mm {len(mm.calls)} calls ({n_quant} a forward), all on CUDA: "
+        f"{all(mm.calls)}")
+    if not all(v <= INT8_LOGIT_REL_L2 for v in rel.values()):
+        raise AssertionError(f"the int8 IDM's logits stray from the float32 ones: {rel}")
+    if not mm.calls or not all(mm.calls) or len(mm.calls) % n_quant:
+        raise AssertionError(f"{len(mm.calls)} int8 products, expected a multiple of {n_quant}, all on CUDA")
+    return per_forward
+
+
+def check_int8_qat(dev, float_labeling):
+    """Phase 11: int8 serving (a) and labeling (b), QAT BC (c) and IDM (d)
+    steps on the card against the CPU; returns B1's launches an int8
+    labeling forward and B1's and B2's a QAT BC and IDM step."""
+    int8_serving(dev)
+    per_forward = int8_labeling(dev, float_labeling)
+    trainer = train_card_vs_cpu(dev, label="QAT train_step", qat_dense=True)
+    log(f"  QAT: {sum(getattr(m, 'fake_quant', False) for m in trainer.policy.modules())} dense layers fake-quantized")
+    per_step = train_steps(trainer, dev, steps=3, label="QAT BC train")  # B1 and B2 alike, checked there
+    del trainer
+    release_memory()
+    trainer = idm_card_vs_cpu(dev, label="QAT IDM", qat_dense=True)
+    reset_launch_counts()
+    trainer.train_step(idm_batch(1, 8, 12))
+    idm_launches = launch_counts()
+    n_blocks = trainer.cfg.n_recurrence_layers
+    log(f"  QAT IDM step launches: B1 {idm_launches[0]}, B2 {idm_launches[1]}")
+    if idm_launches != (n_blocks, n_blocks):
+        raise AssertionError(f"a QAT IDM step launched B1 and B2 {idm_launches}, expected {n_blocks} each")
+    del trainer
+    release_memory()
+    return per_forward, (per_step, per_step), idm_launches
+
+
+# ------------------------------------------------------------------ phase 12
+
+
+def launch_counts():
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    return wa.launches, wa.bwd_launches
+
+
+def differing(a, b, path=""):
+    """The paths at which two nested trees of tensors and values differ in
+    any bit."""
+    if isinstance(a, torch.Tensor):
+        same = isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+        return [] if same else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [path]
+        return [p for k in a for p in differing(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [path]
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in differing(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def max_param_gap(a, b):
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a.values(), b.values()))
+
+
+def dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def resume_within_spread(label, state_of, load_state, save, fresh_restore, step3):
+    """Phase 12's protocol, on a trainer that has taken 2 steps:
+    `state_of(trainer)` is its whole state (weights, optimizer, counters,
+    generators, carried recurrent state), `load_state` puts one back.  Save
+    through `save(path)`; take step 3 RESUME_RUNS times from the saved state:
+    the largest gap between two of them (in the loss step3 returns and in
+    every parameter after it) is the card's spread, its backward not being
+    deterministic (cuDNN's algorithms, max_pool2d's atomics); restore into a
+    fresh trainer with `fresh_restore(path)`, whose state must equal the
+    saved one bit for bit; its step 3 must come within twice the spread of
+    the first uninterrupted one (exactly where the spread is 0).  Returns
+    B1's and B2's launches in the resumed step."""
+    snap = state_of(None)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(tmp)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(tmp)
+        runs = []
+        for _ in range(RESUME_RUNS):
+            load_state(snap)
+            runs.append(step3(None))
+        t0 = time.perf_counter()
+        fresh = fresh_restore(tmp)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    wrong = differing(state_of(fresh), snap)
+    if wrong:
+        raise AssertionError(f"the {label} state restored into a fresh trainer differs at {wrong[:6]}")
+    reset_launch_counts()
+    loss, params = step3(fresh)
+    launches = launch_counts()
+    pairs = [(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
+    spread_loss = max(abs(a[0] - b[0]) for a, b in pairs)
+    spread_param = max(max_param_gap(a[1], b[1]) for a, b in pairs)
+    gap_loss, gap_param = abs(loss - runs[0][0]), max_param_gap(params, runs[0][1])
+    log(f"{label} resume: checkpoint {nbytes / 1e9:.3f} GB, save {save_s:.2f} s, restore into a fresh trainer "
+        f"{restore_s:.2f} s, its state equal to the saved one bit for bit; step 3 resumed against uninterrupted: "
+        f"loss gap {gap_loss:.3e}, largest parameter gap {gap_param:.3e}; spread of {RESUME_RUNS} uninterrupted "
+        f"step 3s from the saved state: loss {spread_loss:.3e}, parameters {spread_param:.3e}; resumed step launches "
+        f"B1 {launches[0]}, B2 {launches[1]}")
+    if not (gap_loss <= 2 * spread_loss and gap_param <= 2 * spread_param):
+        raise AssertionError(f"the resumed {label} run is outside the spread of uninterrupted ones")
+    return launches
+
+
+def trainer_state(trainer, carried=None):
+    """A BC or IDM trainer's whole state, cloned: weights, Adam, step count,
+    and the carried recurrent state."""
+    return {"policy": cloned(trainer.policy.state_dict()), "adam": cloned(trainer.optimizer.adam.state_dict()),
+            "step_count": trainer.step_count, "carried": cloned(carried)}
+
+
+def trainer_load(trainer, snap):
+    trainer.policy.load_state_dict(snap["policy"])
+    trainer.optimizer.adam.load_state_dict(cloned(snap["adam"]))
+    trainer.optimizer.zero_grad()
+    trainer.step_count = snap["step_count"]
+
+
+def resume_trainer(dev, label, make, batches, step):
+    """Phase 12 for a BC or IDM trainer: ``step(trainer, batch, state)`` takes
+    one step and returns (loss, state), ``state`` None for the IDM."""
+    trainer = make(0)
+    trainer.init()
+    carried = {"state": None}
+    for batch in batches[:2]:
+        _, carried["state"] = step(trainer, batch, carried["state"])
+    after_two = carried["state"]
+
+    def state_of(t):
+        if t is None:
+            return trainer_state(trainer, after_two)
+        return trainer_state(t[0], t[1])
+
+    def load_state(snap):
+        trainer_load(trainer, snap)
+        carried["state"] = cloned(snap["carried"])
+
+    def save(path):
+        trainer.save_checkpoint(path, extra=None if after_two is None else {"recurrent_state": after_two})
+
+    def fresh_restore(path):
+        fresh = make(1)  # another seed: the restore must bring every weight
+        _, extra = fresh.restore_checkpoint(path)
+        state = None if extra is None else [{k: v.to(dev) for k, v in blk.items()} for blk in extra["recurrent_state"]]
+        return fresh, state
+
+    def step3(restored):
+        t, state = (trainer, carried["state"]) if restored is None else restored
+        loss, _ = step(t, batches[2], state)
+        return loss, cloned(t.policy.state_dict())
+
+    launches = resume_within_spread(label, state_of, load_state, save, fresh_restore, step3)
+    n_blocks = trainer.cfg.n_recurrence_layers
+    if launches != (n_blocks, n_blocks):
+        raise AssertionError(f"the resumed {label} step launched B1 and B2 {launches}, expected {n_blocks} each")
+    return launches
+
+
+def resume_bc(dev, B=4, T=128):
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.training.bc import BCTrainer
+
+    def make(seed):
+        return BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=seed, device=dev)
+
+    batches = [bc_batch(dev, B, T, 128, 500 + s, firsts_at=[0] * B if s == 0 else [None, T // 3, None, 2 * T // 3][:B])
+               for s in range(3)]
+
+    def step(trainer, batch, state):
+        state = trainer.initial_state(B) if state is None else state
+        state, loss, _ = trainer.train_step(batch, state)
+        return loss.item(), state
+
+    return resume_trainer(dev, f"BC (2x, B={B}, T={T}, f32)", make, batches, step)
+
+
+def resume_idm(dev):
+    from vpt_tpu_torch.config import IDM_4X_KWARGS
+    from vpt_tpu_torch.training.idm import IDMHyperparams, IDMTrainer
+
+    def make(seed):
+        return IDMTrainer(IDM_4X_KWARGS, {}, hp=IDMHyperparams(batch_size=1, window=8), seed=seed, device=dev)
+
+    batches = [idm_batch(1, 8, 600 + s) for s in range(3)]
+
+    def step(trainer, batch, state):
+        return trainer.train_step(batch)[0].item(), None
+
+    return resume_trainer(dev, "IDM (4x, B=1, T=8, f32)", make, batches, step)
+
+
+def resume_ppo(dev):
+    """Phase 12 for PPO at phase 9(a)'s size: 2 streams x 16 steps an update,
+    2 epochs of 2 minibatches, each update's env streams fresh (they restart
+    on resume, as in vpt_tpu); the loss is the last minibatch step's."""
+    from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.training.rl import PPOHyperparams, PPOTrainer
+
+    hp = dict(rollout_len=PPO_CHECK_STEPS, n_epochs=2, n_minibatches=2)
+
+    def make(seed):
+        t = PPOTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, hp=PPOHyperparams(**hp), seed=seed,
+                       device=dev)
+        t.init()
+        return t
+
+    def update(t, k):
+        envs = [MockMinecraftEnv(seed=1000 * k + i, done_prob=0.1) for i in range(PPO_CHECK_STREAMS)]
+        traj, _, _ = t.collect(envs, reward_fn=attack_reward)
+        return t.update(traj)["loss"]
+
+    trainer = make(0)
+    for k in range(2):
+        update(trainer, k)
+
+    def fresh_restore(path):
+        fresh = make(1)
+        if not fresh.resume(path):
+            raise AssertionError("no PPO checkpoint to resume")
+        return fresh
+
+    def step3(fresh):
+        t = trainer if fresh is None else fresh
+        return update(t, 2), cloned(t.policy.state_dict())
+
+    launches = resume_within_spread("PPO (2x, 2 streams x 16 steps, f32)", lambda t: ppo_state(t or trainer),
+                                    lambda s: ppo_load(trainer, s), trainer.save_checkpoint, fresh_restore, step3)
+    n_blocks, steps = trainer.cfg.n_recurrence_layers, hp["n_epochs"] * hp["n_minibatches"]
+    if launches != (n_blocks * (1 + steps), n_blocks * steps):
+        raise AssertionError(f"the resumed PPO update launched B1 and B2 {launches}, expected "
+                             f"{n_blocks * (1 + steps)} and {n_blocks * steps}")
+    return launches
+
+
+def check_resume(dev):
+    """Phase 12: resumed BC, IDM and PPO runs against uninterrupted ones;
+    returns each resumed step's (B1, B2) launches."""
+    out = {}
+    for key, fn in (("bc_step", resume_bc), ("idm_step", resume_idm), ("ppo_update", resume_ppo)):
+        out[key] = fn(dev)
+        release_memory()
+    return out
+
+
 # --time-kernels' shapes besides the 2x chunk: (kernel, label, B, H, t, mask), all T = t + 128 <= 512
 TIMED_SHAPES = (("B1", "IDM window", IDM_WINDOW_BATCH, 32, IDM_WINDOW, False),
                 ("B2", "IDM window", IDM_TRAIN_B, 32, IDM_WINDOW, False),
@@ -2010,7 +2588,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:  # g++ builds the host resize while nvcc builds the kernels
         host_build = pool.submit(host_resize.backend)
         report = cuda_build.build(KERNELS)
@@ -2031,12 +2609,18 @@ def main():
         return 0
     check_tensor_cores(KERNELS)
 
+    def phase_done(phases):
+        log(f"[phases {phases} done at {time.perf_counter() - start:.1f} s]")
+
     b1 = check_b1(dev)
+    phase_done("1-3")
     agent = stepped_rollout(dev)
     b1["launches"] = stepwise_equals_chunkwise(agent, dev)
     del agent
+    phase_done("4-5")
     b2 = check_b2(dev)
     release_memory()
+    phase_done("6")
     trainer = train_card_vs_cpu(dev)
     b2["launches"] = train_steps(trainer, dev)
     del trainer
@@ -2046,14 +2630,29 @@ def main():
     bc_remat_steps(trainer, dev)
     del trainer
     release_memory()
-    per_forward, (b1_per_step, b2_per_step), long_call = check_idm(dev)
+    phase_done("7")
+    per_forward, (b1_per_step, b2_per_step), long_call, float_labeling = check_idm(dev)
     b1["idm_launches"] = {"labeling_forward": per_forward, "train_step": b1_per_step, "long_call": long_call}
     b2["idm_launches"] = {"train_step": b2_per_step}
     release_memory()
+    phase_done("8")
     b1_update, b2_update = check_ppo(dev)
     b1["rl_launches"] = {"update": b1_update}
     b2["rl_launches"] = {"update": b2_update}
+    phase_done("9")
     check_wide_shapes(dev)
+    phase_done("10")
+    int8_forward, qat_bc, qat_idm = check_int8_qat(dev, float_labeling)
+    del float_labeling
+    release_memory()
+    b1["int8_launches"] = {"labeling_forward": int8_forward}
+    b1["qat_launches"] = {"bc_step": qat_bc[0], "idm_step": qat_idm[0]}
+    b2["qat_launches"] = {"bc_step": qat_bc[1], "idm_step": qat_idm[1]}
+    phase_done("11")
+    resumed = check_resume(dev)
+    b1["resume_launches"] = {k: v[0] for k, v in resumed.items()}
+    b2["resume_launches"] = {k: v[1] for k, v in resumed.items()}
+    phase_done("12")
 
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,14 @@ import chip_smoke as cs
 B, H, t, T, d, n, band = 4, 16, 128, 256, 128, 10, 128
 
 
+@pytest.fixture(autouse=True)
+def _grad_mode():
+    """Autograd on: another module of the suite turns grad mode off when it
+    is imported, and pytest imports every module of a run in each worker."""
+    with torch.enable_grad():
+        yield
+
+
 def _inputs(dtype):
     meta = dict(device="meta")
     return (torch.empty((B, H, t, d), dtype=dtype, **meta), torch.empty((B, H, T, d), dtype=dtype, **meta),
@@ -205,3 +213,122 @@ def test_numpy_resize_is_the_agents_host_preparation():
     agent = MineRLAgent(device="cpu", policy_kwargs=kwargs, batch_size=3)
     obs = [{"pov": np.random.default_rng(i).integers(0, 256, (36, 64, 3), dtype=np.uint8)} for i in range(3)]
     np.testing.assert_array_equal(cs.numpy_resize(agent)(obs), agent._env_obs_to_agent(obs))
+
+
+TINY_POLICY = dict(hidsize=64, impala_chans=[4, 8], img_shape=[32, 32, 3], n_recurrence_layers=1, timesteps=4,
+                   attention_heads=4, attention_memory_size=8, recurrence_type="transformer")
+
+
+def test_phase_11_int8_weight_and_product_checks():
+    """Phase 11(a)'s checks pass on a quantized twin of a float model and
+    catch one flipped code; the products compare by layer name."""
+    from vpt_tpu_torch.agent import MineRLAgent
+
+    f = MineRLAgent(device="cpu", policy_kwargs=TINY_POLICY, batch_size=2)
+    q = MineRLAgent(device="cpu", policy_kwargs=TINY_POLICY, batch_size=2, quantize_dense=True)
+    # the CNN's projection, q/k/v/proj/r and the two MLP layers of the one block, lastlayer
+    assert cs.quant_layers(q.policy) == 9 and cs.quant_layers(f.policy) == 0
+    bad, n = cs.quantized_weights_match_cpu(f.policy, q.policy)
+    assert bad == [] and n == 2 * cs.quant_layers(q.policy)
+    q.policy.net.lastlayer.layer.weight_q8[0, 0] += 1
+    assert cs.quantized_weights_match_cpu(f.policy, q.policy)[0] == ["net.lastlayer.layer.weight_q8"]
+    products = cs.int8_products_match_cpu(q.policy, torch.device("cpu"), (2, 20))
+    assert [p[0] for p in products[::2]] == ["orc_block.q_layer", "orc_block.r_layer", "mlp0.layer", "mlp1.layer"]
+    assert all(exact and err == 0.0 for *_, exact, err in products)
+
+
+def test_counted_int_mm_counts_and_restores():
+    real = torch._int_mm
+    a, b = torch.ones((17, 8), dtype=torch.int8), torch.ones((8, 8), dtype=torch.int8)
+    with cs.CountedIntMM() as mm:
+        torch._int_mm(a, b)
+        torch._int_mm(a, b)
+    assert mm.calls == [False, False] and torch._int_mm is real  # CPU tensors count as not on CUDA
+
+
+def test_resume_within_spread_holds_the_resumed_run_to_the_spread(monkeypatch):
+    """Phase 12's rule: the fresh trainer's state equals the saved one bit
+    for bit, and its step 3 comes within twice the uninterrupted step 3s'
+    spread (their largest pairwise gap), exactly where that spread is 0."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+    def check(noise, resumed_gap, restored_state=1.0):
+        runs = iter(noise)
+
+        def step3(fresh):
+            x = resumed_gap if fresh is not None else next(runs)
+            return 1.0 + x, {"w": torch.tensor([x])}
+
+        state_of = lambda t: {"w": torch.tensor([1.0 if t is None else restored_state])}  # noqa: E731
+        return cs.resume_within_spread("toy", state_of, lambda s: None, lambda p: None, lambda p: "fresh", step3)
+
+    assert cs.RESUME_RUNS == 4
+    assert check([0.0] * 4, 0.0) == (0, 0)
+    assert check([0.0, 1e-3, 2e-4, 5e-4], 1.5e-3) == (0, 0)  # the spread is the largest pairwise gap
+    with pytest.raises(AssertionError, match="outside the spread"):
+        check([0.0] * 4, 1e-7)
+    with pytest.raises(AssertionError, match="outside the spread"):
+        check([0.0, 1e-3, 0.0, 1e-3], 3e-3)
+    with pytest.raises(AssertionError, match="differs at"):
+        check([0.0] * 4, 0.0, restored_state=2.0)
+
+
+def test_trainer_state_and_load_put_a_trainer_back():
+    from vpt_tpu_torch.training.bc import BCTrainer
+
+    trainer = BCTrainer(TINY_POLICY, {}, device="cpu")
+    trainer.init()
+    snap = cs.trainer_state(trainer, [{"k": torch.ones(2)}])
+    batch = cs.bc_batch(torch.device("cpu"), 1, 4, 32, 0)
+    trainer.train_step(batch, trainer.initial_state(1))
+    assert trainer.step_count == 1 and cs.max_param_gap(snap["policy"], trainer.policy.state_dict()) > 0
+    assert "/step_count" in cs.differing(cs.trainer_state(trainer, [{"k": torch.ones(2)}]), snap)
+    cs.trainer_load(trainer, snap)
+    assert cs.differing(cs.trainer_state(trainer, [{"k": torch.ones(2)}]), snap) == []
+    assert cs.differing(cs.trainer_state(trainer, [{"k": torch.zeros(2)}]), snap) == ["/carried/0/k"]
+
+
+def test_dir_bytes_counts_every_file(tmp_path):
+    (tmp_path / "a").write_bytes(b"12345")
+    (tmp_path / "d").mkdir()
+    (tmp_path / "d" / "b").write_bytes(b"123")
+    assert cs.dir_bytes(tmp_path) == 8
+
+
+def test_relu_decisions_replay_the_recorded_side():
+    """Phases 7(a), 8(a), 9(a) and 11(c)/(d): the CPU's step replays the
+    card's dense ReLU decisions.  On identical models replaying changes
+    nothing; on a perturbed one its layers pass exactly where the recorded
+    side passed, and the flips are counted."""
+    from vpt_tpu_torch.training.bc import BCTrainer
+
+    a, b = (BCTrainer(TINY_POLICY, {}, device="cpu", seed=0) for _ in range(2))
+    a.init()
+    b.init()
+    batch = cs.bc_batch(torch.device("cpu"), 2, 4, 32, 0)
+    relus = cs.ReluDecisions()
+    with relus.record(a.policy):
+        _, loss_a, _ = a.train_step(batch, a.initial_state(2))
+    with relus.replay(b.policy):
+        _, loss_b, _ = b.train_step(batch, b.initial_state(2))
+    assert relus.flipped == 0 and relus.total == 2 * 4 * (64 * 4 + 64 + 64)  # mlp0, the CNN's projection, lastlayer
+    assert loss_a == loss_b and cs.max_param_gap(a.policy.state_dict(), b.policy.state_dict()) == 0
+
+    with torch.no_grad():
+        b.policy.net.recurrent_layer.blocks[0].mlp0.layer.weight.add_(
+            1e-2 * torch.randn_like(b.policy.net.recurrent_layer.blocks[0].mlp0.layer.weight))
+    relus, passed = cs.ReluDecisions(), []
+    with relus.record(a.policy):
+        a.masked_nll(a.to_device(batch), a.initial_state(2))
+    mlp0 = b.policy.net.recurrent_layer.blocks[0].mlp0
+    with relus.replay(b.policy):
+        hook = mlp0.register_forward_hook(lambda m, args, out: passed.append(out != 0))  # runs after the replay's
+        try:
+            b.masked_nll(b.to_device(batch), b.initial_state(2))
+        finally:
+            hook.remove()
+    assert relus.flipped > 0
+    assert torch.equal(passed[0], relus.masks[1])  # the CNN's projection's decisions first, then this mlp0's
+    with pytest.raises(AssertionError, match="fewer dense ReLUs"):
+        with relus.replay(b.policy):
+            pass

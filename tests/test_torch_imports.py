@@ -32,6 +32,8 @@ def test_every_module_imports_without_jax_or_vpt_tpu():
             "vpt_tpu_torch.data.annotate", "vpt_tpu_torch.rl_fine_tune"} <= set(names)
     assert {"vpt_tpu_torch.ops.host_resize", "vpt_tpu_torch.utils.profiling",
             "vpt_tpu_torch.tools.profile_ops"} <= set(names)
+    assert {"vpt_tpu_torch.ops.int8", "vpt_tpu_torch.checkpoint.native",
+            "vpt_tpu_torch.checkpoint.averaging"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"

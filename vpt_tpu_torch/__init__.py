@@ -9,9 +9,11 @@ written by hand for ``sm_90a`` (sources in ``csrc/``, built at first use into
   actions/    camera quantizer, action transformer, hierarchical mapping,
               device-side action decode
   models/     policy graph as nn.Modules (reference torch state_dict names)
-  ops/        masks, relative bias, attention (plain + CUDA kernel), resize
-  checkpoint/ reference .model/.weights I/O, JAX variable import
-  agent/      MineRLAgent
+  ops/        masks, relative bias, attention (plain + CUDA kernel), resize,
+              int8 dense layers and QAT
+  checkpoint/ reference .model/.weights I/O, JAX variable import, native
+              checkpoints (train state and data cursor), weight averaging
+  agent/      MineRLAgent, IDMAgent
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,9 @@ comes back to the host in one copy.  With ``resize_on_device`` the raw
 frames go to the card instead, and the step resizes them there
 (``resize_bilinear``, float, at most 1 intensity step from the host path).
 ``dispatch_action`` enqueues a step and returns at once; ``collect_action``
-waits for it.
+waits for it.  With ``quantize_dense`` the trunk's dense layers serve int8
+weights (ops/int8.py), derived from the float weights after their cast to
+``params_dtype``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from vpt_tpu_torch.models.heads import dict_sample, head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
 from vpt_tpu_torch.ops.host_resize import native_resize_u8
+from vpt_tpu_torch.ops.int8 import quantized_model
 from vpt_tpu_torch.ops.resize import resize_bilinear
 from vpt_tpu_torch.spaces import DictType
 
@@ -86,6 +89,9 @@ class MineRLAgent:
         step from the cv2-exact host path), for a host that cannot keep up
     :param params_dtype: "float32", or "bfloat16" to store every parameter
         of two or more dims in bfloat16 for serving (``cast_params``)
+    :param quantize_dense: serve the trunk's dense layers with int8 weights
+        (per-output-channel scales) and int8 activations (per-row scales),
+        quantized from the weights as ``params_dtype`` stores them
     """
 
     def __init__(
@@ -100,6 +106,7 @@ class MineRLAgent:
         ring_cache: bool = True,
         resize_on_device: bool = False,
         params_dtype: str = "float32",
+        quantize_dense: bool = False,
     ):
         if env is not None:
             validate_env(env)
@@ -108,18 +115,17 @@ class MineRLAgent:
         self.ring_cache = ring_cache
         self.resize_on_device = resize_on_device
         self.params_dtype = params_dtype
+        self.quantize_dense = quantize_dense
+        self._seed = seed
         self.action_mapper = CameraHierarchicalMapping(n_camera_bins=11)
         self.action_transformer = ActionTransformer(**ACTION_TRANSFORMER_KWARGS)
         policy_kwargs = dict(policy_kwargs or FOUNDATION_POLICY_KWARGS)
         pi_head_kwargs = dict(pi_head_kwargs or FOUNDATION_PI_HEAD_KWARGS)
         self.cfg = PolicyConfig.from_kwargs(policy_kwargs).replace(compute_dtype=compute_dtype)
         self.head_specs = head_specs_from_space(DictType(**self.action_mapper.get_action_space_update()))
-        self.policy = MinecraftAgentPolicy(
-            self.cfg, self.head_specs, float(pi_head_kwargs.get("temperature", 1.0)), device=self.device,
-        ).eval()
+        self.temperature = float(pi_head_kwargs.get("temperature", 1.0))
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
-        init_parameters(self.policy, self._generator)
-        cast_params(self.policy, params_dtype)
+        self.policy = self._maybe_quantize(self._float_policy(self._generator))
         self.decoder = DeviceActionDecoder(self.action_mapper, self.action_transformer.quantizer, self.device)
         # cv2 (width, height) order from the model's (h, w, c) img_shape
         self._resolution = (self.cfg.img_shape[1], self.cfg.img_shape[0])
@@ -128,10 +134,30 @@ class MineRLAgent:
         # the native resize releases the GIL, so the streams' frames resize in parallel
         self._resize_pool = ThreadPoolExecutor(max_workers=min(16, batch_size)) if batch_size > 1 else None
 
+    def _float_policy(self, generator: torch.Generator) -> MinecraftAgentPolicy:
+        """The float policy, its weights drawn from ``generator`` and cast to
+        ``params_dtype``."""
+        policy = MinecraftAgentPolicy(self.cfg, self.head_specs, self.temperature, device=self.device).eval()
+        init_parameters(policy, generator)
+        return cast_params(policy, self.params_dtype)
+
+    def _maybe_quantize(self, policy: MinecraftAgentPolicy) -> MinecraftAgentPolicy:
+        """The int8 serving twin of a float ``policy`` under ``quantize_dense``
+        (``policy`` itself otherwise)."""
+        if not self.quantize_dense:
+            return policy
+        cfg = self.cfg.replace(quantize_dense=True)
+        return quantized_model(policy, lambda: MinecraftAgentPolicy(cfg, self.head_specs, self.temperature))
+
     def load_weights(self, path: str) -> None:
-        """Load a reference ``.weights`` file (strict=False) and reset state."""
-        report = load_state_dict_report(self.policy, load_weights(path))
-        cast_params(self.policy, self.params_dtype)
+        """Load a reference ``.weights`` file (strict=False) and reset state.
+        A quantized agent loads into a float policy and quantizes it again."""
+        policy = self.policy
+        if self.quantize_dense:  # the float layout back, drawn as at construction for what the file lacks
+            policy = self._float_policy(torch.Generator(device=self.device).manual_seed(self._seed))
+        report = load_state_dict_report(policy, load_weights(path))
+        cast_params(policy, self.params_dtype)
+        self.policy = self._maybe_quantize(policy)
         if report["unexpected"] or report["shape_mismatch"]:
             print(
                 f"[vpt_tpu_torch] load_weights: ignored {len(report['unexpected'])} unexpected keys, "

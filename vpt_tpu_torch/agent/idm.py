@@ -10,6 +10,10 @@ axis: ``predict_actions_batched`` labels B windows in one forward.
 to the host and returns at once; ``collect_actions`` waits for them, so the
 host can decode the next frames meanwhile.
 
+With ``quantize_dense`` the IDM's trunk dense layers serve int8 weights
+(ops/int8.py), quantized at the first forward from the float weights as
+``params_dtype`` stores them, and again after every ``load_weights``.
+
 Frames are resized with the numpy cv2-exact ``resize_image`` on one thread,
 as the JAX package's ``IDMAgent`` and labeler do; the policy agent and the
 PPO collection use the native host resize (ops/host_resize.py).
@@ -30,6 +34,7 @@ from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.models.heads import head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import InverseActionPolicy, policy_initial_state
+from vpt_tpu_torch.ops.int8 import quantized_model
 from vpt_tpu_torch.ops.resize import resize_image
 from vpt_tpu_torch.spaces import DictType
 
@@ -55,25 +60,47 @@ class IDMAgent:
     :param compute_dtype: "float32" or "bfloat16"
     :param params_dtype: "float32", or "bfloat16" to store every parameter
         of two or more dims in bfloat16 (``cast_params``)
+    :param quantize_dense: label with int8 trunk dense layers
     """
 
     def __init__(self, idm_net_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any], device=None,
-                 compute_dtype: str = "float32", seed: int = 0, params_dtype: str = "float32"):
+                 compute_dtype: str = "float32", seed: int = 0, params_dtype: str = "float32",
+                 quantize_dense: bool = False):
         self.device = resolve_device(device)
         self.params_dtype = params_dtype
+        self.quantize_dense = quantize_dense
+        self._seed = seed
         self.action_mapper = IDMActionMapping(n_camera_bins=11)
         self.action_transformer = ActionTransformer(**ACTION_TRANSFORMER_KWARGS)
         self.cfg = PolicyConfig.from_kwargs(dict(idm_net_kwargs)).replace(compute_dtype=compute_dtype)
         self.head_specs = head_specs_from_space(DictType(**self.action_mapper.get_action_space_update()))
-        policy = InverseActionPolicy(self.cfg, self.head_specs, float(pi_head_kwargs.get("temperature", 1.0)))
-        init_parameters(policy, torch.Generator().manual_seed(seed))
-        self.policy = cast_params(policy.to(self.device).eval(), params_dtype)
+        self.temperature = float(pi_head_kwargs.get("temperature", 1.0))
+        self.policy = self._float_policy()
+        self._quantized = False
         self.hidden_state = policy_initial_state(self.cfg, 1, device=self.device)
 
+    def _float_policy(self) -> InverseActionPolicy:
+        policy = InverseActionPolicy(self.cfg, self.head_specs, self.temperature)
+        init_parameters(policy, torch.Generator().manual_seed(self._seed))
+        return cast_params(policy.to(self.device).eval(), self.params_dtype)
+
+    def _maybe_quantize(self) -> None:
+        """Swap in the int8 serving twin of the float policy, once, under
+        ``quantize_dense`` (called by every forward)."""
+        if not self.quantize_dense or self._quantized:
+            return
+        cfg = self.cfg.replace(quantize_dense=True)
+        self.policy = quantized_model(self.policy, lambda: InverseActionPolicy(cfg, self.head_specs, self.temperature))
+        self._quantized = True
+
     def load_weights(self, path: str) -> None:
-        """Load a reference ``.weights`` file (strict=False) and reset state."""
+        """Load a reference ``.weights`` file (strict=False) and reset state.
+        A quantized agent loads into a float policy and quantizes it again."""
+        if self._quantized:  # the float layout back, drawn as at construction for what the file lacks
+            self.policy, self._quantized = self._float_policy(), False
         report = load_state_dict_report(self.policy, load_weights(path))
         cast_params(self.policy, self.params_dtype)
+        self._maybe_quantize()
         if report["unexpected"] or report["shape_mismatch"]:
             print(
                 f"[vpt_tpu_torch] load_weights: ignored {len(report['unexpected'])} unexpected keys, "
@@ -91,15 +118,16 @@ class IDMAgent:
     def _agent_action_to_env(self, action: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         return self.action_transformer.policy2env(self.action_mapper.to_factored(action))
 
-    @torch.inference_mode()
     def _forward(self, img: np.ndarray, state):
         """Argmax labels (reference policy.py:448-458) of a (B, N) window
         stack, and the state after it."""
-        img_t = torch.from_numpy(np.ascontiguousarray(img))
-        if self.device.type == "cuda":  # from pinned memory, the copy waits for nothing queued before it
-            img_t = img_t.pin_memory().to(self.device, non_blocking=True)
-        first = torch.zeros(img.shape[:2], dtype=torch.bool, device=self.device)
-        action, state, _ = self.policy.predict(img_t, first, state, deterministic=True)
+        self._maybe_quantize()  # outside inference mode: the model outlives this call
+        with torch.inference_mode():
+            img_t = torch.from_numpy(np.ascontiguousarray(img))
+            if self.device.type == "cuda":  # from pinned memory, the copy waits for nothing queued before it
+                img_t = img_t.pin_memory().to(self.device, non_blocking=True)
+            first = torch.zeros(img.shape[:2], dtype=torch.bool, device=self.device)
+            action, state, _ = self.policy.predict(img_t, first, state, deterministic=True)
         return action, state
 
     def predict_actions(self, video_frames: np.ndarray) -> Dict[str, np.ndarray]:

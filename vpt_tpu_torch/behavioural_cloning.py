@@ -5,9 +5,11 @@ behavioural_cloning.py):
     python -m vpt_tpu_torch.behavioural_cloning --data-dir DIR --in-model M.model \\
         --in-weights M.weights --out-weights OUT.weights [--batch-size 8] [--chunk-len 128] \\
         [--epochs 2] [--compute-dtype float32] [--remat] [--cnn-scan-chunks N] [--labels-dir DIR] \\
-        [--device cuda]
+        [--qat-dense] [--checkpoint-dir DIR --checkpoint-every N [--resume]] [--device cuda]
 
-Runs on CUDA unless ``--device cpu`` is given.
+``--checkpoint-dir`` keeps mid-run checkpoints (every ``--checkpoint-every``
+steps, and on SIGTERM or SIGINT); ``--resume`` goes on from the newest one
+there.  Runs on CUDA unless ``--device cpu`` is given.
 """
 
 from argparse import ArgumentParser
@@ -17,11 +19,14 @@ from vpt_tpu_torch.training.bc import BCHyperparams, BCTrainer
 
 def behavioural_cloning_train(data_dir, in_model, in_weights, out_weights, batch_size=8, chunk_len=128,
                               epochs=2, compute_dtype="float32", device=None, remat=False, cnn_scan_chunks=0,
-                              labels_dir=None):
-    hp = BCHyperparams(batch_size=batch_size, chunk_len=chunk_len, epochs=epochs)
+                              labels_dir=None, qat_dense=False, checkpoint_dir=None, checkpoint_every=0,
+                              resume=False):
+    hp = BCHyperparams(batch_size=batch_size, chunk_len=chunk_len, epochs=epochs,
+                       checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
     trainer = BCTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, remat=remat,
-                                   cnn_scan_chunks=cnn_scan_chunks, device=device)
-    steps = trainer.train(data_dir, out_weights, labels_dir=labels_dir)
+                                   cnn_scan_chunks=cnn_scan_chunks, qat_dense=qat_dense, device=device)
+    steps = trainer.train(data_dir, out_weights, labels_dir=labels_dir,
+                          resume_dir=checkpoint_dir if resume else None)
     print(f"Finished: {steps} optimizer steps → {out_weights}")
 
 
@@ -41,12 +46,20 @@ def main(argv=None):
     parser.add_argument("--labels-dir", type=str, default=None,
                         help="Train on IDM pseudo-labels: a directory of <video_id>.jsonl files "
                              "instead of the jsonl beside each video")
+    parser.add_argument("--qat-dense", action="store_true",
+                        help="Quantization-aware training: the forward sees the int8 dense weights of quantize_dense serving")
+    parser.add_argument("--checkpoint-dir", type=str, default=None, help="Mid-run checkpoint directory")
+    parser.add_argument("--checkpoint-every", type=int, default=0,
+                        help="Steps between mid-run checkpoints (0 = only on SIGTERM/SIGINT)")
+    parser.add_argument("--resume", action="store_true", help="Resume from the latest checkpoint in --checkpoint-dir")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
     args = parser.parse_args(argv)
     behavioural_cloning_train(args.data_dir, args.in_model, args.in_weights, args.out_weights,
                               batch_size=args.batch_size, chunk_len=args.chunk_len, epochs=args.epochs,
                               compute_dtype=args.compute_dtype, device=args.device, remat=args.remat,
-                              cnn_scan_chunks=args.cnn_scan_chunks, labels_dir=args.labels_dir)
+                              cnn_scan_chunks=args.cnn_scan_chunks, labels_dir=args.labels_dir,
+                              qat_dense=args.qat_dense, checkpoint_dir=args.checkpoint_dir,
+                              checkpoint_every=args.checkpoint_every, resume=args.resume)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,9 @@ flax variable tree (nested dicts of numpy arrays) into the same names,
 with the layout transposes of the JAX converter: Linear (I,O)→(O,I),
 Conv2d (kh,kw,I,O)→(O,I,kh,kw), Conv3d (kt,kh,kw,I,O)→(O,I,kt,kh,kw),
 norm ``scale``→``weight``, ``blocks_0``→``blocks.0``, and the EWMA stats
-under ``normalizer``.
+under ``normalizer``.  A quantized tree (``vpt_tpu.ops.int8``) crosses too:
+``kernel_q8`` (in, out) int8 → ``weight_q8`` (out, in) int8 and
+``kernel_scale`` → ``weight_scale``.
 """
 
 from __future__ import annotations
@@ -88,18 +90,20 @@ def cast_params(module: torch.nn.Module, params_dtype: str) -> torch.nn.Module:
     return module
 
 
+_LEAF_NAMES = {"kernel": "weight", "kernel_q8": "weight_q8", "scale": "weight", "kernel_scale": "weight_scale"}
+
+
 def _torch_leaf(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
-    if name == "kernel":
+    if name in ("kernel", "kernel_q8"):
         if value.ndim == 2:
-            return "weight", value.transpose(1, 0)
-        if value.ndim == 4:
-            return "weight", value.transpose(3, 2, 0, 1)
-        if value.ndim == 5:
-            return "weight", value.transpose(4, 3, 0, 1, 2)
-        raise ValueError(f"unsupported kernel ndim {value.ndim}")
-    if name == "scale":
-        return "weight", value
-    return name, value
+            value = value.transpose(1, 0)
+        elif value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        elif value.ndim == 5:
+            value = value.transpose(4, 3, 0, 1, 2)
+        else:
+            raise ValueError(f"unsupported kernel ndim {value.ndim}")
+    return _LEAF_NAMES.get(name, name), value
 
 
 def _leaves(tree: Mapping, path=()):
@@ -110,26 +114,34 @@ def _leaves(tree: Mapping, path=()):
             yield path + (str(key),), value
 
 
+def torch_key(segs: Tuple[str, ...], collection: str = "params") -> str:
+    """The state_dict name of the ``vpt_tpu`` variable at path ``segs`` of
+    ``collection`` (e.g. ``("net", "recurrent_layer", "blocks_0", ..., "kernel")``)."""
+    leaf = segs[-1]
+    body = []
+    for s in segs[:-1]:
+        m = _LIST_SEG.match(s)
+        if m and m.group(1) in ("blocks", "stacks"):
+            body.extend([m.group(1), m.group(2)])
+        else:
+            body.append(s)
+    if collection == "stats" and leaf in _EWMA_LEAVES:
+        body.append("normalizer")
+    return ".".join(body + [_LEAF_NAMES.get(leaf, leaf)])
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """A ``vpt_tpu`` variable tree ``{"params": ..., "stats": ...}`` of numpy
-    arrays → a torch-layout state_dict of CPU tensors."""
+    arrays → a torch-layout state_dict of CPU tensors (float32, int8 codes
+    kept int8)."""
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "stats"):
         if collection not in variables:
             continue
         for segs, value in _leaves(variables[collection]):
-            leaf = segs[-1]
-            name, arr = _torch_leaf(leaf, np.asarray(value))
-            body = []
-            for s in segs[:-1]:
-                m = _LIST_SEG.match(s)
-                if m and m.group(1) in ("blocks", "stacks"):
-                    body.extend([m.group(1), m.group(2)])
-                else:
-                    body.append(s)
-            if collection == "stats" and leaf in _EWMA_LEAVES:
-                body.append("normalizer")
-            out[".".join(body + [name])] = torch.from_numpy(np.array(arr, dtype=np.float32))
+            _, arr = _torch_leaf(segs[-1], np.asarray(value))
+            dtype = np.int8 if segs[-1] == "kernel_q8" else np.float32
+            out[torch_key(segs, collection)] = torch.from_numpy(np.array(arr, dtype=dtype))
     return out
 
 

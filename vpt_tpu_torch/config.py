@@ -3,9 +3,9 @@
 ``PolicyConfig.from_kwargs`` accepts a raw kwargs dict from a ``.model``
 pickle and ignores keys it does not know, as the reference's
 ``MinecraftPolicy.__init__`` swallows ``**unused_kwargs``.  The memory
-fields ``remat`` and ``cnn_scan_chunks`` are the JAX package's; its
-TPU-only ``pool_impl`` and the field of a module not ported yet
-(``quantize_dense``) are not here: ``from_kwargs`` ignores them.
+fields ``remat`` and ``cnn_scan_chunks`` and the int8 serving field
+``quantize_dense`` are the JAX package's; its TPU-only ``pool_impl`` is not
+here: ``from_kwargs`` ignores it.
 """
 
 from __future__ import annotations
@@ -73,6 +73,12 @@ class PolicyConfig:
     # "float32" or "bfloat16".  Parameters stay float32; attention logits and
     # softmax, layer norms and the head log-softmax stay float32 regardless.
     compute_dtype: str = "float32"
+
+    # Int8 serving: the trunk's dense layers (q/k/v/proj/r, MLPs, the
+    # CNN→hidsize projection, lastlayer) hold int8 weights with dynamic
+    # per-row activation quantization (ops/int8.py).  Serving only: the
+    # state_dict is derived from a float one by ops.int8.quantize_state_dict.
+    quantize_dense: bool = False
 
     @property
     def chans(self) -> Tuple[int, ...]:

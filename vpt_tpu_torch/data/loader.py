@@ -22,9 +22,17 @@ a parent that has initialised CUDA cannot be forked safely.  Under spawn
 the program that builds a loader must be importable (a script with an
 ``if __name__ == "__main__"`` guard).
 
-Not ported yet: the single-step ``DataLoader``, shards
-(``shard_id``/``num_shards``) and the resume cursor (``resume_state``/
-``state()``, with ``skip_steps``).
+``state()`` is the exact resume cursor, each stream's (trajectory position,
+chunks consumed); a loader built with ``resume_state=`` that cursor goes on
+from each stream's first unconsumed chunk, the workers fast-forwarding with
+``skip_steps``, so nothing is skipped or repeated.  Unlike the JAX
+package's loader, whose consumer restarts a resumed stream from a fresh
+recurrent state, the first chunk of a resumed stream is marked first only
+where it starts its trajectory: the port's trainers restore the recurrent
+state they were trained with.
+
+Not ported yet: the single-step ``DataLoader`` and shards
+(``shard_id``/``num_shards``).
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ def trajectory_steps(
     resolution: Tuple[int, int] = AGENT_RESOLUTION,
     cursor=None,
     quit_event=None,
+    skip_steps: int = 0,
 ):
     """Generator of (frame uint8 RGB at ``resolution`` (w, h), env_action)
     for one recording, with all reference fixups applied and null actions
@@ -80,7 +89,9 @@ def trajectory_steps(
 
     The sequential action fixups run over the whole jsonl first; then the
     pixels (decode, cursor composite, resize) go through the native library
-    ``DECODE_BATCH`` frames per call.
+    ``DECODE_BATCH`` frames per call.  ``skip_steps`` passes over the first
+    that many non-null steps without yielding them (a resumed trajectory):
+    the fixups still run and every frame is still decoded, to stay in step.
     """
     from vpt_tpu_torch.data.video import VideoReader
 
@@ -90,6 +101,7 @@ def trajectory_steps(
     try:
         attack_is_stuck = False
         last_hotbar = 0
+        emitted = 0
         scale = video.height / MINEREC_ORIGINAL_HEIGHT_PX
         steps = []  # (env_action, emit, cursor_xy or None)
         for i, step_data in enumerate(json_data):
@@ -112,7 +124,8 @@ def trajectory_steps(
                 action[f"hotbar.{current_hotbar + 1}"] = 1
             last_hotbar = current_hotbar
 
-            emit = not is_null_action
+            emit = not is_null_action and emitted >= skip_steps
+            emitted += not is_null_action
             xy = None
             if emit and step_data.get("isGuiOpen", False):
                 xy = (int(step_data["mouse"]["x"] * scale), int(step_data["mouse"]["y"] * scale))
@@ -167,6 +180,7 @@ def pseudo_label_steps(
     resolution: Tuple[int, int] = AGENT_RESOLUTION,
     cursor=None,
     quit_event=None,
+    skip_steps: int = 0,
 ):
     """Generator of (frame, env_action) for an IDM pseudo-labeled recording.
 
@@ -175,7 +189,8 @@ def pseudo_label_steps(
     state).  Null actions (all buttons 0 and a zero camera, which the IDM's
     centre camera bin decodes to exactly) are skipped as on the contractor
     path (reference data_loader.py:109-111).  Frames without a label row are
-    decoded, to stay in step, but not emitted.
+    decoded, to stay in step, but not emitted; ``skip_steps`` counts
+    non-null steps, as in :func:`trajectory_steps`.
     """
     from vpt_tpu_torch.data.video import VideoReader
 
@@ -185,6 +200,7 @@ def pseudo_label_steps(
     video = VideoReader(video_path)
     try:
         steps = []  # (env_action, emit, None)
+        emitted = 0
         for i in range(max(by_frame, default=-1) + 1):
             raw = by_frame.get(i)
             if raw is None:
@@ -198,7 +214,8 @@ def pseudo_label_steps(
                 else:
                     action[k] = int(np.asarray(v).reshape(-1)[0])
                     is_null = is_null and action[k] == 0
-            steps.append((action, not is_null, None))
+            steps.append((action, not is_null and emitted >= skip_steps, None))
+            emitted += not is_null
         yield from _emit_resized_frames(video, steps, resolution, cursor if cursor is not None else default_cursor(),
                                         quit_event, video_path)
     finally:
@@ -256,8 +273,10 @@ def _factor_actions(transformer, mapper, acts) -> Tuple[np.ndarray, np.ndarray]:
 
 def _sequence_worker(tasks_queue, output_queue, quit_event, chunk_len, resolution):
     """Emit fixed-length windows of consecutive non-null steps of each task
-    ``(trajectory_id, video_path, json_path)``; the trailing partial window
-    is zero-padded and carries its count of valid steps."""
+    ``(trajectory_id, video_path, json_path, skip_chunks)``, from chunk
+    ``skip_chunks`` on (a resumed trajectory); the trailing partial window
+    is zero-padded and carries its count of valid steps.  Each item carries
+    its chunk's index within the trajectory, for the consumer's cursor."""
     cursor = default_cursor()
     mapper = CameraHierarchicalMapping(n_camera_bins=11)
     transformer = ActionTransformer(**ACTION_TRANSFORMER_KWARGS)
@@ -265,21 +284,22 @@ def _sequence_worker(tasks_queue, output_queue, quit_event, chunk_len, resolutio
         task = tasks_queue.get()
         if task is None:
             break
-        trajectory_id, video_path, json_path = task
+        trajectory_id, video_path, json_path, skip_chunks = task
         frames, acts = [], []
-        first_chunk = True
+        chunk_index = skip_chunks
         try:
-            for frame, action in steps_for(video_path, json_path, resolution=resolution,
-                                           cursor=cursor, quit_event=quit_event):
+            for frame, action in steps_for(video_path, json_path, resolution=resolution, cursor=cursor,
+                                           quit_event=quit_event, skip_steps=skip_chunks * chunk_len):
                 frames.append(frame)
                 acts.append(action)
                 if len(frames) == chunk_len:
                     buttons, cameras = _factor_actions(transformer, mapper, acts)
-                    item = (trajectory_id, np.stack(frames), buttons, cameras, first_chunk, chunk_len)
+                    item = (trajectory_id, np.stack(frames), buttons, cameras, chunk_index == 0, chunk_len,
+                            chunk_index)
                     if not _robust_put(output_queue, item, quit_event):
                         return
                     frames, acts = [], []
-                    first_chunk = False
+                    chunk_index += 1
         except Exception as e:  # unreadable recording: report and move on
             print(f"Error in trajectory {video_path}: {e!r}")
         if frames and not quit_event.is_set():
@@ -288,7 +308,7 @@ def _sequence_worker(tasks_queue, output_queue, quit_event, chunk_len, resolutio
             buttons, cameras = _factor_actions(transformer, mapper, acts)
             frames += [np.zeros_like(frames[0])] * pad
             item = (trajectory_id, np.stack(frames), np.pad(buttons, (0, pad)), np.pad(cameras, (0, pad)),
-                    first_chunk, n)
+                    chunk_index == 0, n, chunk_index)
             _robust_put(output_queue, item, quit_event)
         if quit_event.is_set():
             break
@@ -310,11 +330,14 @@ class SequenceDataLoader:
     shuffled) trajectory list; the first stream to run out ends the epoch.
     ``labels_dir`` reads each video's jsonl from there (pseudo-labels kept
     apart from the videos); each jsonl's format is detected either way.
+    ``resume_state`` is a :meth:`state` of a loader over the same data,
+    seed, epochs and batch size: each stream goes on from its first
+    unconsumed chunk.
     """
 
     def __init__(self, dataset_dir, batch_size=8, chunk_len=128, n_epochs=1, max_queue_size=8,
                  resolution: Tuple[int, int] = AGENT_RESOLUTION, seed: Optional[int] = None,
-                 labels_dir: Optional[str] = None):
+                 labels_dir: Optional[str] = None, resume_state: Optional[Dict] = None):
         from vpt_tpu_torch.data.video import build
 
         build()  # once here, not once per worker
@@ -330,11 +353,20 @@ class SequenceDataLoader:
             self.demonstration_tuples += shuffled
         self.chunk_len = chunk_len
         self.batch_size = batch_size
+        # stream i owns list positions i, i + B, ...; its cursor is (position, chunks consumed)
+        streams = [(-1, 0)] * batch_size
+        if resume_state is not None:
+            streams = [(int(p), int(c)) for p, c in resume_state["streams"]]
+            if len(streams) != batch_size:
+                raise ValueError(f"resume_state has {len(streams)} streams, the loader {batch_size}")
+        self._stream_cursor = list(streams)
+        self.n_trajectories_dispatched = int((resume_state or {}).get("n_trajectories_dispatched", 0))
 
         self.task_queues = [_mp.Queue() for _ in range(batch_size)]
         for i in range(batch_size):
-            for pos in range(i, len(self.demonstration_tuples), batch_size):
-                self.task_queues[i].put((pos, *self.demonstration_tuples[pos]))
+            first_pos, skip_chunks = streams[i] if streams[i][0] >= 0 else (i, 0)
+            for pos in range(first_pos, len(self.demonstration_tuples), batch_size):
+                self.task_queues[i].put((pos, *self.demonstration_tuples[pos], skip_chunks if pos == first_pos else 0))
             self.task_queues[i].put(None)
         self.output_queues = [_mp.Queue(maxsize=max_queue_size) for _ in range(batch_size)]
         self.quit_workers_event = _mp.Event()
@@ -346,6 +378,13 @@ class SequenceDataLoader:
         for p in self.processes:
             p.start()
         self._done = False
+
+    def state(self) -> Dict:
+        """The exact resume cursor: each stream's (trajectory position,
+        chunks consumed), and the trajectories dispatched so far.  Feed it
+        back as ``resume_state=`` to go on with nothing skipped or repeated."""
+        return {"n_trajectories_dispatched": self.n_trajectories_dispatched,
+                "streams": [list(c) for c in self._stream_cursor]}
 
     def __iter__(self):
         return self
@@ -366,6 +405,9 @@ class SequenceDataLoader:
                 self._done = True
                 raise StopIteration()
             items.append(item)
+        for i, item in enumerate(items):
+            self._stream_cursor[i] = (item[0], item[6] + 1)
+            self.n_trajectories_dispatched = max(self.n_trajectories_dispatched, item[0] + 1)
         T = self.chunk_len
         firsts = np.zeros((self.batch_size, T), bool)
         firsts[:, 0] = [it[4] for it in items]

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vpt_tpu_torch.ops.int8 import QuantLinear, fake_quant_kernel
+
 LN_EPS = 1e-5  # torch LayerNorm/GroupNorm default epsilon
 
 
@@ -57,13 +59,16 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 class NormedLinear(nn.Module):
     """Dense layer with fan-in-normalised init and zero bias (reference
-    NormedLinear, lib/torch_util.py:68-82), computing in ``dtype``."""
+    NormedLinear, lib/torch_util.py:68-82), computing in ``dtype``.  With
+    ``fake_quant`` set (``set_fake_quant``, QAT) its forward uses the
+    weight's int8 fake-quantized view."""
 
     def __init__(self, in_features: int, out_features: int, scale: float = 1.0,
                  bias: bool = True, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.scale = scale
         self.dtype = dtype
+        self.fake_quant = False
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.empty(out_features, device=device)) if bias else None
         self.reset_parameters()
@@ -77,12 +82,16 @@ class NormedLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        w = fake_quant_kernel(self.weight) if self.fake_quant else self.weight
+        return F.linear(x.to(dt), w.to(dt), bias)
 
 
 def normed_dense(in_features: int, out_features: int, *, scale: float, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None) -> NormedLinear:
-    """Counterpart of ``vpt_tpu.models.layers.normed_dense``."""
+                 dtype: torch.dtype = torch.float32, device=None, quantize: bool = False) -> nn.Module:
+    """Counterpart of ``vpt_tpu.models.layers.normed_dense``: ``quantize``
+    swaps in the int8 serving layer (ops/int8.py) at the same module path."""
+    if quantize:
+        return QuantLinear(in_features, out_features, bias=use_bias, dtype=dtype, device=device)
     return NormedLinear(in_features, out_features, scale=scale, bias=use_bias, dtype=dtype, device=device)
 
 
@@ -130,7 +139,10 @@ class FanInInitLayer(nn.Module):
     conv3d}: conv layers take NCHW, conv3d layers NCDHW (the IDM's front
     end, with D the time axis); ``kernel_size``, ``padding`` and ``stride``
     are an int for every spatial axis or one per axis.  (The reference's
-    batch norm, used by no published model, is not ported.)
+    batch norm, used by no published model, is not ported.)  ``quantize``
+    makes a linear layer's ``layer`` the int8 ``QuantLinear``; ``fake_quant``
+    (QAT, ``set_fake_quant``) runs a float linear layer on its weight's int8
+    fake-quantized view.
     """
 
     def __init__(
@@ -148,8 +160,11 @@ class FanInInitLayer(nn.Module):
         stride: Union[int, Tuple[int, ...]] = 1,
         dtype: torch.dtype = torch.float32,
         device=None,
+        quantize: bool = False,
     ):
         super().__init__()
+        if quantize and layer_type != "linear":
+            raise ValueError(f"quantize applies to linear layers only, not {layer_type}")
         if batch_norm:
             raise NotImplementedError("batch_norm FanInInitLayer is not ported")
         self.layer_type = layer_type
@@ -158,6 +173,8 @@ class FanInInitLayer(nn.Module):
         self.padding = padding
         self.stride = stride
         self.dtype = dtype
+        self.quantize = quantize
+        self.fake_quant = False
         self.norm = None
         if group_norm_groups is not None:
             self.norm = GroupNorm(group_norm_groups, inchan, device=device)
@@ -174,6 +191,9 @@ class FanInInitLayer(nn.Module):
             shape = (outchan, inchan) + ks
         else:
             raise NotImplementedError(layer_type)
+        if quantize:
+            self.layer = QuantLinear(inchan, outchan, bias=has_bias, dtype=dtype, device=device)
+            return
         self.layer = nn.Module()
         self.layer.weight = nn.Parameter(torch.empty(shape, device=device))
         self.layer.bias = nn.Parameter(torch.empty(outchan, device=device)) if has_bias else None
@@ -181,6 +201,8 @@ class FanInInitLayer(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if self.quantize:
+            return  # filled by quantize_state_dict
         fan_in_normed_(self.layer.weight, self.init_scale, generator)
         if self.layer.bias is not None:
             self.layer.bias.zero_()
@@ -188,8 +210,12 @@ class FanInInitLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm is not None:
             x = self.norm(x)
+        if self.quantize:
+            x = self.layer(x)
+            return F.relu(x) if self.use_activation else x
         dt = self.dtype
-        w = self.layer.weight.to(dt)
+        w = fake_quant_kernel(self.layer.weight) if self.fake_quant else self.layer.weight
+        w = w.to(dt)
         b = None if self.layer.bias is None else self.layer.bias.to(dt)
         if self.layer_type == "linear":
             x = F.linear(x.to(dt), w, b)
@@ -198,3 +224,24 @@ class FanInInitLayer(nn.Module):
         else:
             x = F.conv3d(x.to(dt), w, b, stride=self.stride, padding=self.padding)
         return F.relu(x) if self.use_activation else x
+
+
+def set_fake_quant(model: nn.Module, mask) -> int:
+    """Turn on QAT's fake quantization in every dense layer of ``model``
+    whose weight ``mask`` (``ops.int8.quantized_kernel_mask``) marks; returns
+    how many.  Raises where a marked weight belongs to no such layer."""
+    marked = {name for name, on in mask.items() if on}
+    done = set()
+    for prefix, module in model.named_modules():
+        if isinstance(module, NormedLinear):
+            name = f"{prefix}.weight"
+        elif isinstance(module, FanInInitLayer) and module.layer_type == "linear" and not module.quantize:
+            name = f"{prefix}.layer.weight"
+        else:
+            continue
+        module.fake_quant = name in marked
+        if module.fake_quant:
+            done.add(name)
+    if done != marked:
+        raise ValueError(f"no dense layer holds {sorted(marked - done)}")
+    return len(done)

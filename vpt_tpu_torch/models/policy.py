@@ -16,6 +16,11 @@ parameter exists for checkpoints).
 The recurrent state (per-block KV caches and state masks) is an explicit
 argument and return value, as in the JAX package.  Module and parameter
 names follow the reference's torch state_dict.
+
+With ``cfg.quantize_dense`` the trunk's dense layers (the CNN → hidsize
+projection ``linear``, the blocks' q/k/v/proj/r and MLPs, ``lastlayer``)
+are int8 ``QuantLinear`` layers, as in the JAX package; the Impala
+``dense``, the convolutions and the pi and value heads stay float.
 """
 
 from __future__ import annotations
@@ -85,7 +90,8 @@ class ImgObsProcess(nn.Module):
             dense_layer_norm=cfg.dense_use_layer_norm, dtype=dtype, remat=cfg.remat, device=device,
         )
         self.linear = FanInInitLayer(cfg.obs_processing_width, cfg.hidsize, layer_type="linear",
-                                     layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)
+                                     layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device,
+                                     quantize=cfg.quantize_dense)
 
     def forward(self, x):
         """(B, T, H, W, C) frames → (B, T, hidsize)."""
@@ -127,9 +133,11 @@ class MinecraftPolicy(nn.Module):
             pointwise_use_activation=cfg.pointwise_use_activation,
             attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
             attention_mask_style=cfg.attention_mask_style, dtype=dtype, remat=cfg.remat, device=device,
+            quantize_dense=cfg.quantize_dense,
         )
         self.lastlayer = FanInInitLayer(cfg.hidsize, cfg.hidsize, layer_type="linear",
-                                        layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)
+                                        layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device,
+                                        quantize=cfg.quantize_dense)
         self.final_ln = LayerNorm(cfg.hidsize, device=device)
 
     def forward(self, img, first, state):
@@ -217,9 +225,11 @@ class InverseActionNet(nn.Module):
             pointwise_use_activation=cfg.pointwise_use_activation,
             attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
             attention_mask_style=cfg.attention_mask_style, dtype=dtype, remat=cfg.remat, device=device,
+            quantize_dense=cfg.quantize_dense,
         )
         self.lastlayer = FanInInitLayer(cfg.hidsize, cfg.hidsize, layer_type="linear",
-                                        layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device)
+                                        layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device,
+                                        quantize=cfg.quantize_dense)
         self.final_ln = LayerNorm(cfg.hidsize, device=device)
 
     def conv3d_front(self, x: torch.Tensor):

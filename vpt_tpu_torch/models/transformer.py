@@ -11,6 +11,9 @@ step of the linear cache.  The t=1 ring step stays plain PyTorch, as the JAX
 one stays plain XLA.  Unlike the JAX package's pure functions, ``ring_step``
 writes its slot into the ring tensors in place: the state passed in is
 updated, which saves a copy of the whole cache per block and step.
+
+``quantize_dense`` makes q/k/v/proj/r and the MLPs int8 ``QuantLinear``
+layers (ops/int8.py), in the chunked path and the ring step alike.
 """
 
 from __future__ import annotations
@@ -43,14 +46,14 @@ class SelfAttentionLayer(nn.Module):
 
     def __init__(self, x_size: int, heads: int, maxlen: int, init_scale: float = 1.0,
                  relattn: bool = True, use_muP_factor: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, quantize_dense: bool = False):
         super().__init__()
         s = math.sqrt(init_scale)
         self.heads = heads
         self.maxlen = maxlen
         self.relattn = relattn
         self.use_muP_factor = use_muP_factor
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, quantize=quantize_dense)
         self.q_layer = normed_dense(x_size, x_size, scale=Q_SCALE, use_bias=True, **kw)
         self.k_layer = normed_dense(x_size, x_size, scale=K_SCALE, use_bias=False, **kw)
         self.v_layer = normed_dense(x_size, x_size, scale=V_SCALE * s, use_bias=False, **kw)
@@ -140,7 +143,8 @@ class MaskedAttention(nn.Module):
 
     def __init__(self, input_size: int, memory_size: int, heads: int, timesteps: int,
                  mask_style: str = "clipped_causal", init_scale: float = 1.0,
-                 use_muP_factor: bool = True, dtype: torch.dtype = torch.float32, device=None):
+                 use_muP_factor: bool = True, dtype: torch.dtype = torch.float32, device=None,
+                 quantize_dense: bool = False):
         super().__init__()
         assert mask_style in ("none", "clipped_causal")
         self.maxlen = memory_size - timesteps
@@ -151,7 +155,7 @@ class MaskedAttention(nn.Module):
         self.mask_style = mask_style
         self.orc_block = SelfAttentionLayer(
             input_size, heads, self.maxlen, init_scale=init_scale, relattn=True,
-            use_muP_factor=use_muP_factor, dtype=dtype, device=device,
+            use_muP_factor=use_muP_factor, dtype=dtype, device=device, quantize_dense=quantize_dense,
         )
 
     def forward(self, x_bte: torch.Tensor, first_bt: torch.Tensor, state: Dict):
@@ -219,7 +223,7 @@ class ResidualRecurrentBlock(nn.Module):
                  use_pointwise_layer: bool = True, pointwise_ratio: int = 4,
                  pointwise_use_activation: bool = False, attention_heads: int = 8,
                  attention_memory_size: int = 2048, attention_mask_style: str = "clipped_causal",
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, quantize_dense: bool = False):
         super().__init__()
         if recurrence_type != "transformer":
             raise NotImplementedError(f"recurrence_type {recurrence_type!r} is not ported")
@@ -231,14 +235,15 @@ class ResidualRecurrentBlock(nn.Module):
         self.dtype = dtype
         if use_pointwise_layer:
             self.mlp0 = FanInInitLayer(hidsize, hidsize * pointwise_ratio, layer_type="linear",
-                                       init_scale=1.0, layer_norm=True, dtype=dtype, device=device)
+                                       init_scale=1.0, layer_norm=True, dtype=dtype, device=device,
+                                       quantize=quantize_dense)
             self.mlp1 = FanInInitLayer(hidsize * pointwise_ratio, hidsize, layer_type="linear",
                                        init_scale=s, use_activation=pointwise_use_activation,
-                                       dtype=dtype, device=device)
+                                       dtype=dtype, device=device, quantize=quantize_dense)
         self.pre_r_ln = LayerNorm(hidsize, device=device)
         self.r = MaskedAttention(hidsize, attention_memory_size, attention_heads, timesteps,
                                  mask_style=attention_mask_style, init_scale=s,
-                                 use_muP_factor=True, dtype=dtype, device=device)
+                                 use_muP_factor=True, dtype=dtype, device=device, quantize_dense=quantize_dense)
 
     def forward(self, x, first, state):
         x = self.pre_r_ln(x).to(self.dtype)

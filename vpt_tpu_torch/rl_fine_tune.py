@@ -3,12 +3,15 @@
 
     python -m vpt_tpu_torch.rl_fine_tune --in-model M.model --in-weights M.weights \\
         --out-weights OUT.weights --mock-env [--streams 8] [--updates 50] [--rollout-len 40] \\
-        [--compute-dtype bfloat16] [--aux-phase-every 0] [--eval-every 0] [--device cuda]
+        [--compute-dtype bfloat16] [--aux-phase-every 0] [--eval-every 0] \\
+        [--checkpoint-dir DIR --checkpoint-every N [--resume]] [--device cuda]
 
 ``--mock-env`` runs the whole loop on synthetic frames with a demo reward (+1
 per attack press), on machines without the Java MineRL env; without it the
-streams are ``gym.make("MineRLBasaltFindCave-v0")`` envs.  Runs on CUDA
-unless ``--device cpu`` is given.
+streams are ``gym.make("MineRLBasaltFindCave-v0")`` envs.  ``--checkpoint-dir``
+keeps snapshots (every ``--checkpoint-every`` updates, and on SIGTERM or
+SIGINT); ``--resume`` goes on from the newest one there.  Runs on CUDA unless
+``--device cpu`` is given.
 """
 
 from argparse import ArgumentParser
@@ -34,7 +37,8 @@ def auto_collect_groups(streams: int) -> int:
 def main(in_model, in_weights, out_weights, mock_env=False, streams=8, updates=50, rollout_len=40,
          learning_rate=3e-5, kl_coef=0.2, compute_dtype="bfloat16", metrics_path=None, aux_phase_every=0,
          aux_epochs=4, beta_clone=1.0, collect_groups=0, eval_every=0, eval_episodes=8, eval_streams=4,
-         eval_max_steps=500, eval_record_dir=None, device=None):
+         eval_max_steps=500, eval_record_dir=None, device=None, checkpoint_dir=None, checkpoint_every=0,
+         resume=False):
     hp = PPOHyperparams(
         rollout_len=rollout_len,
         learning_rate=learning_rate,
@@ -67,7 +71,7 @@ def main(in_model, in_weights, out_weights, mock_env=False, streams=8, updates=5
           f"({hp.n_collect_groups} collection group(s)), {updates} updates, KL anchor ρ₀={kl_coef}---")
     report = trainer.train(
         envs, updates, out_weights=out_weights, reward_fn=reward_fn, metrics=MetricsLogger(path=metrics_path),
-        eval_envs=eval_envs, eval_every=eval_every, eval_episodes=eval_episodes, eval_max_steps=eval_max_steps,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume, eval_envs=eval_envs, eval_every=eval_every, eval_episodes=eval_episodes, eval_max_steps=eval_max_steps,
         eval_record_dir=eval_record_dir,
     )
     print(f"Done: {report}")
@@ -104,6 +108,11 @@ def parse_args(argv=None):
                         help="Force-reset (truncate) eval episodes at this length.")
     parser.add_argument("--eval-record-dir", type=str, default=None,
                         help="Save an annotated POV video of each evaluation (eval-<update>.mp4) here.")
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        help="Preemption-safe checkpoints here (policy + anchor + optimizer + anneal state).")
+    parser.add_argument("--checkpoint-every", type=int, default=0,
+                        help="Updates between checkpoints (0 = only on SIGTERM/SIGINT).")
+    parser.add_argument("--resume", action="store_true", help="Continue from the newest checkpoint in --checkpoint-dir.")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
     return parser.parse_args(argv)
 
@@ -117,4 +126,5 @@ if __name__ == "__main__":
         aux_epochs=args.aux_epochs, beta_clone=args.beta_clone, collect_groups=args.collect_groups,
         eval_every=args.eval_every, eval_episodes=args.eval_episodes, eval_streams=args.eval_streams,
         eval_max_steps=args.eval_max_steps, eval_record_dir=args.eval_record_dir, device=args.device,
+        checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every, resume=args.resume,
     )

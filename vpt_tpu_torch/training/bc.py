@@ -14,29 +14,41 @@ kernel B1 forward and kernel B2 backward (ops/windowed_attention.py).
 
 Hyperparameters default to the reference's (behavioural_cloning.py:25-40).
 ``remat`` and ``cnn_scan_chunks`` (config.py) trade recompute for memory, so
-a card holds larger batches.  Not ported yet: mid-run checkpoints and resume,
-multi-process and sharded training, and QAT (``qat_dense``).
+a card holds larger batches.  ``qat_dense`` trains against the int8-rounded
+dense weights the ``quantize_dense`` serving graph will use (straight-through
+gradients into the float master weights), in the train and the eval step.
+
+Checkpoints (checkpoint/native.py): every ``hp.checkpoint_every`` steps, and
+on SIGTERM or SIGINT (after which the run stops), ``train`` writes the
+weights, the Adam state, the step count, the loader's cursor and the
+streams' recurrent state and episode ids into ``hp.checkpoint_dir``;
+``train(resume_dir=...)`` goes on from the newest one as if never stopped.
+Not ported yet: multi-process and sharded training.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import queue
+import signal
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vpt_tpu_torch.actions.mapping import CameraHierarchicalMapping
 from vpt_tpu_torch.checkpoint import load_model_parameters, load_state_dict_report, load_weights, save_weights
+from vpt_tpu_torch.checkpoint import native as native_ckpt
 from vpt_tpu_torch.config import PolicyConfig
 from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.models.heads import dict_logprob, head_specs_from_space
-from vpt_tpu_torch.models.layers import init_parameters
+from vpt_tpu_torch.models.layers import init_parameters, set_fake_quant
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
+from vpt_tpu_torch.ops.int8 import qat_mask
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.utils.metrics import MetricsLogger
 from vpt_tpu_torch.utils.profiling import compiled_flops
@@ -55,6 +67,8 @@ class BCHyperparams:
     batch_size: int = 8               # reference: behavioural_cloning.py:27
     chunk_len: int = 128              # sequence window (the reference trains T=1)
     loss_report_rate: int = 100       # reference: behavioural_cloning.py:35
+    checkpoint_every: int = 0         # steps between mid-run checkpoints (0 = off)
+    checkpoint_dir: Optional[str] = None
 
 
 def batch_to_tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -79,15 +93,26 @@ class DevicePrefetcher:
         self._stream = torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
         self._q = queue.Queue(maxsize=depth)
         self._err = None
+        self._closed = threading.Event()
+
+        def put(item):
+            while not self._closed.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
 
         def run():
             try:
                 for batch in iterator:
-                    self._q.put(self._place(batch))
+                    if self._closed.is_set():
+                        break
+                    put(self._place(batch))
             except Exception as e:  # raised on the consumer's side
                 self._err = e
             finally:
-                self._q.put(self._STOP)
+                put(self._STOP)
 
         self._thread = threading.Thread(target=run, daemon=True, name="batch-prefetch")
         self._thread.start()
@@ -102,6 +127,11 @@ class DevicePrefetcher:
                 event.record(self._stream)
         placed.update((k, v) for k, v in batch.items() if k not in placed)
         return placed, event
+
+    def close(self) -> None:
+        """Stop the thread where the consumer stops early: it takes no more
+        batches from the iterator (close the loader behind it too)."""
+        self._closed.set()
 
     def __iter__(self):
         return self
@@ -161,6 +191,63 @@ def make_optimizer(params, hp: BCHyperparams) -> ClippedAdam:
     return ClippedAdam(params, hp)
 
 
+class StopRequest:
+    """Set by SIGTERM or SIGINT while a ``stop_on_signals`` block runs."""
+
+    requested = False
+
+
+@contextlib.contextmanager
+def stop_on_signals():
+    """Within the block, SIGTERM and SIGINT only set the yielded
+    ``StopRequest``, so a training loop can checkpoint and stop (a
+    preempted job); the handlers in place before are restored after it.
+    Off the main thread, where no handler can be set, nothing changes."""
+    stop = StopRequest()
+
+    def request(signum, frame):
+        stop.requested = True
+
+    old = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            old[sig] = signal.signal(sig, request)
+        except ValueError:  # not the main thread
+            pass
+    try:
+        yield stop
+    finally:
+        for sig, handler in old.items():
+            signal.signal(sig, handler)
+
+
+class CheckpointMixin:
+    """Native checkpoints of a trainer with ``policy``, ``optimizer`` (a
+    ``ClippedAdam``) and ``step_count``."""
+
+    def save_checkpoint(self, directory: str, data_state: Optional[Dict] = None, extra: Any = None,
+                        keep: int = 3) -> str:
+        """Write ``directory/step_<step_count>``: the weights, the Adam
+        state, ``data_state`` with the step count, and ``extra``."""
+        self.init()
+        return native_ckpt.save_checkpoint(
+            directory, self.step_count, {"policy": self.policy.state_dict()},
+            opt_state=self.optimizer.adam.state_dict(),
+            data_state={**(data_state or {}), "step_count": self.step_count}, extra=extra, keep=keep)
+
+    def restore_checkpoint(self, directory: str) -> Optional[Tuple[Dict, Any]]:
+        """Load the newest checkpoint of ``directory`` into the trainer;
+        returns its (data_state, extra), or None where there is none."""
+        self.init()
+        payload, data_state = native_ckpt.restore_checkpoint(directory)
+        if payload is None:
+            return None
+        self.policy.load_state_dict(payload["variables"]["policy"], strict=True)
+        self.optimizer.adam.load_state_dict(payload["opt_state"])
+        self.step_count = int(data_state["step_count"])
+        return data_state, payload.get("extra")
+
+
 def step_flops(trainer, *step_args) -> Optional[float]:
     """FLOPs of one ``trainer.train_step(*step_args)`` (forward, backward and
     optimizer; ``utils.profiling.compiled_flops``), with the weights, the
@@ -178,13 +265,16 @@ def step_flops(trainer, *step_args) -> Optional[float]:
         trainer.step_count = steps
 
 
-class BCTrainer:
+class BCTrainer(CheckpointMixin):
     """Sequence-chunked BC fine-tuning on one device.
 
     :param device: torch device; None means CUDA, which must then exist
     :param seed: seeds the initial weights (drawn on the CPU, so every
         device starts from the same weights) and the loader's shuffle
     :param remat, cnn_scan_chunks: the config's memory options (config.py)
+    :param qat_dense: quantization-aware training for int8 serving: the
+        dense weights ``quantize_dense`` serves in int8 enter the forward
+        fake-quantized
     """
 
     def __init__(
@@ -195,6 +285,7 @@ class BCTrainer:
         compute_dtype: str = "float32",
         remat: bool = False,
         cnn_scan_chunks: int = 0,
+        qat_dense: bool = False,
         seed: int = 0,
         device=None,
     ):
@@ -205,6 +296,7 @@ class BCTrainer:
         self.temperature = float(pi_head_kwargs.get("temperature", 1.0))
         self.action_mapper = CameraHierarchicalMapping(n_camera_bins=11)
         self.head_specs = head_specs_from_space(DictType(**self.action_mapper.get_action_space_update()))
+        self.qat_dense = qat_dense
         self._seed = seed
         self.policy: Optional[MinecraftAgentPolicy] = None
         self.optimizer: Optional[ClippedAdam] = None
@@ -217,8 +309,17 @@ class BCTrainer:
             return
         policy = MinecraftAgentPolicy(self.cfg, self.head_specs, self.temperature)
         init_parameters(policy, torch.Generator().manual_seed(self._seed))
+        if self.qat_dense:
+            set_fake_quant(policy, self.qat_mask(policy))
         self.policy = policy.to(self.device)
         self.optimizer = make_optimizer(self.trainable_parameters(), self.hp)
+
+    def qat_mask(self, policy: Optional[MinecraftAgentPolicy] = None) -> Dict[str, bool]:
+        """{parameter name: True where int8 serving quantizes it}, from the
+        ``quantize_dense`` policy's own layers (ops.int8.qat_mask)."""
+        cfg = self.cfg.replace(quantize_dense=True)
+        names = [n for n, _ in (policy or self.policy).named_parameters()]
+        return qat_mask(lambda: MinecraftAgentPolicy(cfg, self.head_specs, self.temperature), names)
 
     def trainable_parameters(self) -> List[torch.nn.Parameter]:
         """Every parameter but the value head's."""
@@ -311,44 +412,66 @@ class BCTrainer:
     # -------------------------------------------------------------------- run
 
     def train(self, data_dir: str, out_weights: str, metrics: Optional[MetricsLogger] = None,
-              labels_dir: Optional[str] = None) -> int:
+              labels_dir: Optional[str] = None, resume_dir: Optional[str] = None) -> int:
         """Fine-tune over a contractor dataset directory for ``hp.epochs`` (or,
         with ``labels_dir``, over its videos with the IDM pseudo-labels kept
         there), logging every ``hp.loss_report_rate`` steps, then write the
-        weights to ``out_weights``.  Returns the number of optimizer steps
-        taken."""
+        weights to ``out_weights``.  With ``resume_dir``, go on from its
+        newest checkpoint: weights, Adam state, step count, and each stream's
+        loader cursor, recurrent state and episode id.  Returns the number
+        of optimizer steps taken in all."""
         from vpt_tpu_torch.data.loader import SequenceDataLoader
 
         hp = self.hp
         self.init()
         metrics = metrics or MetricsLogger()
-        loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.chunk_len,
-                                    n_epochs=hp.epochs, seed=self._seed,
-                                    resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]), labels_dir=labels_dir)
         state = self.initial_state(hp.batch_size)
         last_episode = np.full(hp.batch_size, -1, np.int64)
+        resume_state = None
+        restored = self.restore_checkpoint(resume_dir) if resume_dir else None
+        if restored is not None:
+            data_state, extra = restored
+            resume_state = data_state
+            last_episode = np.asarray(data_state["last_episode"], np.int64)
+            state = [{k: v.to(self.device) for k, v in blk.items()} for blk in extra["recurrent_state"]]
+        loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.chunk_len,
+                                    n_epochs=hp.epochs, seed=self._seed,
+                                    resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]), labels_dir=labels_dir,
+                                    resume_state=resume_state)
 
         def with_episode_firsts(batches):
+            # in the prefetch thread: the cursor is read per batch, so a
+            # checkpoint records what was trained, not what was read ahead
             nonlocal last_episode
             for batch in batches:
                 last_episode = inject_episode_firsts(batch, last_episode, hp.chunk_len)
                 batch["n_valid"] = int(batch["mask"].sum())
+                batch["cursor"] = {**loader.state(), "last_episode": last_episode.tolist()}
                 yield batch
 
         start = time.time()
         loss_sum, frames_seen = 0.0, 0
+        prefetcher = DevicePrefetcher(with_episode_firsts(loader), self.device)
         try:
-            for batch in DevicePrefetcher(with_episode_firsts(loader), self.device):
-                state, loss, grad_norm = self.train_step(batch, state)
-                loss_sum += float(loss)
-                frames_seen += batch["n_valid"]
-                if self.step_count % hp.loss_report_rate == 0:
-                    dt = time.time() - start
-                    metrics.log(step=self.step_count, loss=loss_sum / hp.loss_report_rate,
-                                grad_norm=float(grad_norm), frames_per_sec=frames_seen / max(dt, 1e-9),
-                                wall_time=dt)
-                    loss_sum = 0.0
+            with stop_on_signals() as stop:
+                for batch in prefetcher:
+                    state, loss, grad_norm = self.train_step(batch, state)
+                    loss_sum += float(loss)
+                    frames_seen += batch["n_valid"]
+                    if self.step_count % hp.loss_report_rate == 0:
+                        dt = time.time() - start
+                        metrics.log(step=self.step_count, loss=loss_sum / hp.loss_report_rate,
+                                    grad_norm=float(grad_norm), frames_per_sec=frames_seen / max(dt, 1e-9),
+                                    wall_time=dt)
+                        loss_sum = 0.0
+                    due = hp.checkpoint_every and self.step_count % hp.checkpoint_every == 0
+                    if hp.checkpoint_dir and (due or stop.requested):
+                        self.save_checkpoint(hp.checkpoint_dir, batch["cursor"], extra={"recurrent_state": state})
+                    if stop.requested:
+                        metrics.log(event="preempted", step=self.step_count)
+                        break
         finally:
+            prefetcher.close()
             loader.close()
         save_weights(out_weights, self.policy)
         return self.step_count

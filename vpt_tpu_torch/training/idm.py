@@ -22,8 +22,12 @@ The optimizer is BC's chain (clip → L2 → Adam, ``training.bc.ClippedAdam``)
 at BC's fine-tuning values: the VPT paper publishes no IDM schedule.  On
 CUDA the attention of every block runs kernel B1 forward and kernel B2
 backward.  ``remat`` and ``cnn_scan_chunks`` (config.py) trade recompute
-for memory.  Not ported yet: the mesh, QAT and mid-run checkpoints and
-resume.
+for memory; ``qat_dense`` trains against the int8-rounded dense weights of
+the ``quantize_dense`` labeling graph, as BC's does.  Checkpoints and
+resume are BC's (``hp.checkpoint_every``, ``hp.checkpoint_dir``,
+``train(resume_dir=...)``, a snapshot on SIGTERM or SIGINT); windows start
+from a fresh state, so the loader's cursor is all of the data state.  Not
+ported yet: the mesh.
 """
 
 from __future__ import annotations
@@ -40,10 +44,19 @@ from vpt_tpu_torch.checkpoint import load_model_parameters, load_state_dict_repo
 from vpt_tpu_torch.config import PolicyConfig
 from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.models.heads import dict_logprob, head_specs_from_space
-from vpt_tpu_torch.models.layers import init_parameters
+from vpt_tpu_torch.models.layers import init_parameters, set_fake_quant
 from vpt_tpu_torch.models.policy import InverseActionPolicy, policy_initial_state
+from vpt_tpu_torch.ops.int8 import qat_mask
 from vpt_tpu_torch.spaces import DictType
-from vpt_tpu_torch.training.bc import TRAIN_KEYS, DevicePrefetcher, batch_to_tensors, make_optimizer, step_flops
+from vpt_tpu_torch.training.bc import (
+    TRAIN_KEYS,
+    CheckpointMixin,
+    DevicePrefetcher,
+    batch_to_tensors,
+    make_optimizer,
+    step_flops,
+    stop_on_signals,
+)
 from vpt_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -57,6 +70,8 @@ class IDMHyperparams:
     batch_size: int = 8
     window: int = 128  # frames per training example, at most the config's timesteps
     loss_report_rate: int = 100
+    checkpoint_every: int = 0  # steps between mid-run checkpoints (0 = off)
+    checkpoint_dir: Optional[str] = None
 
 
 def factored_targets(buttons_joint: np.ndarray, camera_joint: np.ndarray,
@@ -70,18 +85,19 @@ def factored_targets(buttons_joint: np.ndarray, camera_joint: np.ndarray,
             "camera": fac["camera"].astype(np.int32)}     # (..., 2) bins in [0, 11)
 
 
-class IDMTrainer:
+class IDMTrainer(CheckpointMixin):
     """Window-batched IDM training on one device.
 
     :param device: torch device; None means CUDA, which must then exist
     :param seed: seeds the initial weights (drawn on the CPU, so every
         device starts from the same weights) and the loader's shuffle
     :param remat, cnn_scan_chunks: the config's memory options (config.py)
+    :param qat_dense: quantization-aware training for int8 labeling
     """
 
     def __init__(self, idm_net_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any],
                  hp: Optional[IDMHyperparams] = None, compute_dtype: str = "float32", remat: bool = False,
-                 cnn_scan_chunks: int = 0, seed: int = 0, device=None):
+                 cnn_scan_chunks: int = 0, qat_dense: bool = False, seed: int = 0, device=None):
         self.hp = hp or IDMHyperparams()
         self.device = resolve_device(device)
         self.cfg = PolicyConfig.from_kwargs(dict(idm_net_kwargs)).replace(
@@ -95,6 +111,7 @@ class IDMTrainer:
         self.action_mapper = IDMActionMapping(n_camera_bins=11)
         self.joint_mapper = CameraHierarchicalMapping(n_camera_bins=11)
         self.head_specs = head_specs_from_space(DictType(**self.action_mapper.get_action_space_update()))
+        self.qat_dense = qat_dense
         self._seed = seed
         self.policy: Optional[InverseActionPolicy] = None
         self.optimizer = None
@@ -107,8 +124,17 @@ class IDMTrainer:
             return
         policy = InverseActionPolicy(self.cfg, self.head_specs, self.temperature)
         init_parameters(policy, torch.Generator().manual_seed(self._seed))
+        if self.qat_dense:
+            set_fake_quant(policy, self.qat_mask(policy))
         self.policy = policy.to(self.device)
         self.optimizer = make_optimizer(self.policy.parameters(), self.hp)
+
+    def qat_mask(self, policy: Optional[InverseActionPolicy] = None) -> Dict[str, bool]:
+        """{parameter name: True where int8 labeling quantizes it}, from the
+        ``quantize_dense`` IDM's own layers (ops.int8.qat_mask)."""
+        cfg = self.cfg.replace(quantize_dense=True)
+        names = [n for n, _ in (policy or self.policy).named_parameters()]
+        return qat_mask(lambda: InverseActionPolicy(cfg, self.head_specs, self.temperature), names)
 
     def load_weights(self, path: str) -> Dict[str, list]:
         """Warm-start from a ``.weights`` file (the published 4x IDM, or an
@@ -213,39 +239,53 @@ class IDMTrainer:
 
     # -------------------------------------------------------------------- run
 
-    def train(self, data_dir: str, out_weights: str, metrics: Optional[MetricsLogger] = None) -> int:
+    def train(self, data_dir: str, out_weights: str, metrics: Optional[MetricsLogger] = None,
+              resume_dir: Optional[str] = None) -> int:
         """Train over a contractor-labeled dataset directory (mp4 + jsonl
         pairs, BC's layout) for ``hp.epochs``, logging every
         ``hp.loss_report_rate`` steps, then write the weights to
-        ``out_weights``.  Returns the number of optimizer steps taken."""
+        ``out_weights``.  With ``resume_dir``, go on from its newest
+        checkpoint.  Returns the number of optimizer steps taken in all."""
         from vpt_tpu_torch.data.loader import SequenceDataLoader
 
         hp = self.hp
         self.init()
         metrics = metrics or MetricsLogger()
+        restored = self.restore_checkpoint(resume_dir) if resume_dir else None
         loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.window, n_epochs=hp.epochs,
-                                    seed=self._seed, resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]))
+                                    seed=self._seed, resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]),
+                                    resume_state=None if restored is None else restored[0])
 
         def with_targets(batches):  # in the prefetch thread: the conversion overlaps the step
             for batch in batches:
                 prepared = self.prepare_batch(batch)
                 prepared["n_valid"] = int(prepared["mask"].sum())
+                prepared["cursor"] = loader.state()
                 yield prepared
 
         start = time.time()
         loss_sum, frames_seen = 0.0, 0
+        prefetcher = DevicePrefetcher(with_targets(loader), self.device)
         try:
-            for batch in DevicePrefetcher(with_targets(loader), self.device):
-                loss, grad_norm = self.train_step(batch)
-                loss_sum += float(loss)
-                frames_seen += batch["n_valid"]
-                if self.step_count % hp.loss_report_rate == 0:
-                    dt = time.time() - start
-                    metrics.log(step=self.step_count, loss=loss_sum / hp.loss_report_rate,
-                                grad_norm=float(grad_norm), frames_per_sec=frames_seen / max(dt, 1e-9),
-                                wall_time=dt)
-                    loss_sum = 0.0
+            with stop_on_signals() as stop:
+                for batch in prefetcher:
+                    loss, grad_norm = self.train_step(batch)
+                    loss_sum += float(loss)
+                    frames_seen += batch["n_valid"]
+                    if self.step_count % hp.loss_report_rate == 0:
+                        dt = time.time() - start
+                        metrics.log(step=self.step_count, loss=loss_sum / hp.loss_report_rate,
+                                    grad_norm=float(grad_norm), frames_per_sec=frames_seen / max(dt, 1e-9),
+                                    wall_time=dt)
+                        loss_sum = 0.0
+                    due = hp.checkpoint_every and self.step_count % hp.checkpoint_every == 0
+                    if hp.checkpoint_dir and (due or stop.requested):
+                        self.save_checkpoint(hp.checkpoint_dir, batch["cursor"])
+                    if stop.requested:
+                        metrics.log(event="preempted", step=self.step_count)
+                        break
         finally:
+            prefetcher.close()
             loader.close()
         save_weights(out_weights, self.policy)
         return self.step_count

@@ -27,8 +27,16 @@ module is its port to one device:
 The optimizer is the JAX package's chain, clip → optional L2 → Adam
 (``ClippedAdam`` of training/bc.py), over every parameter, the value head's
 included.  ``remat`` (and ``cnn_scan_chunks`` through ``policy_kwargs``)
-trade recompute for memory in the update and the aux phase.  Not ported yet:
-meshes and multi-process collection, checkpoints and resume.
+trade recompute for memory in the update and the aux phase.
+
+``save_checkpoint`` writes the policy, the frozen anchor, the Adam state
+(with the folded EWMA stats inside the policy's state), ``kl_coef``,
+``update_count`` and the sampling and permutation generators' states
+(checkpoint/native.py); ``resume`` restores them, so the anneal and the
+random streams go on exactly.  As in the JAX package, the env streams
+restart on resume (their recurrent state re-initialises at the next
+collect) and the PPG buffer of rollouts since the last aux phase is not
+kept.  Not ported yet: meshes and multi-process collection.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import torch
 from vpt_tpu_torch.actions import ActionTransformer
 from vpt_tpu_torch.actions.mapping import CameraHierarchicalMapping
 from vpt_tpu_torch.checkpoint import load_model_parameters, load_state_dict_report, load_weights, save_weights
+from vpt_tpu_torch.checkpoint import native as native_ckpt
 from vpt_tpu_torch.config import ACTION_TRANSFORMER_KWARGS, PolicyConfig
 from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.models.heads import (
@@ -61,7 +70,7 @@ from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_sta
 from vpt_tpu_torch.models.transformer import ring_state_to_linear
 from vpt_tpu_torch.ops.host_resize import native_resize_u8
 from vpt_tpu_torch.spaces import DictType
-from vpt_tpu_torch.training.bc import ClippedAdam
+from vpt_tpu_torch.training.bc import ClippedAdam, stop_on_signals
 from vpt_tpu_torch.utils.metrics import MetricsLogger
 
 EVAL_SEED = 1_000_003  # evaluation's sampling generator: EVAL_SEED + update_count
@@ -582,6 +591,38 @@ class PPOTrainer:
                 metrics.update(self._aux_phase())
         return metrics
 
+    # ------------------------------------------------------- checkpoint/resume
+
+    def save_checkpoint(self, directory: str, keep: int = 3) -> str:
+        """Snapshot ``directory/step_<update_count>``: everything a resumed
+        run needs to go on with the anneal and the random streams exactly."""
+        self.init()
+        return native_ckpt.save_checkpoint(
+            directory, self.update_count,
+            {"policy": self.policy.state_dict(), "anchor": self.anchor.state_dict()},
+            opt_state=self.optimizer.adam.state_dict(),
+            data_state={"kl_coef": self.kl_coef, "update_count": self.update_count},
+            rng_state={"sample": self.sample_generator.get_state(), "perm": self.perm_generator.get_state()},
+            keep=keep)
+
+    def resume(self, directory: str) -> bool:
+        """Restore the newest checkpoint of ``directory``; False where there
+        is none.  The env streams restart at the next collect."""
+        self.init()
+        payload, data_state = native_ckpt.restore_checkpoint(directory)
+        if payload is None:
+            return False
+        self.policy.load_state_dict(payload["variables"]["policy"], strict=True)
+        self.anchor.load_state_dict(payload["variables"]["anchor"], strict=True)
+        self.optimizer.adam.load_state_dict(payload["opt_state"])
+        self.sample_generator.set_state(payload["rng_state"]["sample"])
+        self.perm_generator.set_state(payload["rng_state"]["perm"])
+        self.kl_coef = float(data_state["kl_coef"])
+        self.update_count = int(data_state["update_count"])
+        self._group_states = None
+        self._aux_buffer = []
+        return True
+
     # ------------------------------------------------------------------- run
 
     def train(
@@ -591,6 +632,9 @@ class PPOTrainer:
         out_weights: Optional[str] = None,
         reward_fn: Optional[Callable] = None,
         metrics: Optional[MetricsLogger] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
+        resume: bool = False,
         eval_envs: Optional[List] = None,
         eval_every: int = 0,
         eval_episodes: int = 8,
@@ -604,8 +648,14 @@ class PPOTrainer:
         With ``eval_envs`` and ``eval_every`` > 0, rolls the current policy
         over those dedicated envs (never the training streams) before the
         first update and after every ``eval_every``-th, logging the
-        :meth:`evaluate` report's summary as an ``event="eval"`` line."""
+        :meth:`evaluate` report's summary as an ``event="eval"`` line.
+
+        With ``checkpoint_dir``, snapshots every ``checkpoint_every``
+        updates and on SIGTERM or SIGINT (then stops); ``resume=True`` goes
+        on from the newest snapshot there."""
         self.init()
+        if resume and checkpoint_dir:
+            self.resume(checkpoint_dir)
         metrics = metrics or MetricsLogger()
         obs, firsts = None, None
         start = time.time()
@@ -627,14 +677,21 @@ class PPOTrainer:
         do_eval = bool(eval_envs) and eval_every > 0
         if do_eval and self.update_count == 0:
             run_eval()  # the baseline the later evaluations read against
-        while self.update_count < n_updates:
-            traj, obs, firsts = self.collect(envs, obs, firsts, reward_fn=reward_fn)
-            report = self.update(traj)
-            frames += traj["frames"].shape[0] * traj["frames"].shape[1]
-            metrics.log(update=self.update_count - 1, frames_per_sec=frames / max(time.time() - start, 1e-9),
-                        **report)
-            if do_eval and self.update_count % eval_every == 0:
-                report["eval_mean_return"] = run_eval()["mean_return"]
+        with stop_on_signals() as stop:
+            while self.update_count < n_updates:
+                traj, obs, firsts = self.collect(envs, obs, firsts, reward_fn=reward_fn)
+                report = self.update(traj)
+                frames += traj["frames"].shape[0] * traj["frames"].shape[1]
+                metrics.log(update=self.update_count - 1, frames_per_sec=frames / max(time.time() - start, 1e-9),
+                            **report)
+                if do_eval and self.update_count % eval_every == 0:
+                    report["eval_mean_return"] = run_eval()["mean_return"]
+                due = checkpoint_every and self.update_count % checkpoint_every == 0
+                if checkpoint_dir and (due or stop.requested):
+                    self.save_checkpoint(checkpoint_dir)
+                if stop.requested:
+                    metrics.log(event="preempted", update=self.update_count)
+                    break
         if out_weights:
             save_weights(out_weights, self.policy)
         return report
