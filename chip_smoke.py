@@ -116,13 +116,43 @@ Phases, each of which fails the run if it fails:
      CPU, then one step with B1 and B2 once per block;
  12. resume at full width: BC (2x, B=4, T=128, the recurrent state carried),
      IDM (4x, 8(a)'s size) and PPO (2x, 9(a)'s 2 streams x 16 steps, 2
-     epochs of 2 minibatches, each update's env streams fresh): two
-     uninterrupted 3-step runs from the same state give the card's spread;
-     2 steps, a save through checkpoint/native.py, a restore into a fresh
-     trainer of another seed and step 3 there must come within twice that
-     spread of the first run (exactly where it is 0), in loss and in every
-     parameter; the checkpoint's bytes and the save and restore seconds;
-     B1 and B2 launched as a step of that trainer launches them.
+     epochs of 2 minibatches, each update's env streams fresh), with
+     torch's deterministic algorithms on: 2 steps, a save through
+     checkpoint/native.py; 4 uninterrupted step 3s from the saved state must
+     agree bit for bit (the step is deterministic), and a restore into a
+     fresh trainer of another seed and step 3 there must equal them bit for
+     bit, in loss and in every parameter; the checkpoint's bytes and the
+     save and restore seconds;
+     B1 and B2 launched as a step of that trainer launches them;
+ 13. the reference API and the model variants at the 2x policy's widths
+     (random weights from seed 0, float32):
+     (a) on a (4, 128) chunk heads_from_recurrent(recurrent_layer(embed))
+     equals forward, B1 once per block; over 64 steps at 8 streams on the
+     linear state get_output_for_observation and v equal the stepped
+     forward's pd and value, B1 once per block and call (one query row,
+     129 keys); get_logprob_of_action and get_kl_of_action_dists on the card
+     against the CPU; B1 at t=1, T=129 against its plain version, timed;
+     (b) strided attention (stride 2 with maxlen 128, stride 4 with maxlen
+     64) at the 2x chunk's attention shape, in float32 and bfloat16: B1 and
+     B2 against the plain forward and backward, strided_attention's autograd
+     launching each once; the first case's times beside the clipped-causal
+     mask's (no bias), the bounds over the pairs each mask lets attend;
+     (c) multi_layer_lstm, multi_layer_bilstm and multi_masked_lstm: a (4,
+     128) chunked forward on the card against the CPU's recurrence and heads
+     on the card's CNN output; stepwise = chunkwise (the masked LSTM with
+     resets anywhere, the plain one with resets at the chunk start; a
+     reversed block sees the future, so not the bilstm); 7(a)'s train step
+     card against CPU; three steps at B=4, T=128 (ms, peak); MineRLAgent
+     serving 8 streams x 64 steps through the native pool beside the
+     transformer's;
+     (d) recurrence_type "none" and batch norm: a forward and 7(a)'s train
+     step on the card against the CPU, the batch-norm statistics (drawn away
+     from 0 and 1) bit for bit the same after the step; a DictActionHead of
+     a gaussian and a categorical head on a 2048-wide (4, 128) latent: its
+     log-probabilities, entropy, KL and a deterministic sample on the card
+     against the CPU;
+     (e) 9(a) with multi_masked_lstm: the stepped collection against the
+     re-forward from the window-start carries, one update card against CPU.
 Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
 time them at the IDM's long-call shape and at the PPO minibatch's.  The CPU
 side of every train step held against the card (7(a), 8(a), 9(a), 11(c),
@@ -224,7 +254,7 @@ REMAT_CHUNKS = 8
 BC_REMAT_B, BC_REMAT_STEPS = 8, 3  # the JAX package's BC default batch (BCHyperparams.batch_size)
 IDM_REMAT_B, IDM_REMAT_STEPS = 8, 3  # the JAX package's IDM default batch (IDMHyperparams.batch_size)
 REMAT_LOSS_RTOL = 1e-6  # a step with remat against the same step without, on the card
-RESUME_RUNS = 4  # phase 12: uninterrupted step 3s from the saved state, whose largest pairwise gap is the spread
+RESUME_RUNS = 4  # phase 12: uninterrupted step 3s from the saved state, which must agree bit for bit
 
 
 def log(msg):
@@ -388,20 +418,28 @@ def bound(nbytes, product_flops, bias_flops, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def b1_work(q, k, v, mask, R, b_nd):
+def b1_work(q, k, v, mask, R, b_nd, pairs=None):
     """B1's least work: bytes (inputs read once, the output written once),
-    product FLOPs (QKᵀ and W·V) and bias FLOPs (n FMAs a pair on the band)."""
+    product FLOPs (QKᵀ and W·V) and bias FLOPs (n FMAs a pair on the band).
+    The products span every (query, key) pair of every head, or `pairs`
+    where given (the pairs a sparse mask lets attend)."""
     B, H, t, d = q.shape
     T = k.shape[2]
     tensors = [q, k, v, q] + [x for x in (mask, R, b_nd) if x is not None]  # q twice: the output
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
     bias = 2 * B * H * band_pairs(t, T, b_nd.shape[1]) * R.shape[-1] if R is not None else 0
-    return nbytes, 2 * 2 * B * H * t * T * d, bias
+    return nbytes, 2 * 2 * (B * H * t * T if pairs is None else pairs) * d, bias
 
 
-def b1_bound(q, k, v, mask, R, b_nd):
-    nbytes, products, bias = b1_work(q, k, v, mask, R, b_nd)
+def b1_bound(q, k, v, mask, R, b_nd, pairs=None):
+    nbytes, products, bias = b1_work(q, k, v, mask, R, b_nd, pairs)
     return bound(nbytes, products, bias, q.dtype) + (nbytes, products + bias)
+
+
+def attended_pairs(mask, heads):
+    """(query, key, head) triples a (B, t, T) mask lets attend: the work of
+    a function that skips what it masks."""
+    return int(mask.sum().item()) * heads
 
 
 def materialised_bias(mask, R, b_nd, T, dtype):
@@ -410,15 +448,18 @@ def materialised_bias(mask, R, b_nd, T, dtype):
     from vpt_tpu_torch.ops.attention import NEG_BIAS
     from vpt_tpu_torch.ops.rel_bias import relattn_bias
 
-    bias = relattn_bias(R, b_nd, T)
+    if R is not None:
+        bias = relattn_bias(R, b_nd, T)
+    else:
+        bias = torch.zeros((mask.shape[0], 1, mask.shape[1], T), device=mask.device)
     if mask is not None:
         bias = bias + torch.where(mask[:, None], 0.0, NEG_BIAS)
     return bias.to(dtype)
 
 
-def time_b1(q, k, v, mask, R, b_nd, label="2x chunk"):
+def time_b1(q, k, v, mask, R, b_nd, label="2x chunk", pairs=None):
     """B1's time beside its plain version's, SDPA's on a materialised bias
-    (in q's dtype) and its bound, at these inputs."""
+    (in q's dtype) and its bound (over `pairs`, b1_work), at these inputs."""
     import torch.nn.functional as F
 
     from vpt_tpu_torch.ops import windowed_attention as wa
@@ -430,7 +471,7 @@ def time_b1(q, k, v, mask, R, b_nd, label="2x chunk"):
     alpha = attention_alpha(q.shape[-1], True)
     library_ms, library_alone = cuda_time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=alpha))
-    bound_ms, bound_by, nbytes, flops = b1_bound(q, k, v, mask, R, b_nd)
+    bound_ms, bound_by, nbytes, flops = b1_bound(q, k, v, mask, R, b_nd, pairs)
     log(f"B1 {label} {str(q.dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms{timed_note(plain_alone)}, "
         f"SDPA+bias {library_ms:.4f} ms{timed_note(library_alone)}; "
         f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
@@ -723,28 +764,29 @@ def stepwise_equals_chunkwise(agent, dev, B=4, T=128):
     return launches
 
 
-def b2_work(q, k, v, mask, R, b_nd):
+def b2_work(q, k, v, mask, R, b_nd, pairs=None):
     """B2's least work: bytes (inputs q, k, v, dO, mask, R, b_nd read once
     and outputs dq, dk, dv, dR, db_nd written once), product FLOPs (five
-    t x T x d products) and bias FLOPs (on the band: the bias recompute, dR
-    and d b_nd, n FMAs a pair each)."""
+    t x T x d products, or five over `pairs` as in b1_work) and bias FLOPs
+    (on the band: the bias recompute, dR and d b_nd, n FMAs a pair each)."""
     B, H, t, d = q.shape
     T = k.shape[2]
     tensors = [q, k, v, q] + [x for x in (mask, R, b_nd) if x is not None]  # dO is q's size
     tensors += [q, k, v] + [x for x in (R, b_nd) if x is not None]  # the outputs
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
     bias = 3 * 2 * B * H * band_pairs(t, T, b_nd.shape[1]) * R.shape[-1] if R is not None else 0
-    return nbytes, 5 * 2 * B * H * t * T * d, bias
+    return nbytes, 5 * 2 * (B * H * t * T if pairs is None else pairs) * d, bias
 
 
-def b2_bound(q, k, v, mask, R, b_nd):
-    nbytes, products, bias = b2_work(q, k, v, mask, R, b_nd)
+def b2_bound(q, k, v, mask, R, b_nd, pairs=None):
+    nbytes, products, bias = b2_work(q, k, v, mask, R, b_nd, pairs)
     return bound(nbytes, products, bias, q.dtype) + (nbytes, products + bias)
 
 
-def time_b2(q, k, v, mask, R, b_nd, dO, label="2x chunk"):
+def time_b2(q, k, v, mask, R, b_nd, dO, label="2x chunk", pairs=None):
     """B2's time beside its plain version's, SDPA's forward and backward on a
-    materialised bias (in q's dtype; q, k, v grads only) and its bound."""
+    materialised bias (in q's dtype; q, k, v grads only) and its bound (over
+    `pairs`, b2_work)."""
     import torch.nn.functional as F
 
     from vpt_tpu_torch.ops import windowed_attention as wa
@@ -761,7 +803,7 @@ def time_b2(q, k, v, mask, R, b_nd, dO, label="2x chunk"):
         return torch.autograd.grad(out, (ql, kl, vl), dO)
 
     library_ms, library_alone = cuda_time_ms(sdpa_fwd_bwd)
-    bound_ms, bound_by, nbytes, flops = b2_bound(q, k, v, mask, R, b_nd)
+    bound_ms, bound_by, nbytes, flops = b2_bound(q, k, v, mask, R, b_nd, pairs)
     log(f"B2 {label} {str(q.dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms{timed_note(plain_alone)}, "
         f"SDPA fwd+bwd (q, k, v grads) on a materialised bias {library_ms:.4f} ms{timed_note(library_alone)}; "
         f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
@@ -1060,18 +1102,29 @@ def step_split(trainer, batch, B, T):
         f"clip + Adam {1e3 * (t3 - t2):.1f} ms")
 
 
-def train_card_vs_cpu(dev, label="train_step", **trainer_kw):
-    """Phase 7(a) (and 11(c) with qat_dense): one 2x train_step on the card
-    and on the CPU from the same weights and batch, the CPU replaying the
-    card's dense ReLU decisions; returns the card's trainer."""
+def bc_trainer_pair(dev, policy_kwargs=None, **trainer_kw):
+    """A BCTrainer on the CPU (its weights drawn from seed 0 there, as every
+    trainer draws them) and its twin on the card: a copy of its policy and an
+    optimizer of its own; the 2x policy unless `policy_kwargs` says other."""
     from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
-    from vpt_tpu_torch.training.bc import BCTrainer
+    from vpt_tpu_torch.training.bc import BCTrainer, make_optimizer
 
-    t0 = time.perf_counter()
-    gpu = BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=0, device=dev, **trainer_kw)
-    cpu = BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=0, device="cpu", **trainer_kw)
-    gpu.init()
+    policy_kwargs = policy_kwargs or FOUNDATION_POLICY_KWARGS
+    cpu = BCTrainer(policy_kwargs, FOUNDATION_PI_HEAD_KWARGS, seed=0, device="cpu", **trainer_kw)
     cpu.init()
+    gpu = BCTrainer(policy_kwargs, FOUNDATION_PI_HEAD_KWARGS, seed=0, device=dev, **trainer_kw)
+    gpu.policy = copy.deepcopy(cpu.policy).to(dev)
+    gpu.optimizer = make_optimizer(gpu.trainable_parameters(), gpu.hp)
+    return gpu, cpu
+
+
+def train_card_vs_cpu(dev, label="train_step", pair=None, **trainer_kw):
+    """Phase 7(a) (and 11(c) with qat_dense, 13(c) and 13(d) on the model
+    variants' `pair` of bc_trainer_pair): one 2x train_step on the card and
+    on the CPU from the same weights and batch, the CPU replaying the card's
+    dense ReLU decisions; returns the card's trainer and the CPU's."""
+    t0 = time.perf_counter()
+    gpu, cpu = pair or bc_trainer_pair(dev, **trainer_kw)
     log(f"2x BCTrainer on the card and on the CPU built in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in gpu.policy.parameters())} parameters, "
         f"{sum(p.numel() for p in gpu.trainable_parameters())} trained)")
@@ -1103,7 +1156,7 @@ def train_card_vs_cpu(dev, label="train_step", **trainer_kw):
         raise AssertionError("the train step on the card disagrees with the CPU's")
     if not (same_tensors(value_head_copy(gpu), vh) and same_tensors(value_head_copy(cpu), vh)):
         raise AssertionError("a train step moved the value head")
-    return gpu
+    return gpu, cpu
 
 
 def train_steps(trainer, dev, B=4, T=128, steps=5, label="BC train"):
@@ -1137,7 +1190,7 @@ def train_steps(trainer, dev, B=4, T=128, steps=5, label="BC train"):
         f"{step_ms:.1f} ms/step from the second step ({B * T / step_ms * 1e3:.1f} frames/s), "
         f"first step {times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB; largest parameter change {moved:.3e}; "
         f"launches over {steps} steps: B1 {f_launches}, B2 {b_launches}")
-    n_blocks = trainer.cfg.n_recurrence_layers
+    n_blocks = trainer.cfg.n_recurrence_layers if trainer.cfg.recurrence_type == "transformer" else 0
     if not all(np.isfinite(losses)) or not moved > 0:
         raise AssertionError(f"training did not run: losses {losses}, largest change {moved}")
     if not same_tensors(value_head_copy(trainer), vh):
@@ -1147,7 +1200,7 @@ def train_steps(trainer, dev, B=4, T=128, steps=5, label="BC train"):
                              f"expected {n_blocks * steps} each")
 
     step_split(trainer, batches[0], B, T)
-    return b_launches // steps
+    return b_launches // steps, step_ms, peak_gb
 
 
 def bc_remat_vs_plain(dev):
@@ -1494,7 +1547,7 @@ def idm_train_steps(trainer, B=IDM_TRAIN_B, T=IDM_WINDOW, steps=IDM_TRAIN_STEPS)
         f"{step_ms:.1f} ms/step from the second step ({B * T / step_ms * 1e3:.1f} frames/s), first step "
         f"{times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB; largest parameter change {moved:.3e}; "
         f"launches over {steps} steps: B1 {f_launches}, B2 {b_launches}")
-    n_blocks = trainer.cfg.n_recurrence_layers
+    n_blocks = trainer.cfg.n_recurrence_layers if trainer.cfg.recurrence_type == "transformer" else 0
     if not all(np.isfinite(losses)) or not moved > 0:
         raise AssertionError(f"IDM training did not run: losses {losses}, largest change {moved}")
     if (f_launches, b_launches) != (n_blocks * steps, n_blocks * steps):
@@ -1619,7 +1672,8 @@ def captured_grads(trainer):
 def reforward_errors(trainer, groups):
     """Phase 9(a): collect twice (the second window from carried state) with
     `groups` collection groups, then re-forward the window as one chunk from
-    its snapshot; the max-abs gaps to the stepped logp_old and values."""
+    its snapshot; the max-abs gaps to the stepped logp_old and values, and
+    the window's episode resets after its first step."""
     from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
     from vpt_tpu_torch.models.heads import dict_logprob
 
@@ -1634,7 +1688,7 @@ def reforward_errors(trainer, groups):
         actions = {k: torch.from_numpy(traj[k]).to(dev)[..., None] for k in ("buttons", "camera")}
         logp = dict_logprob(out["pi_logits"], actions, trainer.head_specs).cpu().numpy()
     return (float(np.abs(logp - traj["logp_old"]).max()),
-            float(np.abs(out["vpred"][..., 0].cpu().numpy() - traj["values"]).max()))
+            float(np.abs(out["vpred"][..., 0].cpu().numpy() - traj["values"]).max()), int(traj["firsts"][:, 1:].sum()))
 
 
 def ppo_state(trainer):
@@ -1655,11 +1709,11 @@ def ppo_load(trainer, s):
     trainer._aux_buffer = list(s["aux_buffer"])
 
 
-def ppo_card_vs_cpu(dev):
-    """Phase 9(a): a trajectory collected on the card, then one update and one
-    PPG aux phase (one aux step) on the card and on the CPU from the same
-    weights and anchor; and the collection's snapshot re-forward at G = 1
-    and 2.
+def ppo_card_vs_cpu(dev, policy_kwargs=None, label="2x"):
+    """Phase 9(a) (and 13(e) with a variant's `policy_kwargs`): a trajectory
+    collected on the card, then one update and one PPG aux phase (one aux
+    step) on the card and on the CPU from the same weights and anchor; and
+    the collection's snapshot re-forward at G = 1 and 2.
 
     Three settings, the same on both sides, keep the compared numbers off
     rounding noise: the anchor's action-head weights are scaled by 100 (the
@@ -1676,39 +1730,47 @@ def ppo_card_vs_cpu(dev):
     from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
     from vpt_tpu_torch.models import transformer
     from vpt_tpu_torch.models.heads import dict_logprob
+    from vpt_tpu_torch.models.transformer import map_state
     from vpt_tpu_torch.ops import windowed_attention as wa
+    from vpt_tpu_torch.training.bc import ClippedAdam
     from vpt_tpu_torch.training.rl import PPOHyperparams, PPOTrainer
 
     def make(device):
         hp = PPOHyperparams(rollout_len=PPO_CHECK_STEPS, n_epochs=1, n_minibatches=1, aux_phase_every=1000,
                             aux_epochs=1, normalize_advantages=False)
-        trainer = PPOTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, hp=hp, seed=0, device=device)
-        trainer.init()
-        with torch.no_grad():
-            for head in trainer.anchor.pi_head.children():
-                head.linear_layer.weight.mul_(100.0)
-        return trainer
+        return PPOTrainer(policy_kwargs or FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, hp=hp, seed=0,
+                          device=device)
 
     t0 = time.perf_counter()
-    gpu, cpu = make(dev), make("cpu")
-    log(f"2x PPOTrainer on the card and on the CPU built in {time.perf_counter() - t0:.1f} s")
+    cpu = make("cpu")
+    cpu.init()
+    with torch.no_grad():
+        for head in cpu.anchor.pi_head.children():
+            head.linear_layer.weight.mul_(100.0)
+    gpu = make(dev)  # the CPU trainer's twin: its weights and anchor copied, not drawn again
+    gpu.policy, gpu.anchor = copy.deepcopy(cpu.policy).to(dev), copy.deepcopy(cpu.anchor).to(dev)
+    gpu.optimizer = ClippedAdam(gpu.policy.parameters(), gpu.hp)
+    log(f"{label} PPOTrainer on the card and on the CPU built in {time.perf_counter() - t0:.1f} s")
     if not (same_tensors(gpu.policy.state_dict(), cpu.policy.state_dict())
             and same_tensors(gpu.anchor.state_dict(), cpu.anchor.state_dict())):
         raise AssertionError("the card's and the CPU's PPO trainers start from different weights or anchors")
 
     errs = {g: reforward_errors(gpu, g) for g in (1, 2)}
-    log("PPO collection (2x, f32, 2 streams x 16 steps, two windows): stepped logp_old / values against the "
+    log(f"PPO collection ({label}, f32, 2 streams x 16 steps, two windows): stepped logp_old / values against the "
         "chunked re-forward from the window-start snapshot, max_abs_err "
-        + ", ".join(f"G={g}: {a:.3e} / {b:.3e}" for g, (a, b) in errs.items()) + f" (tol {STEP_TOL})")
-    if not all(e <= STEP_TOL for pair in errs.values() for e in pair):
+        + ", ".join(f"G={g}: {a:.3e} / {b:.3e} ({n} resets inside the window)" for g, (a, b, n) in errs.items())
+        + f" (tol {STEP_TOL})")
+    if not all(e <= STEP_TOL for a, b, _ in errs.values() for e in (a, b)):
         raise AssertionError(f"the stepped collection disagrees with the snapshot re-forward: {errs}")
+    if not any(n for _, _, n in errs.values()):
+        raise AssertionError("no episode reset inside a re-forwarded window")
 
     gpu.hp.n_collect_groups = 1
     envs = [MockMinecraftEnv(seed=i, done_prob=0.1) for i in range(PPO_CHECK_STREAMS)]
     traj, _, _ = gpu.collect(envs, reward_fn=attack_reward)
     traj["logp_old"] = traj["logp_old"] + 0.3 * np.random.default_rng(5).standard_normal(
         traj["logp_old"].shape).astype(np.float32)
-    traj_cpu = dict(traj, initial_state=[{k: v.cpu() for k, v in blk.items()} for blk in traj["initial_state"]])
+    traj_cpu = dict(traj, initial_state=map_state(torch.Tensor.cpu, traj["initial_state"]))
 
     # calibrations on the card, for a loss through the whole policy: the grads
     # with cuDNN's convolutions against torch's own (the CNN), and with kernels
@@ -1765,7 +1827,7 @@ def ppo_card_vs_cpu(dev):
         + m_c["kl_coef"] / hp.kl_decay * abs(m_c["anchor_kl"])
     rel["loss"] = abs(m_g["loss"] - m_c["loss"]) / terms
     rel["grad_norm"] = abs(m_g["grad_norm"] - m_c["grad_norm"]) / m_c["grad_norm"]
-    log("PPO update card vs CPU (2x, f32, 2 x 16, one PPO step, then one aux step from the same weights): "
+    log(f"PPO update card vs CPU ({label}, f32, 2 x 16, one PPO step, then one aux step from the same weights): "
         + ", ".join(f"{k} {m_g[k]:.6g} vs {m_c[k]:.6g} (rel {rel[k]:.2e})" for k in ("loss",) + keys + ("grad_norm",))
         + f" (the loss relative to the sum of its terms' sizes, {terms:.4g}); clip_frac {m_g['clip_frac']:.4f} vs "
         f"{m_c['clip_frac']:.4f}; aux_clone_kl {m_g['aux_clone_kl']:.3g} vs {m_c['aux_clone_kl']:.3g}; tol "
@@ -2258,9 +2320,10 @@ def check_int8_qat(dev, float_labeling):
     labeling forward and B1's and B2's a QAT BC and IDM step."""
     int8_serving(dev)
     per_forward = int8_labeling(dev, float_labeling)
-    trainer = train_card_vs_cpu(dev, label="QAT train_step", qat_dense=True)
+    trainer, cpu = train_card_vs_cpu(dev, label="QAT train_step", qat_dense=True)
+    del cpu
     log(f"  QAT: {sum(getattr(m, 'fake_quant', False) for m in trainer.policy.modules())} dense layers fake-quantized")
-    per_step = train_steps(trainer, dev, steps=3, label="QAT BC train")  # B1 and B2 alike, checked there
+    per_step = train_steps(trainer, dev, steps=3, label="QAT BC train")[0]  # B1 and B2 alike, checked there
     del trainer
     release_memory()
     trainer = idm_card_vs_cpu(dev, label="QAT IDM", qat_dense=True)
@@ -2310,39 +2373,57 @@ def dir_bytes(path):
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms (cuDNN's deterministic convolutions,
+    sorted scatter-adds behind gather's backward, a fixed cuBLAS workspace),
+    so that a step taken twice from one state gives the same bits; the
+    earlier setting is put back after."""
+    was, env = torch.are_deterministic_algorithms_enabled(), os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
 def resume_within_spread(label, state_of, load_state, save, fresh_restore, step3):
-    """Phase 12's protocol, on a trainer that has taken 2 steps:
-    `state_of(trainer)` is its whole state (weights, optimizer, counters,
-    generators, carried recurrent state), `load_state` puts one back.  Save
-    through `save(path)`; take step 3 RESUME_RUNS times from the saved state:
-    the largest gap between two of them (in the loss step3 returns and in
-    every parameter after it) is the card's spread, its backward not being
-    deterministic (cuDNN's algorithms, max_pool2d's atomics); restore into a
-    fresh trainer with `fresh_restore(path)`, whose state must equal the
-    saved one bit for bit; its step 3 must come within twice the spread of
-    the first uninterrupted one (exactly where the spread is 0).  Returns
-    B1's and B2's launches in the resumed step."""
-    snap = state_of(None)
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        save(tmp)
-        save_s = time.perf_counter() - t0
-        nbytes = dir_bytes(tmp)
-        runs = []
-        for _ in range(RESUME_RUNS):
-            load_state(snap)
-            runs.append(step3(None))
-        t0 = time.perf_counter()
-        fresh = fresh_restore(tmp)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-    wrong = differing(state_of(fresh), snap)
-    if wrong:
-        raise AssertionError(f"the {label} state restored into a fresh trainer differs at {wrong[:6]}")
-    reset_launch_counts()
-    loss, params = step3(fresh)
-    launches = launch_counts()
+    """Phase 12's protocol, on a trainer that has taken 2 steps, with
+    deterministic algorithms on: `state_of(trainer)` is its whole state
+    (weights, optimizer, counters, generators, carried recurrent state),
+    `load_state` puts one back.  Save through `save(path)`; take step 3
+    RESUME_RUNS times from the saved state: they must agree bit for bit (the
+    spread is 0), in the loss step3 returns and in every parameter after it;
+    restore into a fresh trainer with `fresh_restore(path)`, whose state must
+    equal the saved one bit for bit; its step 3 must equal the uninterrupted
+    ones bit for bit.  Returns B1's and B2's launches in the resumed step."""
+    with deterministic_algorithms():
+        snap = state_of(None)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(tmp)
+            save_s = time.perf_counter() - t0
+            nbytes = dir_bytes(tmp)
+            runs = []
+            for _ in range(RESUME_RUNS):
+                load_state(snap)
+                runs.append(step3(None))
+            t0 = time.perf_counter()
+            fresh = fresh_restore(tmp)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        wrong = differing(state_of(fresh), snap)
+        if wrong:
+            raise AssertionError(f"the {label} state restored into a fresh trainer differs at {wrong[:6]}")
+        reset_launch_counts()
+        loss, params = step3(fresh)
+        launches = launch_counts()
     pairs = [(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
     spread_loss = max(abs(a[0] - b[0]) for a, b in pairs)
     spread_param = max(max_param_gap(a[1], b[1]) for a, b in pairs)
@@ -2352,8 +2433,12 @@ def resume_within_spread(label, state_of, load_state, save, fresh_restore, step3
         f"loss gap {gap_loss:.3e}, largest parameter gap {gap_param:.3e}; spread of {RESUME_RUNS} uninterrupted "
         f"step 3s from the saved state: loss {spread_loss:.3e}, parameters {spread_param:.3e}; resumed step launches "
         f"B1 {launches[0]}, B2 {launches[1]}")
-    if not (gap_loss <= 2 * spread_loss and gap_param <= 2 * spread_param):
-        raise AssertionError(f"the resumed {label} run is outside the spread of uninterrupted ones")
+    if any(a[0] != runs[0][0] or differing(a[1], runs[0][1]) for a in runs[1:]):
+        raise AssertionError(f"the {label} step 3 is not deterministic: {RESUME_RUNS} runs from one state differ")
+    wrong = differing(params, runs[0][1])
+    if loss != runs[0][0] or wrong:
+        raise AssertionError(f"the resumed {label} step 3 differs from the uninterrupted ones "
+                             f"(loss gap {gap_loss:.3e}, parameters at {wrong[:6]})")
     return launches
 
 
@@ -2498,6 +2583,383 @@ def check_resume(dev):
     return out
 
 
+# ------------------------------------------------------------------- phase 13
+
+# (stride, maxlen) of strided attention at the 2x chunk's attention shape: a query's lattice reaches back 256 keys
+STRIDED_CASES = ((2, 128), (4, 64))
+API_STEPS, API_STREAMS = 64, 8  # phase 13(a)'s t=1 calls on the linear state, as phase 4's rollout
+SAME_OPS_TOL = 1e-5  # the same function by two routes on the card (split against whole forward, v against pd)
+API_FN_TOL = 1e-5  # get_logprob_of_action and get_kl_of_action_dists, card against CPU
+HEAD_TOL = 1e-4  # the dict head's functions card against CPU, times (1 + max|ref|): f32 products of 2048 terms
+NEAR_TIE = 1e-4  # a deterministic categorical sample is compared where the CPU's two best logits are this far apart
+
+
+def variant_kwargs(**kw):
+    """The 2x foundation policy's kwargs with a variant's overrides."""
+    from vpt_tpu_torch.config import FOUNDATION_POLICY_KWARGS
+
+    return dict(FOUNDATION_POLICY_KWARGS, **kw)
+
+
+def max_errors(got, expect):
+    """{name: max-abs error} of two dicts of tensors, on the CPU."""
+    return {k: (got[k].float().cpu() - expect[k].float().cpu()).abs().max().item() for k in expect}
+
+
+def policy_outputs(out):
+    return {**out["pi_logits"], "vpred": out["vpred"]}
+
+
+@torch.inference_mode()
+def api_at_full_width(dev):
+    """Phase 13(a): the reference API of the 2x policy on the card, and B1
+    at its t=1 shape; returns B1's launches a call of each path and the
+    t=1 shape's times."""
+    from vpt_tpu_torch.agent import MineRLAgent
+    from vpt_tpu_torch.models.heads import dict_sample
+    from vpt_tpu_torch.models.policy import get_kl_of_action_dists, get_logprob_of_action, policy_initial_state
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    agent = MineRLAgent(device=dev, batch_size=API_STREAMS, seed=0)
+    policy, cfg, n_blocks = agent.policy, agent.cfg, agent.cfg.n_recurrence_layers
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, T = 4, 128
+    img = torch.randint(0, 256, (B, T) + tuple(cfg.img_shape), generator=g, device=dev, dtype=torch.uint8)
+    first = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    first[:, 0] = True
+    first[1, 50] = first[3, 90] = True
+    whole, _ = policy(img, first, policy_initial_state(cfg, B, device=dev))
+    reset_launch_counts()
+    y, _ = policy.net.recurrent_layer(policy.embed(img), first, policy_initial_state(cfg, B, device=dev))
+    split = policy.heads_from_recurrent(y)
+    torch.cuda.synchronize()
+    chunk_launches = launch_counts()[0]
+    errs = max_errors(policy_outputs(split), policy_outputs(whole))
+    log(f"13(a) heads_from_recurrent(recurrent_layer(embed(img))) against forward ({B}x{T}, 2x, f32): max_abs_err "
+        f"{errs} (tol {SAME_OPS_TOL}); B1 launches {chunk_launches}")
+    if not all(e <= SAME_OPS_TOL for e in errs.values()) or chunk_launches != n_blocks:
+        raise AssertionError(f"the split forward disagrees or launched B1 {chunk_launches} times: {errs}")
+
+    state, pd, pd_prev = policy_initial_state(cfg, API_STREAMS, device=dev), None, None
+    worst, launches, steps_ms = {}, {"forward": set(), "get_output_for_observation": set(), "v": set()}, []
+    for step in range(API_STEPS):
+        obs = torch.randint(0, 256, (API_STREAMS,) + tuple(cfg.img_shape), generator=g, device=dev,
+                            dtype=torch.uint8)
+        first = torch.zeros(API_STREAMS, dtype=torch.bool, device=dev)
+        first[:] = step == 0
+        if 16 <= step < 16 + API_STREAMS:
+            first[step - 16] = True
+        reset_launch_counts()
+        out, state_next = policy(obs[:, None], first[:, None], state)
+        launches["forward"].add(launch_counts()[0])
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd_prev = pd
+        pd, vpred, _ = policy.get_output_for_observation(obs, state, first)
+        torch.cuda.synchronize()
+        steps_ms.append(1e3 * (time.perf_counter() - t0))
+        launches["get_output_for_observation"].add(launch_counts()[0])
+        reset_launch_counts()
+        v = policy.v(obs, first, state)
+        launches["v"].add(launch_counts()[0])
+        errs = max_errors({**pd, "vpred": vpred, "v": v},
+                          {**{k: x[:, 0] for k, x in out["pi_logits"].items()}, "vpred": out["vpred"][:, 0, 0],
+                           "v": out["vpred"][:, 0, 0]})
+        worst = {k: max(worst.get(k, 0.0), e) for k, e in errs.items()}
+        state = state_next
+    log(f"13(a) get_output_for_observation and v against the stepped forward ({API_STREAMS} streams x {API_STEPS} "
+        f"steps, linear state, resets at steps 0 and 16-23): max_abs_err {worst} (tol {SAME_OPS_TOL}); B1 launches "
+        f"a call {launches}; get_output_for_observation {np.median(steps_ms[1:]):.2f} ms a call (median, host timing)")
+    if not all(e <= SAME_OPS_TOL for e in worst.values()) or any(l != {n_blocks} for l in launches.values()):
+        raise AssertionError(f"the t=1 reference API disagrees with the stepped forward or its launches: "
+                             f"{worst} {launches}")
+
+    action = dict_sample(pd, agent.head_specs, generator=torch.Generator(device=dev).manual_seed(3))
+    pd_c, prev_c, action_c = ({k: x.cpu() for k, x in d.items()} for d in (pd, pd_prev, action))
+    errs = {"logprob": (get_logprob_of_action(agent.head_specs, pd, action).cpu()
+                        - get_logprob_of_action(agent.head_specs, pd_c, action_c)).abs().max().item(),
+            "kl": (get_kl_of_action_dists(agent.head_specs, pd, pd_prev).cpu()
+                   - get_kl_of_action_dists(agent.head_specs, pd_c, prev_c)).abs().max().item()}
+    log(f"13(a) get_logprob_of_action and get_kl_of_action_dists card against CPU: max_abs_err {errs} "
+        f"(tol {API_FN_TOL})")
+    if not all(e <= API_FN_TOL for e in errs.values()):
+        raise AssertionError(f"the reference API's functions disagree between card and CPU: {errs}")
+    del agent
+    release_memory()
+
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):  # B1 at one query row and 129 keys, as a t=1 call gives it
+        q, k, v, mask, R, b_nd = attention_inputs(dev, API_STREAMS, 16, 1, 128, 128, dtype, 17)
+        check_b1_case(wa, q, k, v, mask, R, b_nd, "t=1 T=129")
+        times[str(dtype)[6:]] = dict(zip(TIME_KEYS, time_b1(q, k, v, mask, R, b_nd, label="t=1 step (8 streams)")))
+    return {"chunked_heads_from_recurrent": chunk_launches, "t1_get_output_for_observation": n_blocks,
+            "t1_v": n_blocks}, times
+
+
+def strided_at_chunk_shape(dev):
+    """Phase 13(b): strided attention at the 2x chunk's attention shape
+    through B1 and B2, against the plain forward and backward, with the
+    times beside the clipped-causal mask's; returns the launches of one
+    strided_attention forward and backward, and the times."""
+    from vpt_tpu_torch.ops import strided_attention as sa
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    B, H, t, T, d = 4, 16, 128, 256, 128
+    q0, k0, v0, causal, _, _ = attention_inputs(dev, B, H, t, T - t, d, torch.float32, 31)
+    dO0 = torch.randn(q0.shape, generator=torch.Generator(device=dev).manual_seed(32), device=dev)
+    times, launches = {}, set()
+    masks = [(f"stride {s} maxlen {m}", sa.strided_mask(t, T, s, m, dev)[None].expand(B, t, T).contiguous(), (s, m))
+             for s, m in STRIDED_CASES] + [("clipped-causal", causal, None)]
+    for label, mask, strided in masks:
+        pairs = attended_pairs(mask, H)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dO = (x.to(dtype) for x in (q0, k0, v0, dO0))
+            name = f"{label} {str(dtype)[6:]}"
+            if strided is not None:
+                check_b1_case(wa, q, k, v, mask, None, None, label)
+                got = wa.windowed_attention_bwd(q, k, v, mask, None, None, dO, True)
+                torch.cuda.synchronize()
+                errs = b2_errors(got, wa.windowed_attention_bwd_plain(q, k, v, mask, None, None, dO, True), dtype)
+                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                reset_launch_counts()
+                out = sa.strided_attention(*leaves, *strided, use_muP_factor=True)
+                grads = torch.autograd.grad(out, leaves, dO)
+                torch.cuda.synchronize()
+                launches.add(launch_counts())
+                plain = wa.windowed_attention_fwd_plain(*leaves, mask, None, None, True)
+                auto = b2_errors(grads, torch.autograd.grad(plain, leaves, dO), dtype)
+                fwd_err = (out.float() - plain.float()).abs().max().item()
+                log(f"B2 {name}: max_abs_err (tol) " + ", ".join(f"{n} {e:.3e} ({b:.2e})" for n, (e, b) in errs.items())
+                    + f"; strided_attention with autograd against the plain forward's: output {fwd_err:.3e}, "
+                    + ", ".join(f"{n} {e:.3e} ({b:.2e})" for n, (e, b) in auto.items()))
+                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                if not (all(e <= b for e, b in list(errs.values()) + list(auto.values())) and fwd_err <= tol):
+                    raise AssertionError(f"strided attention through B1 and B2 disagrees with the plain version: "
+                                         f"{errs} {auto} {fwd_err}")
+            if strided is not None and strided != STRIDED_CASES[0]:
+                continue  # timed: the first strided case and the clipped-causal mask
+            times[name] = {
+                "B1": dict(zip(TIME_KEYS, time_b1(q, k, v, mask, None, None, label=f"2x chunk, {label} mask",
+                                                  pairs=pairs))),
+                "B2": dict(zip(TIME_KEYS, time_b2(q, k, v, mask, None, None, dO, label=f"2x chunk, {label} mask",
+                                                  pairs=pairs))),
+                "attended_pairs": pairs}
+    log(f"13(b) strided_attention launches (B1, B2) a forward and backward: {launches}; bounds over the attended "
+        f"pairs: " + ", ".join(f"{label} {attended_pairs(m, H)}" for label, m, _ in masks))
+    if launches != {(1, 1)}:
+        raise AssertionError(f"strided_attention launched (B1, B2) {launches}, expected (1, 1)")
+    return {"forward": 1, "backward": 1}, times
+
+
+def variant_chunk_card_vs_cpu(gpu, cpu, dev, B=4, T=128):
+    """A (B, T) chunked forward of a variant on the card against the CPU's
+    recurrence and heads on the card's CNN output (the CNN itself is held
+    against the CPU in the train step); the card's forward time."""
+    from vpt_tpu_torch.models.policy import policy_initial_state
+
+    cfg = gpu.cfg
+    g = torch.Generator(device=dev).manual_seed(21)
+    img = torch.randint(0, 256, (B, T) + tuple(cfg.img_shape), generator=g, device=dev, dtype=torch.uint8)
+    first = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    first[:, 0] = True
+    for i in range(B):
+        first[i, (i + 1) * T // (B + 1)] = True
+    with torch.inference_mode():
+        ms = []
+        for _ in range(2):  # the first call includes cuDNN's choice of algorithms
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, state = gpu.policy(img, first, policy_initial_state(cfg, B, device=dev))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        x = gpu.policy.embed(img).cpu()
+        y, state_c = cpu.policy.net.recurrent(x, first.cpu(), policy_initial_state(cfg, B))
+        out_c = cpu.policy.heads_from_recurrent(y)
+    errs = max_errors(policy_outputs(out), policy_outputs(out_c))
+    if state is not None:
+        errs["state"] = max(e for blk, blk_c in zip(state, state_c) for e in max_errors(blk, blk_c).values())
+    log(f"13 {cfg.recurrence_type} ({B}x{T}, 2x, f32) chunked forward on the card against the CPU's recurrence and "
+        f"heads: max_abs_err {errs} (tol {STEP_TOL}); the card's forward {ms[1]:.1f} ms (first call {ms[0]:.1f})")
+    if not all(e <= STEP_TOL for e in errs.values()):
+        raise AssertionError(f"{cfg.recurrence_type}: the chunked forward disagrees with the CPU's: {errs}")
+    return ms[1]
+
+
+@torch.inference_mode()
+def variant_stepwise(policy, dev, B=4, T=128):
+    """One step at a time against the (B, T) chunk on the card: the masked
+    LSTM with resets anywhere, the plain one with resets at the chunk's
+    start only (a reset inside its chunk is ignored there, honoured by a
+    step)."""
+    from vpt_tpu_torch.models.policy import policy_initial_state
+
+    cfg = policy.cfg
+    g = torch.Generator(device=dev).manual_seed(22)
+    img = torch.randint(0, 256, (B, T) + tuple(cfg.img_shape), generator=g, device=dev, dtype=torch.uint8)
+    first = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    first[:, 0] = True
+    if cfg.recurrence_type == "multi_masked_lstm":
+        for i in range(B):
+            first[i, (i + 1) * T // (B + 1)] = True
+    chunk, _ = policy(img, first, policy_initial_state(cfg, B, device=dev))
+    state, steps = policy_initial_state(cfg, B, device=dev), []
+    for i in range(T):
+        out, state = policy(img[:, i:i + 1], first[:, i:i + 1], state)
+        steps.append(policy_outputs(out))
+    stepped = {k: torch.cat([s[k] for s in steps], dim=1) for k in steps[0]}
+    errs = max_errors(stepped, policy_outputs(chunk))
+    log(f"13 {cfg.recurrence_type} stepwise against chunkwise ({B}x{T}, f32, resets "
+        f"{'anywhere' if cfg.recurrence_type == 'multi_masked_lstm' else 'at the chunk start'}): max_abs_err {errs} "
+        f"(tol {STEP_TOL})")
+    if not all(e <= STEP_TOL for e in errs.values()):
+        raise AssertionError(f"{cfg.recurrence_type}: stepwise and chunkwise disagree: {errs}")
+
+
+def serving_rollout(dev, frames, kwargs, label):
+    """An agent of the 2x policy with `kwargs` serving API_STREAMS streams for
+    API_STEPS steps, frames through the native pool: frames/s and the device
+    step."""
+    from vpt_tpu_torch.agent import MineRLAgent
+
+    agent = MineRLAgent(device=dev, policy_kwargs=kwargs, batch_size=API_STREAMS, seed=0)
+    _, t = rollout_run(agent, frames, API_STEPS, "native")
+    log(f"13 serving {label}: {API_STREAMS} streams x {API_STEPS} steps, {t['frames_per_s']:.1f} frames/s, "
+        f"{t['ms_a_step']:.2f} ms/step; alone: host resize {t['host_prep_ms']:.2f} ms, device step + D2H "
+        f"{t['device_step_ms']:.2f} ms")
+    del agent
+    release_memory()
+    return {k: t[k] for k in ("frames_per_s", "ms_a_step", "device_step_ms")}
+
+
+def lstm_variants(dev):
+    """Phase 13(c): the three LSTM recurrences at the 2x policy's widths."""
+    from vpt_tpu_torch.models.transformer import LSTM_TYPES
+
+    rng = np.random.default_rng(13)
+    frames = [synthetic_obs(rng, API_STREAMS) for _ in range(4)]
+    serving = {"transformer": serving_rollout(dev, frames, variant_kwargs(), "transformer (phase 4's policy)")}
+    for rt in LSTM_TYPES:
+        kwargs = variant_kwargs(recurrence_type=rt)
+        gpu, cpu = bc_trainer_pair(dev, kwargs)
+        variant_chunk_card_vs_cpu(gpu, cpu, dev)
+        if rt != "multi_layer_bilstm":  # a reversed block sees the chunk's future: a step cannot
+            variant_stepwise(gpu.policy, dev)
+        train_card_vs_cpu(dev, label=f"{rt} train_step", pair=(gpu, cpu))
+        del cpu
+        launches, step_ms, peak_gb = train_steps(gpu, dev, B=4, T=128, steps=3, label=f"{rt} BC train")
+        del gpu
+        release_memory()
+        serving[rt] = serving_rollout(dev, frames, kwargs, rt)
+    return serving
+
+
+def batch_norm_stats(policy):
+    return {k: v.detach().clone() for k, v in policy.state_dict().items() if k.endswith((".norm.running_mean", ".norm.running_var"))}
+
+
+def none_and_batch_norm(dev):
+    """Phase 13(d), first: the 2x policy with recurrence_type "none" and with
+    batch norm, a forward and a BC step on the card against the CPU at phase
+    7(a)'s size; the batch-norm statistics, drawn away from (0, 1), stay bit
+    for bit through the step on both sides."""
+    from vpt_tpu_torch.models.policy import policy_initial_state
+
+    for label, kwargs in (("none", variant_kwargs(recurrence_type="none")),
+                          ("batch norm", variant_kwargs(init_norm_kwargs={"batch_norm": True}))):
+        gpu, cpu = bc_trainer_pair(dev, kwargs)
+        stats = batch_norm_stats(cpu.policy)
+        g = torch.Generator().manual_seed(23)
+        for k, v in stats.items():
+            v.copy_(torch.rand(v.shape, generator=g) * 1.5 + 0.5 if k.endswith("var")
+                    else 0.3 * torch.randn(v.shape, generator=g))
+        for t in (gpu, cpu):
+            t.policy.load_state_dict(stats, strict=False)
+        if (label == "batch norm") != bool(stats):
+            raise AssertionError(f"{label}: {len(stats)} batch-norm statistics")
+        batch = bc_batch(torch.device("cpu"), 2, 4, gpu.cfg.img_shape[0], 24, firsts_at=(None, 2))
+        with torch.inference_mode():
+            out_g, state_g = gpu.policy(batch["frames"].to(dev), batch["firsts"].to(dev),
+                                        policy_initial_state(gpu.cfg, 2, device=dev))
+            out_c, state_c = cpu.policy(batch["frames"], batch["firsts"], policy_initial_state(cpu.cfg, 2))
+        errs = max_errors(policy_outputs(out_g), policy_outputs(out_c))
+        log(f"13(d) {label} forward (2x, B=2, T=4, f32) card against CPU: max_abs_err {errs} (tol {STEP_TOL}); "
+            f"state {state_g if state_g is None else 'carried'}")
+        if not all(e <= STEP_TOL for e in errs.values()) or (label == "none") != (state_g is None):
+            raise AssertionError(f"{label}: the forward disagrees with the CPU's: {errs}")
+        train_card_vs_cpu(dev, label=f"{label} train_step", pair=(gpu, cpu))
+        moved = [k for t in (gpu, cpu) for k, v in batch_norm_stats(t.policy).items() if not torch.equal(v.cpu(), stats[k])]
+        log(f"  {len(stats)} batch-norm statistics, {len(moved)} moved by the step on the card or the CPU")
+        if moved:
+            raise AssertionError(f"a train step moved batch-norm statistics: {moved[:4]}")
+        del gpu, cpu
+        release_memory()
+
+
+@torch.no_grad()
+def gaussian_dict_head(dev):
+    """Phase 13(d), last: a DictActionHead of a 3-dimensional gaussian and a
+    121-way categorical head on a 2048-wide (4, 128) latent, card against
+    CPU: log-probabilities, entropy, KL, a deterministic sample."""
+    from vpt_tpu_torch.models import heads
+    from vpt_tpu_torch.models.layers import init_parameters
+
+    specs = (heads.HeadSpec("cont", (3,), kind="gaussian"), heads.HeadSpec("camera", (1,), 121))
+    head = init_parameters(heads.DictActionHead(2048, specs, temperature=2.0), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(25)
+    for sub in (head.cont, head.camera):  # off the near-zero init: means and logits of order 1
+        sub.linear_layer.weight.mul_(100.0)
+    head.cont.log_std.copy_(0.3 * torch.randn(3, generator=g))
+    card = copy.deepcopy(head).to(dev)
+    latent, other = (torch.randn((4, 128, 2048), generator=g) for _ in range(2))
+    pd_c, pd2_c = head(latent), head(other)
+    pd_g, pd2_g = card(latent.to(dev)), card(other.to(dev))
+    action = heads.dict_sample(pd_c, specs, generator=torch.Generator().manual_seed(26))
+    action_g = {k: v.to(dev) for k, v in action.items()}
+    values = {"logprob": (heads.dict_logprob(pd_g, action_g, specs), heads.dict_logprob(pd_c, action, specs)),
+              "entropy": (heads.dict_entropy(pd_g, specs), heads.dict_entropy(pd_c, specs)),
+              "kl": (heads.dict_kl(pd_g, pd2_g, specs), heads.dict_kl(pd_c, pd2_c, specs))}
+    det_g, det_c = heads.dict_sample(pd_g, specs, deterministic=True), heads.dict_sample(pd_c, specs, deterministic=True)
+    values["sample cont"] = (det_g["cont"], det_c["cont"])
+    errs = {k: ((a.cpu() - b).abs().max().item(), HEAD_TOL * (1 + b.abs().max().item())) for k, (a, b) in values.items()}
+    top2 = pd_c["camera"].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > NEAR_TIE
+    differ = int(((det_g["camera"].cpu() != det_c["camera"]) & clear).sum())
+    log("13(d) DictActionHead (gaussian 3 + categorical 121, 2048 wide, (4, 128)) card against CPU: max_abs_err (tol) "
+        + ", ".join(f"{k} {e:.3e} ({b:.2e})" for k, (e, b) in errs.items())
+        + f"; deterministic categorical samples differing {differ} of {int(clear.sum())} without a near tie "
+        f"({int((~clear).sum())} within {NEAR_TIE} not compared)")
+    if not all(e <= b for e, b in errs.values()) or differ:
+        raise AssertionError(f"the dict head's functions disagree between card and CPU: {errs}, {differ}")
+
+
+def check_variants(dev):
+    """Phase 13: the reference API and the model variants at the 2x policy's
+    widths; returns B1's launches and times of (a) and (b), B2's of (b)."""
+    t0 = time.perf_counter()
+    api_launches, t1_times = api_at_full_width(dev)
+    log(f"[13(a) done in {time.perf_counter() - t0:.1f} s]")
+    strided_launches, strided_times = strided_at_chunk_shape(dev)
+    release_memory()
+    log(f"[13(b) done at {time.perf_counter() - t0:.1f} s]")
+    serving = lstm_variants(dev)
+    log("13(c) serving at 8 streams, native resize: " + ", ".join(
+        f"{k} {v['frames_per_s']:.1f} frames/s (device step {v['device_step_ms']:.2f} ms)" for k, v in serving.items()))
+    log(f"[13(c) done at {time.perf_counter() - t0:.1f} s]")
+    none_and_batch_norm(dev)
+    gaussian_dict_head(dev)
+    log(f"[13(d) done at {time.perf_counter() - t0:.1f} s]")
+    trainer = ppo_card_vs_cpu(dev, variant_kwargs(recurrence_type="multi_masked_lstm"), label="2x multi_masked_lstm")
+    del trainer
+    release_memory()
+    log(f"[13(e) done at {time.perf_counter() - t0:.1f} s]")
+    b1 = {"api_launches": api_launches, "strided_launches": {"forward": strided_launches["forward"]},
+          "t1_shape": t1_times, "strided_shape": {k: v["B1"] for k, v in strided_times.items()}}
+    b2 = {"strided_launches": {"backward": strided_launches["backward"]},
+          "strided_shape": {k: v["B2"] for k, v in strided_times.items()}}
+    return b1, b2
+
+
 # --time-kernels' shapes besides the 2x chunk: (kernel, label, B, H, t, mask), all T = t + 128 <= 512
 TIMED_SHAPES = (("B1", "IDM window", IDM_WINDOW_BATCH, 32, IDM_WINDOW, False),
                 ("B2", "IDM window", IDM_TRAIN_B, 32, IDM_WINDOW, False),
@@ -2621,8 +3083,9 @@ def main():
     b2 = check_b2(dev)
     release_memory()
     phase_done("6")
-    trainer = train_card_vs_cpu(dev)
-    b2["launches"] = train_steps(trainer, dev)
+    trainer, cpu = train_card_vs_cpu(dev)
+    del cpu
+    b2["launches"] = train_steps(trainer, dev)[0]
     del trainer
     release_memory()
     trainer = bc_remat_vs_plain(dev)
@@ -2653,6 +3116,10 @@ def main():
     b1["resume_launches"] = {k: v[0] for k, v in resumed.items()}
     b2["resume_launches"] = {k: v[1] for k, v in resumed.items()}
     phase_done("12")
+    b1_variants, b2_variants = check_variants(dev)
+    b1.update(b1_variants)
+    b2.update(b2_variants)
+    phase_done("13")
 
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

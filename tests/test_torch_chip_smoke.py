@@ -247,15 +247,18 @@ def test_counted_int_mm_counts_and_restores():
 
 
 def test_resume_within_spread_holds_the_resumed_run_to_the_spread(monkeypatch):
-    """Phase 12's rule: the fresh trainer's state equals the saved one bit
-    for bit, and its step 3 comes within twice the uninterrupted step 3s'
-    spread (their largest pairwise gap), exactly where that spread is 0."""
+    """Phase 12's rule: with deterministic algorithms on, the uninterrupted
+    step 3s agree bit for bit (their spread is 0), the fresh trainer's state
+    equals the saved one bit for bit, and its step 3 equals theirs bit for
+    bit; the earlier setting comes back after."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    seen = []
 
     def check(noise, resumed_gap, restored_state=1.0):
         runs = iter(noise)
 
         def step3(fresh):
+            seen.append(torch.are_deterministic_algorithms_enabled())
             x = resumed_gap if fresh is not None else next(runs)
             return 1.0 + x, {"w": torch.tensor([x])}
 
@@ -263,14 +266,18 @@ def test_resume_within_spread_holds_the_resumed_run_to_the_spread(monkeypatch):
         return cs.resume_within_spread("toy", state_of, lambda s: None, lambda p: None, lambda p: "fresh", step3)
 
     assert cs.RESUME_RUNS == 4
+    was = torch.are_deterministic_algorithms_enabled()
     assert check([0.0] * 4, 0.0) == (0, 0)
-    assert check([0.0, 1e-3, 2e-4, 5e-4], 1.5e-3) == (0, 0)  # the spread is the largest pairwise gap
-    with pytest.raises(AssertionError, match="outside the spread"):
+    assert seen == [True] * 5 and torch.are_deterministic_algorithms_enabled() == was
+    with pytest.raises(AssertionError, match="not deterministic"):
+        check([0.0, 1e-3, 2e-4, 5e-4], 1.5e-3)
+    with pytest.raises(AssertionError, match="not deterministic"):
+        check([0.0, 0.0, 0.0, 1e-9], 0.0)
+    with pytest.raises(AssertionError, match="differs from the uninterrupted"):
         check([0.0] * 4, 1e-7)
-    with pytest.raises(AssertionError, match="outside the spread"):
-        check([0.0, 1e-3, 0.0, 1e-3], 3e-3)
     with pytest.raises(AssertionError, match="differs at"):
         check([0.0] * 4, 0.0, restored_state=2.0)
+    assert torch.are_deterministic_algorithms_enabled() == was
 
 
 def test_trainer_state_and_load_put_a_trainer_back():
@@ -332,3 +339,50 @@ def test_relu_decisions_replay_the_recorded_side():
     with pytest.raises(AssertionError, match="fewer dense ReLUs"):
         with relus.replay(b.policy):
             pass
+
+
+# ------------------------------------------------------------------ phase 13
+
+def test_strided_bounds_count_the_attended_pairs():
+    """Phase 13(b) prices strided attention over the pairs its mask lets
+    attend: stride 2, maxlen 128 at t=128, T=256 leaves query i the keys of
+    its own phase back to offset min(254, 128 + i)."""
+    from vpt_tpu_torch.ops.strided_attention import strided_mask
+
+    mask = strided_mask(t, T, 2, 128)[None].expand(B, t, T)
+    per_query = [min(128, (128 + i) // 2 + 1) for i in range(t)]
+    pairs = cs.attended_pairs(mask, H)
+    assert pairs == B * H * sum(per_query)
+    q, k, v, _, _, _ = _inputs(torch.float32)
+    nbytes, products, bias = cs.b1_work(q, k, v, mask, None, None, pairs)
+    assert products == 2 * 2 * pairs * d and bias == 0
+    assert cs.b2_work(q, k, v, mask, None, None, pairs)[1] == 5 * 2 * pairs * d
+    assert cs.b1_work(q, k, v, mask, None, None)[1] == 2 * 2 * B * H * t * T * d  # dense where no pairs are given
+    assert cs.attended_pairs(strided_mask(t, T, 4, 64)[None].expand(B, t, T), H) < pairs
+
+
+def test_materialised_bias_without_relative_bias_is_the_mask():
+    mask = torch.rand((2, 3, 5), generator=torch.Generator().manual_seed(0)) < 0.5
+    bias = cs.materialised_bias(mask, None, None, 5, torch.float32)
+    assert bias.shape == (2, 1, 3, 5)
+    assert torch.equal(bias[:, 0] == 0, mask) and torch.all(bias[:, 0][~mask] == -1e9)
+
+
+def test_phase_13_helpers():
+    from vpt_tpu_torch.config import FOUNDATION_POLICY_KWARGS
+
+    kw = cs.variant_kwargs(recurrence_type="multi_masked_lstm")
+    assert kw["recurrence_type"] == "multi_masked_lstm" and kw["hidsize"] == FOUNDATION_POLICY_KWARGS["hidsize"]
+    assert FOUNDATION_POLICY_KWARGS["recurrence_type"] == "transformer"
+    errs = cs.max_errors({"a": torch.tensor([1.0, 2.5])}, {"a": torch.tensor([1.0, 2.0])})
+    assert errs == {"a": 0.5}
+    out = {"pi_logits": {"buttons": torch.zeros(1)}, "vpred": torch.ones(1), "vpred_raw": torch.ones(1)}
+    assert sorted(cs.policy_outputs(out)) == ["buttons", "vpred"]
+    policy = torch.nn.Module()
+    policy.conv = torch.nn.Module()
+    policy.conv.norm = torch.nn.Module()
+    policy.conv.norm.register_buffer("running_mean", torch.zeros(2))
+    policy.conv.norm.register_buffer("running_var", torch.ones(2))
+    policy.normalizer = torch.nn.Module()
+    policy.normalizer.register_buffer("running_mean", torch.zeros(1))  # the value head's EWMA, not batch norm
+    assert sorted(cs.batch_norm_stats(policy)) == ["conv.norm.running_mean", "conv.norm.running_var"]

@@ -1,12 +1,17 @@
 """The PyTorch port stands alone: importing every vpt_tpu_torch module loads
-neither JAX nor the JAX package, and the entry points refuse to run without
-CUDA unless the caller asks for the CPU.  Run in fresh interpreters, since
-this test process has both packages loaded."""
+neither JAX nor the JAX package, no file of the port or chip_smoke.py names
+a path inside the JAX package (its own C++ sources included), and the entry
+points refuse to run without CUDA unless the caller asks for the CPU.  The
+imports run in fresh interpreters, since this test process has both
+packages loaded."""
 
+import ast
 import os
 import pkgutil
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import vpt_tpu_torch
 
@@ -34,6 +39,7 @@ def test_every_module_imports_without_jax_or_vpt_tpu():
             "vpt_tpu_torch.tools.profile_ops"} <= set(names)
     assert {"vpt_tpu_torch.ops.int8", "vpt_tpu_torch.checkpoint.native",
             "vpt_tpu_torch.checkpoint.averaging"} <= set(names)
+    assert {"vpt_tpu_torch.ops.strided_attention", "vpt_tpu_torch.utils.minecraft"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"
@@ -66,3 +72,50 @@ def test_default_device_raises_without_cuda():
     res = _run(code, CUDA_VISIBLE_DEVICES="")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "raised"
+
+
+# a path component naming the JAX package's directory: "vpt_tpu" alone, or
+# followed or preceded by a path separator
+_JAX_PATH = re.compile(r"(^|[/\\])vpt_tpu($|[/\\])")
+# a "file:line" label of a TPU kernel (chip_smoke.py's "replaces" entries) names code, it opens nothing
+_KERNEL_LABEL = re.compile(r"^vpt_tpu/[\w/]+\.py:\d+$")
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                yield body[0].value
+
+
+def _jax_paths_in_python(path: Path):
+    """String constants of a Python file, docstrings and comments aside,
+    that name a path inside vpt_tpu/."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node) for node in _docstrings(tree)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs
+            and _JAX_PATH.search(node.value) and not _KERNEL_LABEL.match(node.value)]
+
+
+def _jax_paths_in_source(path: Path):
+    """#include lines of a C++/CUDA source that name a file inside vpt_tpu/."""
+    return [line for line in path.read_text().splitlines()
+            if line.lstrip().startswith("#include") and _JAX_PATH.search(line.split("include", 1)[1].strip(' "<>'))]
+
+
+def test_no_file_of_the_port_names_a_path_inside_vpt_tpu():
+    root = Path(REPO)
+    files = sorted((root / "vpt_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    sources = [p for ext in ("*.cu", "*.cuh", "*.cpp", "*.h") for p in (root / "vpt_tpu_torch").rglob(ext)]
+    assert len(files) > 40 and {p.name for p in sources} >= {"vpt_host.cpp", "host_resize.cpp"}
+    found = {str(p.relative_to(root)): hits for p in files if (hits := _jax_paths_in_python(p))}
+    found.update({str(p.relative_to(root)): hits for p in sources if (hits := _jax_paths_in_source(p))})
+    assert found == {}, found
+    # the check finds what it looks for: the path the video binding once built from
+    probe = root / "vpt_tpu_torch" / "data" / "video.py"
+    assert _jax_paths_in_python(probe) == []
+    bad = ast.parse('SOURCE = PACKAGE.parent / "vpt_tpu" / "native" / "vpt_host.cpp"\n"""doc: vpt_tpu/x.py"""')
+    assert [n.value for n in ast.walk(bad) if isinstance(n, ast.Constant) and _JAX_PATH.search(n.value)
+            and id(n) not in {id(d) for d in _docstrings(bad)}] == ["vpt_tpu"]

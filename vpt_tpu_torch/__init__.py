@@ -9,8 +9,8 @@ written by hand for ``sm_90a`` (sources in ``csrc/``, built at first use into
   actions/    camera quantizer, action transformer, hierarchical mapping,
               device-side action decode
   models/     policy graph as nn.Modules (reference torch state_dict names)
-  ops/        masks, relative bias, attention (plain + CUDA kernel), resize,
-              int8 dense layers and QAT
+  ops/        masks, relative bias, attention (plain + CUDA kernel), strided
+              attention, resize, int8 dense layers and QAT
   checkpoint/ reference .model/.weights I/O, JAX variable import, native
               checkpoints (train state and data cursor), weight averaging
   agent/      MineRLAgent, IDMAgent

@@ -82,8 +82,10 @@ class MineRLAgent:
     :param batch_size: number of parallel env streams
     :param seed: seeds the random initial weights and the sampling generator
     :param compute_dtype: "float32" or "bfloat16"
-    :param ring_cache: step on the rotating head-split cache (one slot
-        written per step) instead of the linear cache
+    :param ring_cache: step a transformer policy on the rotating head-split
+        cache (one slot written per step) instead of the linear cache;
+        ignored for a ``none`` or LSTM policy, whose state is None or the
+        ``{h, c}`` carries
     :param resize_on_device: send the raw env frames to the device and
         resize them inside the step (float bilinear, at most 1 intensity
         step from the cv2-exact host path), for a host that cannot keep up
@@ -180,6 +182,24 @@ class MineRLAgent:
         else:
             frames = [native_resize_u8(o["pov"], self._resolution) for o in povs]
         return np.stack(frames)[:, None]
+
+    def _agent_action_to_env(self, agent_action) -> Dict[str, np.ndarray]:
+        """Joint-space action arrays {"buttons", "camera"} → the env's action
+        dict (reference: agent.py:141-164)."""
+        action = {"buttons": np.asarray(agent_action["buttons"]), "camera": np.asarray(agent_action["camera"])}
+        return self.action_transformer.policy2env(self.action_mapper.to_factored(action))
+
+    def _env_action_to_agent(self, minerl_action_transformed, check_if_null: bool = False):
+        """Env action → joint-space action arrays (reference: agent.py:166-188);
+        None for a null action (no button, camera at its zero bin) where
+        ``check_if_null``."""
+        minerl_action = self.action_transformer.env2policy(minerl_action_transformed)
+        if check_if_null and np.all(minerl_action["buttons"] == 0) and np.all(
+                minerl_action["camera"] == self.action_transformer.camera_zero_bin()):
+            return None
+        if minerl_action["camera"].ndim == 1:
+            minerl_action = {k: v[None] for k, v in minerl_action.items()}
+        return self.action_mapper.from_factored(minerl_action)
 
     @torch.inference_mode()
     def _step(self, img: np.ndarray, first: np.ndarray, stochastic: bool, state):

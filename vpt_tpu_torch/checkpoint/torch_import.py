@@ -16,7 +16,14 @@ Conv2d (kh,kw,I,O)→(O,I,kh,kw), Conv3d (kt,kh,kw,I,O)→(O,I,kt,kh,kw),
 norm ``scale``→``weight``, ``blocks_0``→``blocks.0``, and the EWMA stats
 under ``normalizer``.  A quantized tree (``vpt_tpu.ops.int8``) crosses too:
 ``kernel_q8`` (in, out) int8 → ``weight_q8`` (out, in) int8 and
-``kernel_scale`` → ``weight_scale``.
+``kernel_scale`` → ``weight_scale``.  So do the model variants: a flax
+``OptimizedLSTMCell``'s per-gate kernels ``ii, if, ig, io`` (no bias) and
+``hi, hf, hg, ho`` (with biases) become ``torch.nn.LSTM``'s ``weight_ih_l0``
+(their (in, out) kernels concatenated in gate order i, f, g, o, then
+transposed), ``weight_hh_l0``, ``bias_hh_l0`` and a zero ``bias_ih_l0``;
+batch norm's ``batch_stats`` ``mean``/``var`` become ``running_mean``/
+``running_var``; the gaussian head's ``linear_layer`` and ``log_std`` keep
+their names.
 """
 
 from __future__ import annotations
@@ -130,18 +137,42 @@ def torch_key(segs: Tuple[str, ...], collection: str = "params") -> str:
     return ".".join(body + [_LEAF_NAMES.get(leaf, leaf)])
 
 
+_LSTM_GATES = ("i", "f", "g", "o")  # flax's and torch's gate order
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _lstm_state_dict(prefix: str, gates: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
+    """One flax LSTM cell's gate Dense layers → ``torch.nn.LSTM`` names."""
+    def cat(kind, leaf):
+        return np.concatenate([np.asarray(gates[kind + g][leaf], np.float32) for g in _LSTM_GATES], axis=-1)
+
+    w_hh = cat("h", "kernel").T
+    tensors = {"weight_ih_l0": cat("i", "kernel").T, "weight_hh_l0": w_hh,
+               "bias_ih_l0": np.zeros(w_hh.shape[0], np.float32), "bias_hh_l0": cat("h", "bias")}
+    return {f"{prefix}.{k}": torch.from_numpy(np.ascontiguousarray(v)) for k, v in tensors.items()}
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """A ``vpt_tpu`` variable tree ``{"params": ..., "stats": ...}`` of numpy
-    arrays → a torch-layout state_dict of CPU tensors (float32, int8 codes
-    kept int8)."""
+    """A ``vpt_tpu`` variable tree ``{"params": ..., "stats": ...,
+    "batch_stats": ...}`` of numpy arrays → a torch-layout state_dict of CPU
+    tensors (float32, int8 codes kept int8)."""
     out: Dict[str, torch.Tensor] = {}
-    for collection in ("params", "stats"):
+    lstm_cells: Dict[Tuple[str, ...], Dict[str, Dict[str, np.ndarray]]] = {}
+    for collection in ("params", "stats", "batch_stats"):
         if collection not in variables:
             continue
         for segs, value in _leaves(variables[collection]):
+            gate = segs[-2] if len(segs) >= 2 else ""
+            if collection == "params" and len(gate) == 2 and gate[0] in "ih" and gate[1] in _LSTM_GATES:
+                lstm_cells.setdefault(segs[:-2], {}).setdefault(gate, {})[segs[-1]] = value
+                continue
+            if collection == "batch_stats":
+                segs = segs[:-1] + (_BATCH_STATS[segs[-1]],)
             _, arr = _torch_leaf(segs[-1], np.asarray(value))
             dtype = np.int8 if segs[-1] == "kernel_q8" else np.float32
             out[torch_key(segs, collection)] = torch.from_numpy(np.array(arr, dtype=dtype))
+    for cell, gates in lstm_cells.items():
+        out.update(_lstm_state_dict(torch_key(cell + ("weight",)).rsplit(".", 1)[0], gates))
     return out
 
 

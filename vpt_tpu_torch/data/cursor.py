@@ -1,5 +1,6 @@
-"""Mouse-cursor sprite for GUI frames (counterpart of vpt_tpu/data/cursor.py;
-the native library composites it, data/video.py).
+"""Mouse-cursor sprite for GUI frames and its alpha composite (counterpart
+of vpt_tpu/data/cursor.py; the loader's native library composites it,
+data/video.py, and ``composite_images_with_alpha`` is the numpy version).
 
 The reference composites a 16×16 RGBA cursor PNG onto frames whenever the
 GUI is open (reference data_loader.py:19, 52-56, 113-117): the recorder does
@@ -68,3 +69,16 @@ def default_cursor() -> Tuple[np.ndarray, np.ndarray]:
         if path and os.path.exists(path):
             return load_cursor_png(path)
     return _procedural_cursor()
+
+
+def composite_images_with_alpha(image1: np.ndarray, image2: np.ndarray, alpha: np.ndarray, x: int, y: int) -> None:
+    """Draw image2 over image1 at (x, y) with opacity ``alpha``, in place
+    (reference: data_loader.py:34-45).  ``alpha`` is float in [0, 1] with a
+    trailing channel axis; the blend truncates to uint8 as the reference's
+    ``astype`` does."""
+    ch = max(0, min(image1.shape[0] - y, image2.shape[0]))
+    cw = max(0, min(image1.shape[1] - x, image2.shape[1]))
+    if ch == 0 or cw == 0:
+        return
+    a = alpha[:ch, :cw]
+    image1[y:y + ch, x:x + cw, :] = (image1[y:y + ch, x:x + cw, :] * (1 - a) + image2[:ch, :cw, :] * a).astype(np.uint8)

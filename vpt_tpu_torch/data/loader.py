@@ -14,6 +14,8 @@ through ``pseudo_label_steps``; ``steps_for`` picks the step generator by the
 jsonl's format, so one corpus may mix both, and ``labels_dir`` reads the
 labels from a directory of their own.
 
+``DataLoader`` yields the reference's single-step batches (frames, env
+actions, episode ids), one sample per worker round-robin.
 ``SequenceDataLoader`` yields B parallel streams of contiguous T-step
 windows with the actions already factored into the joint categorical space.
 Each stream has one worker process that owns whole trajectories.  Workers
@@ -31,8 +33,7 @@ recurrent state, the first chunk of a resumed stream is marked first only
 where it starts its trajectory: the port's trainers restore the recurrent
 state they were trained with.
 
-Not ported yet: the single-step ``DataLoader`` and shards
-(``shard_id``/``num_shards``).
+Not ported yet: shards (``shard_id``/``num_shards``).
 """
 
 from __future__ import annotations
@@ -258,6 +259,106 @@ def _robust_put(q, item, quit_event) -> bool:
         except queue_mod.Full:
             if quit_event.is_set():
                 return False
+
+
+def _step_worker(tasks_queue, output_queue, quit_event):
+    """Emit (trajectory_id, frame, env_action) for every non-null step of
+    each task ``(trajectory_id, video_path, json_path)``."""
+    cursor = default_cursor()
+    while True:
+        task = tasks_queue.get()
+        if task is None:
+            break
+        trajectory_id, video_path, json_path = task
+        try:
+            for frame, action in trajectory_steps(video_path, json_path, cursor=cursor, quit_event=quit_event):
+                if not _robust_put(output_queue, (trajectory_id, frame, action), quit_event):
+                    return
+        except Exception as e:  # unreadable recording: report and move on
+            print(f"Error in trajectory {video_path}: {e!r}")
+        if quit_event.is_set():
+            break
+    output_queue.put(None)
+
+
+class DataLoader:
+    """Single-step batches, one sample per worker round-robin (reference:
+    data_loader.py:130-222).  Yields (frames, env_actions, episode_ids),
+    lists of ``batch_size``.
+
+    Each worker has its own task queue, filled round-robin with whole
+    trajectories (a shared queue, as in the reference, lets the first
+    worker to start take every task and an idle sibling end the epoch);
+    the first worker to run out ends the stream, keeping batches diverse
+    (reference data_loader.py:204-211).
+    """
+
+    def __init__(self, dataset_dir, n_workers=8, batch_size=8, n_epochs=1, max_queue_size=16,
+                 seed: Optional[int] = None):
+        from vpt_tpu_torch.data.video import build
+
+        if n_workers < batch_size:
+            raise ValueError("Number of workers must be equal or greater than batch size")
+        build()  # once here, not once per worker
+        self.n_workers = n_workers
+        self.batch_size = batch_size
+        demonstration_tuples = _discover(dataset_dir)
+        if n_workers > len(demonstration_tuples):
+            raise ValueError(f"n_workers should be lower or equal than number of demonstrations "
+                             f"{len(demonstration_tuples)}")
+        rng = random.Random(seed)
+        self.demonstration_tuples = []
+        for _ in range(n_epochs):
+            shuffled = list(demonstration_tuples)
+            rng.shuffle(shuffled)
+            self.demonstration_tuples += shuffled
+        self.task_queues = [_mp.Queue() for _ in range(n_workers)]
+        self.n_steps_processed = 0
+        for trajectory_id, task in enumerate(self.demonstration_tuples):
+            self.task_queues[trajectory_id % n_workers].put((trajectory_id, *task))
+        for q in self.task_queues:
+            q.put(None)
+        self.output_queues = [_mp.Queue(maxsize=max_queue_size) for _ in range(n_workers)]
+        self.quit_workers_event = _mp.Event()
+        self.processes = [_mp.Process(target=_step_worker, args=(tq, q, self.quit_workers_event), daemon=True)
+                          for tq, q in zip(self.task_queues, self.output_queues)]
+        for p in self.processes:
+            p.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch_frames, batch_actions, batch_episode_id = [], [], []
+        for _ in range(self.batch_size):
+            qi = self.n_steps_processed % self.n_workers
+            try:
+                workitem = self.output_queues[qi].get(timeout=QUEUE_TIMEOUT)
+            except queue_mod.Empty:
+                if not self.processes[qi].is_alive():
+                    raise RuntimeError(f"data worker {qi} died (exitcode {self.processes[qi].exitcode})") from None
+                raise RuntimeError(f"data worker {qi} produced nothing within {QUEUE_TIMEOUT}s "
+                                   "(raise VPT_QUEUE_TIMEOUT on a slow host)") from None
+            if workitem is None:
+                raise StopIteration()
+            trajectory_id, frame, action = workitem
+            batch_frames.append(frame)
+            batch_actions.append(action)
+            batch_episode_id.append(trajectory_id)
+            self.n_steps_processed += 1
+        return batch_frames, batch_actions, batch_episode_id
+
+    def close(self):
+        self.quit_workers_event.set()
+        for p in self.processes:
+            p.terminate()
+            p.join()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 def _factor_actions(transformer, mapper, acts) -> Tuple[np.ndarray, np.ndarray]:

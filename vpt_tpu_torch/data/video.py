@@ -1,13 +1,15 @@
 """Video IO through the native host data plane (counterpart of
 vpt_tpu/data/video.py), with the port's own ctypes binding.
 
-The library is the C++ source ``vpt_tpu/native/vpt_host.cpp`` (libavformat /
-libavcodec decode and encode, the cv2-exact fixed-point resize and cursor
-compositing, behind a plain C interface).  At first use it is compiled with
-``g++`` against the libav libraries that ``pkg-config`` finds, into
+The library is the port's own C++ source ``vpt_tpu_torch/csrc/vpt_host.cpp``
+(a copy of the JAX package's host library: libavformat / libavcodec decode
+and encode, the cv2-exact fixed-point resize and cursor compositing, behind
+a plain C interface).  At first use it is compiled with ``g++`` against the
+libav libraries that ``pkg-config`` finds, into
 ``vpt_tpu_torch/build/libvpt_host-<digest>.so``; nothing is written beside
-the source.  Where libav or a compiler is missing this raises: there is no
-other decoder to fall back to.
+the source.  Where libav or a compiler is missing the video classes raise:
+there is no other decoder to fall back to.  ``native_composite_alpha`` takes
+the numpy composite (data/cursor.py) instead, byte for byte the same.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE.parent / "vpt_tpu" / "native" / "vpt_host.cpp"
+SOURCE = PACKAGE / "csrc" / "vpt_host.cpp"
 BUILD = PACKAGE / "build"
 LIBAV = ("libavcodec", "libavformat", "libavutil", "libswscale")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
@@ -95,12 +97,37 @@ def _load_library() -> ctypes.CDLL:
     lib.vpt_video_writer_write.argtypes = [ptr, u8p]
     lib.vpt_video_writer_close.restype = i32
     lib.vpt_video_writer_close.argtypes = [ptr]
+    # image, h, w, sprite rgb, sprite alpha, sprite h, w, x, y
+    lib.vpt_composite_alpha.restype = None
+    lib.vpt_composite_alpha.argtypes = [u8p, i32, i32, u8p, u8p, i32, i32, i32, i32]
     _lib = lib
     return lib
 
 
 def _u8ptr(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def native_composite_alpha(img: np.ndarray, overlay_rgb: np.ndarray, overlay_alpha: np.ndarray,
+                           x: int, y: int) -> None:
+    """Composite the cursor sprite (rgb (h, w, 3), alpha (h, w) uint8) onto
+    the (H, W, 3) uint8 ``img`` at (x, y), in place, in the native library;
+    where it cannot load, ``composite_images_with_alpha`` (data/cursor.py)
+    does it with the same bytes."""
+    try:
+        lib = _load_library()
+    except (RuntimeError, OSError):
+        from vpt_tpu_torch.data.cursor import composite_images_with_alpha
+
+        composite_images_with_alpha(img, overlay_rgb, overlay_alpha[..., None] / 255.0, x, y)
+        return
+    img_c = np.ascontiguousarray(img)
+    lib.vpt_composite_alpha(
+        _u8ptr(img_c), img.shape[0], img.shape[1],
+        _u8ptr(np.ascontiguousarray(overlay_rgb)), _u8ptr(np.ascontiguousarray(overlay_alpha)),
+        overlay_rgb.shape[0], overlay_rgb.shape[1], x, y,
+    )
+    img[...] = img_c
 
 
 class VideoReader:

@@ -5,9 +5,12 @@ lib/normalize_ewma.py).
 Weight-owning modules produce log-probability parameters; the distribution
 math over them is plain functions driven by static ``HeadSpec`` metadata.
 Numerics: temperature divides the raw logits, then a float32 log-softmax;
-masked logits are LOG0 = -100; sampling is Gumbel-argmax.  Torch and JAX
-random streams differ, so ``dict_sample`` takes an explicit
-``torch.Generator`` and, for tests, injected uniform noise.
+masked logits are LOG0 = -100; sampling is Gumbel-argmax.  A ``Real``
+action space gets a diagonal-gaussian head, whose parameters stack
+[mean, log_std] on a last axis of 2 (reference lib/action_head.py:54-133).
+Torch and JAX random streams differ, so ``dict_sample`` takes an explicit
+``torch.Generator`` and, for tests, injected noise (uniforms for a
+categorical head, standard normals for a gaussian one).
 """
 
 from __future__ import annotations
@@ -19,31 +22,37 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vpt_tpu_torch.spaces import Discrete, TensorType
+from vpt_tpu_torch.spaces import Discrete, Real, TensorType
 
 LOG0 = -100.0
 
 
 @dataclasses.dataclass(frozen=True)
 class HeadSpec:
-    """Shape metadata of one categorical sub-head: ``value_shape`` of one
-    action value and its cardinality ``num_actions``."""
+    """Shape metadata of one sub-head: ``value_shape`` of one action value,
+    its cardinality ``num_actions`` (categorical heads) and ``kind``,
+    "categorical" or "gaussian"."""
 
     key: str
     value_shape: Tuple[int, ...]
     num_actions: int = 0
+    kind: str = "categorical"
 
 
 def head_specs_from_space(ac_space) -> Tuple[HeadSpec, ...]:
     """DictType action space → ordered HeadSpecs (reference: make_action_head,
-    lib/action_head.py:263-275).  Only Discrete eltypes are ported; the
-    diagonal-gaussian head serves no published policy."""
+    lib/action_head.py:263-275): Discrete eltypes become categorical heads,
+    Real eltypes diagonal-gaussian ones."""
     specs = []
     for key, ttype in ac_space.items():
         assert isinstance(ttype, TensorType), f"unsupported space for {key}: {ttype}"
-        if not isinstance(ttype.eltype, Discrete):
+        if isinstance(ttype.eltype, Discrete):
+            specs.append(HeadSpec(key=key, value_shape=tuple(ttype.shape), num_actions=ttype.eltype.n))
+        elif isinstance(ttype.eltype, Real):
+            assert len(ttype.shape) == 1, "Nontrivial shapes not yet implemented."
+            specs.append(HeadSpec(key=key, value_shape=tuple(ttype.shape), kind="gaussian"))
+        else:
             raise NotImplementedError(f"unsupported eltype for {key}: {ttype.eltype}")
-        specs.append(HeadSpec(key=key, value_shape=tuple(ttype.shape), num_actions=ttype.eltype.n))
     return tuple(specs)
 
 
@@ -80,6 +89,34 @@ class CategoricalActionHead(nn.Module):
         return F.log_softmax(x.float(), dim=-1)
 
 
+class DiagGaussianActionHead(nn.Module):
+    """Gaussian head: means from a linear layer, a learned log-std per
+    dimension (reference: lib/action_head.py:54-133).  The output stacks
+    [mean, log_std] on a last axis of 2."""
+
+    def __init__(self, insize: int, spec: HeadSpec, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        n = spec.value_shape[0]
+        self.linear_layer = nn.Module()
+        self.linear_layer.weight = nn.Parameter(torch.empty(n, insize, device=device))
+        self.linear_layer.bias = nn.Parameter(torch.empty(n, device=device))
+        self.log_std = nn.Parameter(torch.empty(n, device=device))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nn.init.orthogonal_(self.linear_layer.weight, gain=0.01, generator=generator)
+        self.linear_layer.bias.zero_()
+        self.log_std.zero_()
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        assert mask is None, "Can not use a mask in a gaussian action head"
+        dt = self.dtype
+        means = F.linear(x.to(dt), self.linear_layer.weight.to(dt), self.linear_layer.bias.to(dt))
+        return torch.stack([means, self.log_std.to(dt).expand_as(means)], dim=-1)
+
+
 class DictActionHead(nn.Module):
     """One sub-head per action-space key (reference: lib/action_head.py:223-260)."""
 
@@ -90,7 +127,9 @@ class DictActionHead(nn.Module):
         # sub-heads sit directly under the head, as the reference names them:
         # ``pi_head.buttons.linear_layer.weight``
         for s in specs:
-            self.add_module(s.key, CategoricalActionHead(insize, s, temperature, dtype, device))
+            head = (DiagGaussianActionHead(insize, s, dtype, device) if s.kind == "gaussian"
+                    else CategoricalActionHead(insize, s, temperature, dtype, device))
+            self.add_module(s.key, head)
 
     def forward(self, x, mask: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         return {
@@ -138,29 +177,70 @@ def categorical_sample(logits: torch.Tensor, deterministic: bool = False,
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
+LOG2PI = 1.8378770664093453  # log(2π)
+
+
+def gaussian_logprob(pd: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+    """pd (..., n, 2) = [mean, log_std]; summed over n (reference:
+    lib/action_head.py:86-95)."""
+    mean, log_std = pd[..., 0], pd[..., 1]
+    z = (actions - mean) / torch.exp(log_std)
+    return -(0.5 * torch.sum(z ** 2 + LOG2PI, dim=-1) + torch.sum(log_std, dim=-1))
+
+
+def gaussian_entropy(pd: torch.Tensor) -> torch.Tensor:
+    return torch.sum(pd[..., 1] + 0.5 * (LOG2PI + 1.0), dim=-1)
+
+
+def gaussian_sample(pd: torch.Tensor, deterministic: bool = False, generator: Optional[torch.Generator] = None,
+                    normal: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean + ε·exp(log_std), ε standard normal from ``generator`` unless
+    ``normal`` (same shape as the mean) is given; the mean if deterministic."""
+    mean, log_std = pd[..., 0], pd[..., 1]
+    if deterministic:
+        return mean
+    if normal is None:
+        normal = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    return mean + normal * torch.exp(log_std)
+
+
+def gaussian_kl(pd_q: torch.Tensor, pd_p: torch.Tensor) -> torch.Tensor:
+    """KL(q ‖ p) of two diagonal gaussians, keepdim on the last axis
+    (reference: lib/action_head.py:114-133)."""
+    mq, lq = pd_q[..., 0], pd_q[..., 1]
+    mp, lp = pd_p[..., 0], pd_p[..., 1]
+    kl = lp - lq + (torch.exp(lq) ** 2 + (mq - mp) ** 2) / (2.0 * torch.exp(lp) ** 2) - 0.5
+    return torch.sum(kl, dim=-1, keepdim=True)
+
+
 def dict_logprob(logits: Dict[str, torch.Tensor], actions: Dict[str, torch.Tensor],
                  specs: Tuple[HeadSpec, ...]) -> torch.Tensor:
-    return sum(categorical_logprob(logits[s.key], actions[s.key], s) for s in specs)
+    return sum(gaussian_logprob(logits[s.key], actions[s.key]) if s.kind == "gaussian"
+               else categorical_logprob(logits[s.key], actions[s.key], s) for s in specs)
 
 
 def dict_entropy(logits: Dict[str, torch.Tensor], specs: Tuple[HeadSpec, ...]) -> torch.Tensor:
-    return sum(categorical_entropy(logits[s.key], s) for s in specs)
+    return sum(gaussian_entropy(logits[s.key]) if s.kind == "gaussian" else categorical_entropy(logits[s.key], s)
+               for s in specs)
 
 
 def dict_kl(logits_q: Dict[str, torch.Tensor], logits_p: Dict[str, torch.Tensor],
             specs: Tuple[HeadSpec, ...]) -> torch.Tensor:
-    return sum(categorical_kl(logits_q[s.key], logits_p[s.key], s) for s in specs)
+    return sum(gaussian_kl(logits_q[s.key], logits_p[s.key]) if s.kind == "gaussian"
+               else categorical_kl(logits_q[s.key], logits_p[s.key], s) for s in specs)
 
 
 def dict_sample(logits: Dict[str, torch.Tensor], specs: Tuple[HeadSpec, ...],
                 deterministic: bool = False, generator: Optional[torch.Generator] = None,
                 noise: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """Sample every sub-head; ``noise`` maps a head key to injected uniforms."""
-    return {
-        s.key: categorical_sample(logits[s.key], deterministic, generator,
-                                  None if noise is None else noise.get(s.key))
-        for s in specs
-    }
+    """Sample every sub-head; ``noise`` maps a head key to injected noise
+    (uniforms for a categorical head, standard normals for a gaussian one)."""
+    out = {}
+    for s in specs:
+        n = None if noise is None else noise.get(s.key)
+        sample = gaussian_sample if s.kind == "gaussian" else categorical_sample
+        out[s.key] = sample(logits[s.key], deterministic, generator, n)
+    return out
 
 
 def ewma_mean_var(stats: Dict[str, torch.Tensor], epsilon: float = 1e-5):

@@ -28,11 +28,11 @@ def fold_frames(x_bthwc: torch.Tensor) -> torch.Tensor:
 class CnnBasicBlock(nn.Module):
     """Residual pair of 3×3 convs (reference: impala_cnn.py:13-52)."""
 
-    def __init__(self, inchan: int, init_scale: float = 1.0, group_norm_groups: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, inchan: int, init_scale: float = 1.0, batch_norm: bool = False,
+                 group_norm_groups: Optional[int] = None, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         s = math.sqrt(init_scale)
-        kw = dict(layer_type="conv", init_scale=s, group_norm_groups=group_norm_groups,
+        kw = dict(layer_type="conv", init_scale=s, batch_norm=batch_norm, group_norm_groups=group_norm_groups,
                   dtype=dtype, device=device)
         self.conv0 = FanInInitLayer(inchan, inchan, **kw)
         self.conv1 = FanInInitLayer(inchan, inchan, **kw)
@@ -46,19 +46,19 @@ class CnnDownStack(nn.Module):
     (reference: impala_cnn.py:55-129)."""
 
     def __init__(self, inchan: int, outchan: int, nblock: int, init_scale: float = 1.0,
-                 pool: bool = True, post_pool_groups: Optional[int] = None,
+                 pool: bool = True, post_pool_groups: Optional[int] = None, batch_norm: bool = False,
                  group_norm_groups: Optional[int] = None, first_conv_norm: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.pool = pool
         self.firstconv = FanInInitLayer(
-            inchan, outchan, layer_type="conv",
+            inchan, outchan, layer_type="conv", batch_norm=batch_norm and first_conv_norm,
             group_norm_groups=group_norm_groups if first_conv_norm else None,
             dtype=dtype, device=device,
         )
         self.n = GroupNorm(post_pool_groups, outchan, device=device) if pool and post_pool_groups is not None else None
         self.blocks = nn.ModuleList([
-            CnnBasicBlock(outchan, init_scale=init_scale / math.sqrt(nblock),
+            CnnBasicBlock(outchan, init_scale=init_scale / math.sqrt(nblock), batch_norm=batch_norm,
                           group_norm_groups=group_norm_groups, dtype=dtype, device=device)
             for _ in range(nblock)
         ])
@@ -81,8 +81,9 @@ class ImpalaCNN(nn.Module):
     (vpt_tpu/models/impala.py remats each ``CnnDownStack`` the same way)."""
 
     def __init__(self, inshape: Sequence[int], chans: Sequence[int], outsize: int, nblock: int,
-                 post_pool_groups: Optional[int] = None, group_norm_groups: Optional[int] = None,
-                 first_conv_norm: bool = False, dense_layer_norm: bool = True,
+                 post_pool_groups: Optional[int] = None, batch_norm: bool = False,
+                 group_norm_groups: Optional[int] = None, first_conv_norm: bool = False,
+                 dense_layer_norm: bool = True,
                  dtype: torch.dtype = torch.float32, remat: bool = False, device=None):
         super().__init__()
         self.remat = remat
@@ -91,7 +92,7 @@ class ImpalaCNN(nn.Module):
         for i, outchan in enumerate(chans):
             stacks.append(CnnDownStack(
                 c, outchan, nblock, init_scale=math.sqrt(len(chans)),
-                post_pool_groups=post_pool_groups, group_norm_groups=group_norm_groups,
+                post_pool_groups=post_pool_groups, batch_norm=batch_norm, group_norm_groups=group_norm_groups,
                 first_conv_norm=first_conv_norm if i == 0 else True, dtype=dtype, device=device,
             ))
             c, h, w = outchan, (h + 1) // 2, (w + 1) // 2

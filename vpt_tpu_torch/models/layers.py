@@ -130,6 +130,39 @@ class GroupNorm(nn.Module):
         return F.group_norm(x.float(), self.groups, self.weight, self.bias, LN_EPS)
 
 
+class BatchNorm(nn.Module):
+    """Batch norm computing and returning float32, always on its running
+    statistics: vpt_tpu's flax ``BatchNorm(use_running_average=True)``, in a
+    train step too, so the statistics never move (a stock
+    ``nn.BatchNorm2d`` in train mode would normalise by the batch's and
+    update them).  The affine ``weight``/``bias`` train.  The channel axis is
+    1 (NCHW, NCDHW), or the last with ``channels_last`` (a linear layer's
+    input)."""
+
+    def __init__(self, channels: int, channels_last: bool = False, device=None):
+        super().__init__()
+        self.channels_last = channels_last
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("running_mean", torch.zeros(channels, device=device))
+        self.register_buffer("running_var", torch.ones(channels, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        shape = x.shape
+        if self.channels_last:
+            x = x.reshape(-1, shape[-1])
+        x = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, training=False, eps=LN_EPS)
+        return x.reshape(shape)
+
+
 class FanInInitLayer(nn.Module):
     """norm → layer → ReLU with fan-in-renormalised init.
 
@@ -138,8 +171,8 @@ class FanInInitLayer(nn.Module):
     and the activation is optional.  ``layer_type`` ∈ {linear, conv,
     conv3d}: conv layers take NCHW, conv3d layers NCDHW (the IDM's front
     end, with D the time axis); ``kernel_size``, ``padding`` and ``stride``
-    are an int for every spatial axis or one per axis.  (The reference's
-    batch norm, used by no published model, is not ported.)  ``quantize``
+    are an int for every spatial axis or one per axis.  ``batch_norm`` takes
+    precedence over the group and layer norms, as in vpt_tpu.  ``quantize``
     makes a linear layer's ``layer`` the int8 ``QuantLinear``; ``fake_quant``
     (QAT, ``set_fake_quant``) runs a float linear layer on its weight's int8
     fake-quantized view.
@@ -165,8 +198,6 @@ class FanInInitLayer(nn.Module):
         super().__init__()
         if quantize and layer_type != "linear":
             raise ValueError(f"quantize applies to linear layers only, not {layer_type}")
-        if batch_norm:
-            raise NotImplementedError("batch_norm FanInInitLayer is not ported")
         self.layer_type = layer_type
         self.init_scale = init_scale
         self.use_activation = use_activation
@@ -176,7 +207,9 @@ class FanInInitLayer(nn.Module):
         self.quantize = quantize
         self.fake_quant = False
         self.norm = None
-        if group_norm_groups is not None:
+        if batch_norm:
+            self.norm = BatchNorm(inchan, channels_last=layer_type == "linear", device=device)
+        elif group_norm_groups is not None:
             self.norm = GroupNorm(group_norm_groups, inchan, device=device)
         elif layer_norm:
             self.norm = LayerNorm(inchan, device=device)

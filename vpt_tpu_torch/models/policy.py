@@ -13,9 +13,16 @@ and ``final_ln`` applied to the activations *before* ``lastlayer``, whose
 result is computed and discarded (the reference's quirk, kept so that the
 parameter exists for checkpoints).
 
-The recurrent state (per-block KV caches and state masks) is an explicit
-argument and return value, as in the JAX package.  Module and parameter
-names follow the reference's torch state_dict.
+The recurrent state (per-block KV caches and state masks, or LSTM carries;
+None for ``recurrence_type="none"``) is an explicit argument and return
+value, as in the JAX package.  Module and parameter names follow the
+reference's torch state_dict.
+
+``MinecraftAgentPolicy`` also has the reference API: ``embed`` and
+``heads_from_recurrent`` (``forward`` is
+``heads_from_recurrent(recurrent_layer(embed(img)))``),
+``get_output_for_observation``, ``v`` and ``act``, with the module functions
+``get_logprob_of_action`` and ``get_kl_of_action_dists``.
 
 With ``cfg.quantize_dense`` the trunk's dense layers (the CNN → hidsize
 projection ``linear``, the blocks' q/k/v/proj/r and MLPs, ``lastlayer``)
@@ -34,11 +41,12 @@ from torch import nn
 
 from vpt_tpu_torch.config import PolicyConfig
 from vpt_tpu_torch.device import torch_dtype
-from vpt_tpu_torch.models.heads import DictActionHead, HeadSpec, ScaledMSEHead, dict_logprob, dict_sample
+from vpt_tpu_torch.models.heads import DictActionHead, HeadSpec, ScaledMSEHead, dict_kl, dict_logprob, dict_sample
 from vpt_tpu_torch.models.impala import ImpalaCNN, fold_frames
 from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm, remat_call
 from vpt_tpu_torch.models.transformer import (
     ResidualRecurrentBlocks,
+    lstm_initial_state,
     masked_attention_initial_state,
     ring_initial_state,
 )
@@ -79,14 +87,12 @@ class ImgObsProcess(nn.Module):
     def __init__(self, cfg: PolicyConfig, device=None):
         super().__init__()
         dtype = torch_dtype(cfg.compute_dtype)
-        if cfg.batch_norm:
-            raise NotImplementedError("batch_norm policies are not ported")
         self.remat = cfg.remat
         self.cnn_scan_chunks = cfg.cnn_scan_chunks
         self.cnn = ImpalaCNN(
             inshape=cfg.img_shape, chans=cfg.chans, outsize=cfg.obs_processing_width,
             nblock=cfg.impala_nblock, post_pool_groups=cfg.impala_post_pool_groups,
-            group_norm_groups=cfg.group_norm_groups, first_conv_norm=cfg.first_conv_norm,
+            batch_norm=cfg.batch_norm, group_norm_groups=cfg.group_norm_groups, first_conv_norm=cfg.first_conv_norm,
             dense_layer_norm=cfg.dense_use_layer_norm, dtype=dtype, remat=cfg.remat, device=device,
         )
         self.linear = FanInInitLayer(cfg.obs_processing_width, cfg.hidsize, layer_type="linear",
@@ -119,34 +125,35 @@ class MinecraftPolicy(nn.Module):
 
     def __init__(self, cfg: PolicyConfig, device=None):
         super().__init__()
-        if cfg.recurrence_type != "transformer":
-            raise NotImplementedError(f"recurrence_type {cfg.recurrence_type!r} is not ported")
         self.cfg = cfg
         dtype = torch_dtype(cfg.compute_dtype)
         self.img_preprocess = ImgPreprocessing(cfg.scale_input_img, cfg.img_statistics, device)
         self.img_process = ImgObsProcess(cfg, device)
         self.pre_lstm_ln = LayerNorm(cfg.hidsize, device=device) if cfg.use_pre_lstm_ln else None
-        self.recurrent_layer = ResidualRecurrentBlocks(
-            cfg.hidsize, cfg.timesteps, n_block=cfg.n_recurrence_layers,
-            is_residual=cfg.recurrence_is_residual, recurrence_type=cfg.recurrence_type,
-            use_pointwise_layer=cfg.use_pointwise_layer, pointwise_ratio=cfg.pointwise_ratio,
-            pointwise_use_activation=cfg.pointwise_use_activation,
-            attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
-            attention_mask_style=cfg.attention_mask_style, dtype=dtype, remat=cfg.remat, device=device,
-            quantize_dense=cfg.quantize_dense,
-        )
+        # recurrence_type "none": no recurrent layer, the state passes through (vpt_tpu/models/policy.py)
+        self.recurrent_layer = _recurrent_layer(cfg, dtype, device) if cfg.recurrence_type != "none" else None
         self.lastlayer = FanInInitLayer(cfg.hidsize, cfg.hidsize, layer_type="linear",
                                         layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device,
                                         quantize=cfg.quantize_dense)
         self.final_ln = LayerNorm(cfg.hidsize, device=device)
 
-    def forward(self, img, first, state):
+    def embed(self, img):
+        """Pre-recurrence trunk: preprocess → CNN → [pre_lstm_ln] latents."""
         x = self.img_process(self.img_preprocess(img))
-        if self.pre_lstm_ln is not None:
-            x = self.pre_lstm_ln(x)
-        x, state_out = self.recurrent_layer(x, first, state)
-        x = self.lastlayer(F.relu(x))
-        return self.final_ln(x), state_out
+        return self.pre_lstm_ln(x) if self.pre_lstm_ln is not None else x
+
+    def recurrent(self, x, first, state):
+        if self.recurrent_layer is None:
+            return x, state
+        return self.recurrent_layer(x, first, state)
+
+    def latent(self, x):
+        """Post-recurrence trunk: relu → lastlayer → final_ln."""
+        return self.final_ln(self.lastlayer(F.relu(x)))
+
+    def forward(self, img, first, state):
+        x, state_out = self.recurrent(self.embed(img), first, state)
+        return self.latent(x), state_out
 
 
 class MinecraftAgentPolicy(nn.Module):
@@ -168,12 +175,38 @@ class MinecraftAgentPolicy(nn.Module):
         :returns: ({"pi_logits": dict, "vpred_raw": (B, T, 1), "vpred":
             denormalised (B, T, 1)}, state_out)"""
         latent, state_out = self.net(img, first, state)
+        return self._heads(latent, action_mask), state_out
+
+    def _heads(self, latent, action_mask: Optional[Dict] = None) -> Dict:
         vpred_raw = self.value_head(latent)
         return {
             "pi_logits": self.pi_head(latent, mask=action_mask),
             "vpred_raw": vpred_raw,
             "vpred": self.value_head.denormalize(vpred_raw),
-        }, state_out
+        }
+
+    # the split points of the JAX package's pipeline-parallel step: forward
+    # equals heads_from_recurrent(recurrent_layer(embed(img)))
+
+    def embed(self, img):
+        """Pre-recurrence trunk: preprocess → CNN → [pre_lstm_ln] latents."""
+        return self.net.embed(img)
+
+    def heads_from_recurrent(self, x):
+        """Post-recurrence tail: relu → lastlayer → final_ln → heads."""
+        return self._heads(self.net.latent(x))
+
+    def get_output_for_observation(self, img, state, first):
+        """(pd, denormalised value, state_out) for one observation per stream
+        (reference: policy.py:287-305).  :param img: (B, H, W, C); first: (B,)"""
+        out, state_out = self(img[:, None], first[:, None], state)
+        pd = {k: v[:, 0] for k, v in out["pi_logits"].items()}
+        return pd, out["vpred"][:, 0, 0], state_out
+
+    def v(self, img, first, state):
+        """Value prediction only (reference: policy.py:330-339)."""
+        out, _ = self(img[:, None], first[:, None], state)
+        return out["vpred"][:, 0, 0]
 
     def act(self, img, first, state, stochastic: bool = True,
             generator: Optional[torch.Generator] = None):
@@ -197,8 +230,6 @@ class InverseActionNet(nn.Module):
 
     def __init__(self, cfg: PolicyConfig, device=None):
         super().__init__()
-        if cfg.recurrence_type != "transformer":
-            raise NotImplementedError(f"recurrence_type {cfg.recurrence_type!r} is not ported")
         self.cfg = cfg
         dtype = torch_dtype(cfg.compute_dtype)
         self.img_preprocess = ImgPreprocessing(cfg.scale_input_img, cfg.img_statistics, device)
@@ -218,15 +249,7 @@ class InverseActionNet(nn.Module):
             )
         # the first Impala conv is normed iff a conv3d front end exists (reference: policy.py:354-359)
         self.img_process = ImgObsProcess(cnn_cfg.replace(first_conv_norm=cfg.conv3d_params is not None), device)
-        self.recurrent_layer = ResidualRecurrentBlocks(
-            cfg.hidsize, cfg.timesteps, n_block=cfg.n_recurrence_layers,
-            is_residual=cfg.recurrence_is_residual, recurrence_type=cfg.recurrence_type,
-            use_pointwise_layer=cfg.use_pointwise_layer, pointwise_ratio=cfg.pointwise_ratio,
-            pointwise_use_activation=cfg.pointwise_use_activation,
-            attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
-            attention_mask_style=cfg.attention_mask_style, dtype=dtype, remat=cfg.remat, device=device,
-            quantize_dense=cfg.quantize_dense,
-        )
+        self.recurrent_layer = _recurrent_layer(cfg, dtype, device)
         self.lastlayer = FanInInitLayer(cfg.hidsize, cfg.hidsize, layer_type="linear",
                                         layer_norm=cfg.dense_use_layer_norm, dtype=dtype, device=device,
                                         quantize=cfg.quantize_dense)
@@ -280,6 +303,29 @@ class InverseActionPolicy(nn.Module):
         return action, state_out, {"log_prob": dict_logprob(pd, action, self.head_specs), "pd": pd}
 
 
+def _recurrent_layer(cfg: PolicyConfig, dtype: torch.dtype, device) -> ResidualRecurrentBlocks:
+    return ResidualRecurrentBlocks(
+        cfg.hidsize, cfg.timesteps, n_block=cfg.n_recurrence_layers,
+        is_residual=cfg.recurrence_is_residual, recurrence_type=cfg.recurrence_type,
+        use_pointwise_layer=cfg.use_pointwise_layer, pointwise_ratio=cfg.pointwise_ratio,
+        pointwise_use_activation=cfg.pointwise_use_activation,
+        attention_heads=cfg.attention_heads, attention_memory_size=cfg.attention_memory_size,
+        attention_mask_style=cfg.attention_mask_style, dtype=dtype, remat=cfg.remat, device=device,
+        quantize_dense=cfg.quantize_dense,
+    )
+
+
+def get_logprob_of_action(head_specs: Tuple[HeadSpec, ...], pd: Dict, action: Dict) -> torch.Tensor:
+    """Log-probability of ``action`` under the distribution parameters ``pd``
+    (reference: policy.py:271-279)."""
+    return dict_logprob(pd, action, head_specs)
+
+
+def get_kl_of_action_dists(head_specs: Tuple[HeadSpec, ...], pd1: Dict, pd2: Dict) -> torch.Tensor:
+    """KL(pd1 ‖ pd2) of two action distributions (reference: policy.py:281-285)."""
+    return dict_kl(pd1, pd2, head_specs)
+
+
 def _triple(x) -> Tuple[int, int, int]:
     return (int(x),) * 3 if isinstance(x, int) else tuple(int(v) for v in x)
 
@@ -296,11 +342,15 @@ def idm_input_shape(cfg: PolicyConfig) -> Tuple[int, int, int]:
 
 
 def policy_initial_state(cfg: PolicyConfig, batchsize: int, ring: bool = False, device=None):
-    """Initial recurrent state, a function of the config alone.  ``ring=True``
-    gives the rotating-cache state of the t=1 stepped rollout."""
-    if cfg.recurrence_type != "transformer":
-        raise NotImplementedError(f"recurrence_type {cfg.recurrence_type!r} is not ported")
+    """Initial recurrent state, a function of the config alone: None for
+    ``recurrence_type="none"``, zero ``{"h", "c"}`` carries for an LSTM type
+    (``ring`` ignored), else the attention caches; ``ring=True`` gives a
+    transformer the rotating-cache state of the t=1 stepped rollout."""
+    if cfg.recurrence_type == "none":
+        return None
     dtype = torch_dtype(cfg.compute_dtype)
+    if cfg.recurrence_type != "transformer":
+        return [lstm_initial_state(batchsize, cfg.hidsize, dtype, device) for _ in range(cfg.n_recurrence_layers)]
     if ring:
         return [ring_initial_state(batchsize, cfg.maxlen, cfg.hidsize, dtype, cfg.attention_heads, device)
                 for _ in range(cfg.n_recurrence_layers)]

@@ -5,6 +5,7 @@ lib/util.py:91-229).
 State layout per block, as in the JAX package:
     linear cache {"state_mask": (B, maxlen) bool, "k": (B, maxlen, E), "v": (B, maxlen, E)}
     ring cache   {"state_mask", "k": (B, H, maxlen, d), "v": (B, H, maxlen, d), "idx": int}
+    LSTM carry   {"h": (B, E), "c": (B, E)}
 The chunked path (``SelfAttentionLayer.forward``) attends through kernel B1
 (ops/windowed_attention.py) on CUDA tensors, at every t including the t=1
 step of the linear cache.  The t=1 ring step stays plain PyTorch, as the JAX
@@ -14,6 +15,12 @@ updated, which saves a copy of the whole cache per block and step.
 
 ``quantize_dense`` makes q/k/v/proj/r and the MLPs int8 ``QuantLinear``
 layers (ops/int8.py), in the chunked path and the ring step alike.
+
+The LSTM recurrences (``multi_layer_lstm``, ``multi_layer_bilstm``,
+``multi_masked_lstm``) hold a ``torch.nn.LSTM`` where the JAX package holds
+flax's ``OptimizedLSTMCell`` (XLA, no Pallas kernel): a chunk of the first
+two is one LSTM call (cuDNN on the card), the masked one steps the same cell
+over t so that a ``first`` flag anywhere in the chunk resets the carry.
 """
 
 from __future__ import annotations
@@ -213,20 +220,79 @@ def ring_state_to_linear(block_state: Dict) -> Dict[str, torch.Tensor]:
     }
 
 
+LSTM_TYPES = ("multi_layer_lstm", "multi_layer_bilstm", "multi_masked_lstm")
+
+
+def lstm_initial_state(batchsize: int, hidsize: int, dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
+    """Zero LSTM carry of one block."""
+    return {"h": torch.zeros((batchsize, hidsize), dtype=dtype, device=device),
+            "c": torch.zeros((batchsize, hidsize), dtype=dtype, device=device)}
+
+
+def map_state(fn, state):
+    """``fn`` applied to every tensor of a recurrent state: a list of block
+    dicts (attention caches or LSTM carries), or None (``recurrence_type
+    "none"``); non-tensor entries (the ring's ``idx``) are kept."""
+    if state is None:
+        return None
+    return [{k: fn(v) if isinstance(v, torch.Tensor) else v for k, v in blk.items()} for blk in state]
+
+
+class LSTM(nn.LSTM):
+    """One-layer ``torch.nn.LSTM`` (batch first) with flax's
+    ``OptimizedLSTMCell`` initialisers: lecun-normal input kernels,
+    orthogonal recurrent kernels gate by gate, zero biases.  The gate order
+    i, f, g, o is flax's.  Flax's cell has one bias a gate, so
+    ``bias_ih_l0`` is a zero buffer, not a parameter: a second trained bias
+    would move the sum of the two twice as far an Adam step as vpt_tpu's
+    one (a checkpoint's nonzero ``bias_ih_l0`` still loads and applies)."""
+
+    def __init__(self, hidsize: int, device=None):
+        super().__init__(hidsize, hidsize, batch_first=True, device=device)
+        bias_ih = self.bias_ih_l0.detach()
+        del self.bias_ih_l0
+        self.register_buffer("bias_ih_l0", bias_ih.zero_())
+        self._init_flat_weights()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if not hasattr(self, "weight_hh_l0"):  # nn.RNNBase calls this before the weights exist
+            return
+        std = (1.0 / self.input_size) ** 0.5 / 0.87962566103423978  # flax's truncated-normal correction
+        nn.init.trunc_normal_(self.weight_ih_l0, std=std, a=-2 * std, b=2 * std, generator=generator)
+        for w in self.weight_hh_l0.chunk(4):
+            nn.init.orthogonal_(w, generator=generator)
+        self.bias_ih_l0.zero_()
+        self.bias_hh_l0.zero_()
+
+    def weights(self, dtype: torch.dtype) -> List[torch.Tensor]:
+        return [w.to(dtype) for w in self._flat_weights]
+
+    def chunk(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, dtype: torch.dtype):
+        """One call over the (B, t, E) chunk from carry (h, c): (out, h, c)."""
+        # train mode wherever autograd records: cuDNN keeps its reserve for the backward only then
+        out, h, c = torch.lstm(x, (h[None], c[None]), self.weights(dtype), True, 1, 0.0,
+                               torch.is_grad_enabled(), False, True)
+        return out, h[0], c[0]
+
+
 class ResidualRecurrentBlock(nn.Module):
-    """pre-LN → attention → residual → pointwise-MLP residual
-    (reference: lib/util.py:132-211).  Only ``recurrence_type="transformer"``
-    is ported."""
+    """pre-LN → (attention | LSTM) → residual → pointwise-MLP residual
+    (reference: lib/util.py:132-211).  ``reverse_lstm`` runs a bilstm
+    block's LSTM backwards in time."""
 
     def __init__(self, hidsize: int, timesteps: int, init_scale: float = 1.0,
                  recurrence_type: str = "transformer", is_residual: bool = True,
                  use_pointwise_layer: bool = True, pointwise_ratio: int = 4,
                  pointwise_use_activation: bool = False, attention_heads: int = 8,
                  attention_memory_size: int = 2048, attention_mask_style: str = "clipped_causal",
-                 dtype: torch.dtype = torch.float32, device=None, quantize_dense: bool = False):
+                 dtype: torch.dtype = torch.float32, device=None, quantize_dense: bool = False,
+                 reverse_lstm: bool = False):
         super().__init__()
-        if recurrence_type != "transformer":
-            raise NotImplementedError(f"recurrence_type {recurrence_type!r} is not ported")
+        if recurrence_type != "transformer" and recurrence_type not in LSTM_TYPES:
+            raise NotImplementedError(recurrence_type)
+        self.recurrence_type = recurrence_type
+        self.reverse_lstm = reverse_lstm
         s = init_scale
         if use_pointwise_layer and is_residual:
             s *= 2 ** -0.5  # two residual branches per block
@@ -241,22 +307,55 @@ class ResidualRecurrentBlock(nn.Module):
                                        init_scale=s, use_activation=pointwise_use_activation,
                                        dtype=dtype, device=device, quantize=quantize_dense)
         self.pre_r_ln = LayerNorm(hidsize, device=device)
-        self.r = MaskedAttention(hidsize, attention_memory_size, attention_heads, timesteps,
-                                 mask_style=attention_mask_style, init_scale=s,
-                                 use_muP_factor=True, dtype=dtype, device=device, quantize_dense=quantize_dense)
+        if recurrence_type == "transformer":
+            self.r = MaskedAttention(hidsize, attention_memory_size, attention_heads, timesteps,
+                                     mask_style=attention_mask_style, init_scale=s, use_muP_factor=True,
+                                     dtype=dtype, device=device, quantize_dense=quantize_dense)
+        else:
+            self.r = LSTM(hidsize, device=device)
 
     def forward(self, x, first, state):
+        residual = x
         x = self.pre_r_ln(x).to(self.dtype)
-        # quirk preserved: the attention's residual adds the *post-pre_r_ln*
-        # activations, not the block input (reference lib/util.py:196-204
-        # with xf.py:358-360)
-        x, state_out = self.r(x, first, state)
+        if self.recurrence_type == "transformer":
+            # quirk preserved: the attention's residual adds the *post-pre_r_ln*
+            # activations, not the block input (reference lib/util.py:196-204
+            # with xf.py:358-360)
+            x, state_out = self.r(x, first, state)
+        else:
+            x, state_out = self._lstm_forward(x, first, state)
+            if self.is_residual:
+                x = x + residual
         if self.use_pointwise_layer:
             residual = x
             x = self.mlp1(self.mlp0(x))
             if self.is_residual:
                 x = x + residual
         return x, state_out
+
+    def _lstm_forward(self, x_bte, first_bt, state):
+        dt = self.dtype
+        h, c = state["h"].to(dt), state["c"].to(dt)
+        if self.recurrence_type == "multi_masked_lstm":
+            # the carry resets at every step whose `first` is set, not only at
+            # the chunk's start (vpt_tpu/models/transformer.py; the reference
+            # names this type but builds no module for it), so one cell steps over t
+            w_ih, w_hh, b_ih, b_hh = self.r.weights(dt)
+            keep = (~first_bt.bool()).to(dt)[..., None]
+            ys = []
+            for t in range(x_bte.shape[1]):
+                h, c = torch.lstm_cell(x_bte[:, t], (h * keep[:, t], c * keep[:, t]), w_ih, w_hh, b_ih, b_hh)
+                ys.append(h)
+            return torch.stack(ys, dim=1), {"h": h, "c": c}
+        # zero the carry at chunk starts flagged `first` (reference
+        # lib/util.py:214-219); a bilstm's reversed block zeroes it before
+        # the time flip, so it starts from the chunk's last frame with a zero carry
+        keep = (~first_bt[:, 0].bool()).to(dt)[:, None]
+        xs = torch.flip(x_bte, dims=[1]) if self.reverse_lstm else x_bte
+        ys, h, c = self.r.chunk(xs, h * keep, c * keep, dt)
+        if self.reverse_lstm:
+            ys = torch.flip(ys, dims=[1])
+        return ys, {"h": h, "c": c}
 
 
 class ResidualRecurrentBlocks(nn.Module):
@@ -268,17 +367,20 @@ class ResidualRecurrentBlocks(nn.Module):
     and mask rather than writing the old ones), so the recompute sees the
     same inputs; its attention launches kernel B1 a second time.  The ring
     step writes in place and runs with grad off, where nothing is
-    recomputed."""
+    recomputed.  LSTM blocks remat the same way: their forward is pure too."""
 
     def __init__(self, hidsize: int, timesteps: int, n_block: int = 2, is_residual: bool = True,
-                 remat: bool = False, **block_kwargs):
+                 remat: bool = False, recurrence_type: str = "transformer", **block_kwargs):
         super().__init__()
         self.remat = remat
         init_scale = n_block ** -0.5 if is_residual else 1.0
+        # a bilstm reverses every second block (vpt_tpu: (i + 1) % 2 == 0)
         self.blocks = nn.ModuleList([
-            ResidualRecurrentBlock(hidsize, timesteps, init_scale=init_scale,
-                                   is_residual=is_residual, **block_kwargs)
-            for _ in range(n_block)
+            ResidualRecurrentBlock(hidsize, timesteps, init_scale=init_scale, recurrence_type=recurrence_type,
+                                   is_residual=is_residual,
+                                   reverse_lstm=recurrence_type == "multi_layer_bilstm" and i % 2 == 1,
+                                   **block_kwargs)
+            for i in range(n_block)
         ])
 
     def forward(self, x, first, state: List[Dict]):

@@ -23,6 +23,10 @@ on SIGTERM or SIGINT (after which the run stops), ``train`` writes the
 weights, the Adam state, the step count, the loader's cursor and the
 streams' recurrent state and episode ids into ``hp.checkpoint_dir``;
 ``train(resume_dir=...)`` goes on from the newest one as if never stopped.
+Every recurrence of the policy config trains: the transformer, the three
+LSTM types (whose ``{h, c}`` carries are the streams' state) and ``none``
+(no state: None passes through), and a batch-norm CNN, whose running
+statistics stay as they are (models/layers.py ``BatchNorm``).
 Not ported yet: multi-process and sharded training.
 """
 
@@ -48,6 +52,7 @@ from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.models.heads import dict_logprob, head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters, set_fake_quant
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
+from vpt_tpu_torch.models.transformer import map_state
 from vpt_tpu_torch.ops.int8 import qat_mask
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.utils.metrics import MetricsLogger
@@ -368,8 +373,7 @@ class BCTrainer(CheckpointMixin):
         loss.backward()
         grad_norm = self.optimizer.step()
         self.step_count += 1
-        state_out = [{k: v.detach() for k, v in s.items()} for s in state_out]
-        return state_out, loss.detach(), grad_norm
+        return map_state(torch.Tensor.detach, state_out), loss.detach(), grad_norm
 
     def train_step_flops(self, batch, state) -> Optional[float]:
         """FLOPs of one :meth:`train_step` on ``batch`` from ``state``, which
@@ -433,7 +437,7 @@ class BCTrainer(CheckpointMixin):
             data_state, extra = restored
             resume_state = data_state
             last_episode = np.asarray(data_state["last_episode"], np.int64)
-            state = [{k: v.to(self.device) for k, v in blk.items()} for blk in extra["recurrent_state"]]
+            state = map_state(lambda v: v.to(self.device), extra["recurrent_state"])
         loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.chunk_len,
                                     n_epochs=hp.epochs, seed=self._seed,
                                     resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]), labels_dir=labels_dir,

@@ -8,7 +8,8 @@ pretrained policy so exploration does not destroy the prior (the published
 ships those checkpoints but no RL code; the JAX package supplies it, and this
 module is its port to one device:
 
-  * batched collection over N env streams at t=1 on the ring cache, as G
+  * batched collection over N env streams at t=1 (a transformer on the
+    ring cache, an LSTM on its carries; ``none`` has no state), as G
     round-robin stream groups: while the card steps one group, the host
     resizes frames and steps the envs of another;
   * recurrent PPO: the collected window is re-forwarded as one (B, T)
@@ -67,7 +68,7 @@ from vpt_tpu_torch.models.heads import (
 )
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
-from vpt_tpu_torch.models.transformer import ring_state_to_linear
+from vpt_tpu_torch.models.transformer import map_state, ring_state_to_linear
 from vpt_tpu_torch.ops.host_resize import native_resize_u8
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.training.bc import ClippedAdam, stop_on_signals
@@ -130,12 +131,28 @@ def compute_gae(rewards, values, firsts, last_value, last_first, gamma: float, l
     return advantages, advantages + values
 
 
-def _select_rows(state: List[Dict[str, torch.Tensor]], rows) -> List[Dict[str, torch.Tensor]]:
-    return [{k: v[rows] for k, v in blk.items()} for blk in state]
+def _select_rows(state, rows):
+    return map_state(lambda v: v[rows], state)
 
 
-def _clone_state(state: List[Dict]) -> List[Dict]:
-    return [{k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in blk.items()} for blk in state]
+def _clone_state(state):
+    return map_state(torch.Tensor.clone, state)
+
+
+def _linear_snapshot(state):
+    """A group's window-start state in the layout of the chunked re-forward:
+    a ring cache converted to the linear one, any other state (LSTM
+    carries, None) copied as it is (vpt_tpu/training/rl.py ``collect``)."""
+    if state is not None and "idx" in state[0]:
+        return [ring_state_to_linear(blk) for blk in state]
+    return _clone_state(state)
+
+
+def _concat_states(states):
+    """Group states → one state over all their streams, in group order."""
+    if states[0] is None:
+        return None
+    return [{k: torch.cat([s[i][k] for s in states]) for k in states[0][i]} for i in range(len(states[0]))]
 
 
 class _ShapedRewardEnv:
@@ -156,7 +173,7 @@ class _ShapedRewardEnv:
 class _TrainerEvalAgent:
     """The ``evaluate_episodes`` agent contract (``get_action`` over raw env
     obs, ``batch_size``, ``_last_vpred``) on a PPOTrainer's current policy:
-    a fresh ring state and a sampling generator of its own, seeded
+    a fresh recurrent state and a sampling generator of its own, seeded
     ``EVAL_SEED + update_count``, so evaluation is reproducible and leaves
     the trainer's generators and streams as they were."""
 
@@ -221,7 +238,7 @@ class PPOTrainer:
         self.optimizer: Optional[ClippedAdam] = None
         self.kl_coef = self.hp.kl_coef
         self.update_count = 0
-        self._group_states = None  # per-group ring state (collection)
+        self._group_states = None  # per-group recurrent state (collection)
         self._aux_buffer: List[Dict[str, Any]] = []  # PPG: rollouts since the last aux phase
 
     # ------------------------------------------------------------------ setup
@@ -262,8 +279,8 @@ class PPOTrainer:
     @torch.inference_mode()
     def _act(self, img: np.ndarray, first: np.ndarray, state):
         """One t=1 step of a group: (packed (gb, 4) float32 [buttons, camera,
-        logp, vpred], state after the step); the ring slot is written into
-        ``state`` in place."""
+        logp, vpred], state after the step); a ring cache's slot is written
+        into ``state`` in place."""
         img_t = torch.from_numpy(img).to(self.device, non_blocking=True)
         first_t = torch.from_numpy(first).to(self.device, non_blocking=True)
         out, state = self.policy(img_t[:, None], first_t[:, None], state)
@@ -289,8 +306,10 @@ class PPOTrainer:
         The streams run as ``hp.n_collect_groups`` round-robin groups of
         consecutive streams: a group's step is queued on the card, and while
         it runs the host steps the envs of the group before it.  Group g owns
-        stream rows [g·gb, (g+1)·gb); its window-start ring state, as the
-        linear chunk layout, is rows [g·gb, (g+1)·gb) of ``initial_state``.
+        stream rows [g·gb, (g+1)·gb); its window-start state, in the layout
+        of the chunked re-forward (the linear cache for a transformer, the
+        carries themselves for an LSTM, None for ``none``), is rows
+        [g·gb, (g+1)·gb) of ``initial_state``.
 
         :param reward_fn: optional ``f(env_action, obs, env_reward, done) ->
             float`` per stream, overriding the env's reward.
@@ -313,9 +332,7 @@ class PPOTrainer:
                                   for _ in range(G)]
 
         with torch.no_grad():  # window-start snapshots, outside inference mode: the update trains on them
-            snapshots = [[ring_state_to_linear(blk) for blk in s] for s in self._group_states]
-            initial_state = [{k: torch.cat([snap[i][k] for snap in snapshots]) for k in snapshots[0][i]}
-                             for i in range(len(snapshots[0]))]
+            initial_state = _concat_states([_linear_snapshot(s) for s in self._group_states])
 
         buf = {
             "frames": np.zeros((b, t_len) + tuple(self.cfg.img_shape), np.uint8),
@@ -552,7 +569,7 @@ class PPOTrainer:
         def place(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
 
-        initial_state = [{k: v.to(dev) for k, v in blk.items()} for blk in traj["initial_state"]]
+        initial_state = map_state(lambda v: v.to(dev), traj["initial_state"])
         batch = {
             "frames": place(traj["frames"], torch.uint8),
             "firsts": place(traj["firsts"], torch.bool),
