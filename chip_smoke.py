@@ -152,7 +152,27 @@ Phases, each of which fails the run if it fails:
      log-probabilities, entropy, KL and a deterministic sample on the card
      against the CPU;
      (e) 9(a) with multi_masked_lstm: the stepped collection against the
-     re-forward from the window-start carries, one update card against CPU.
+     re-forward from the window-start carries, one update card against CPU;
+ 14. distribution at world size 1: RANK=0, WORLD_SIZE=1, LOCAL_RANK=0 and a
+     free MASTER_PORT, the group started by maybe_initialize_distributed,
+     which must pick NCCL (its version printed); under torch's
+     deterministic algorithms, each wrapped step against the meshless one
+     from the same weights (random, seed 0):
+     (a) BCTrainer on a dp=1 mesh under DDP, 3 steps of the 2x policy at
+     B=4, T=128: bit for bit in loss, grad norm and every parameter;
+     (b) the same steps under fully_shard on the 1-rank fsdp axis and under
+     the tensor-parallel plan on the 1-rank tp axis (applied by hand: the
+     trainer leaves parameters whole at size 1): bit for bit, or loss and
+     every parameter within 1e-6 (relative, of its max-abs), the gaps
+     printed;
+     (c) IDMTrainer (4x) on a dp=1 mesh, 2 steps at 2 windows of 128,
+     against the meshless steps taken after a throwaway warm-up run of them
+     from the same state (see --probe-first-call);
+     (d) PPOTrainer on a dp=1 mesh, one update at 9(a)'s size;
+     (e) a meshed MineRLAgent, 8 streams x 16 deterministic steps on the
+     linear cache: the meshless agent's actions;
+     every step launching B1 and B2 once per block, each wrapper's ms a step
+     and peak beside 7(b)'s plain step, and the phase's seconds.
 Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
 time them at the IDM's long-call shape and at the PPO minibatch's.  The CPU
 side of every train step held against the card (7(a), 8(a), 9(a), 11(c),
@@ -182,6 +202,18 @@ BC step, 8(c)'s IDM step and 9(b)'s PPO update with torch.profiler
 kernel category and its top kernels, writes the full tables to
 profile_*.json in --profile-dir (default profile_tables/), and prints them
 as its last line.  It fails where the trace holds no CUDA kernel.
+
+    python3 chip_smoke.py --probe-first-call
+
+builds, then takes the 4x IDM's training step three times from one state
+under deterministic algorithms, with cuDNN, without it, and with it at the
+batch shape it had not seen, and prints
+which gradients of the first call differ from the later calls', and whether
+the gradient arriving at the first Impala convolution does.
+
+    python3 chip_smoke.py --distribution
+
+builds, then runs phase 14 alone (its BC steps beside no 7(b) time).
 """
 
 import argparse
@@ -2960,6 +2992,340 @@ def check_variants(dev):
     return b1, b2
 
 
+# ------------------------------------------------------------------- phase 14
+
+DIST_BC_B, DIST_BC_STEPS = 4, 3  # (a), (b): 2x BC steps at T=128
+DIST_IDM_B, DIST_IDM_STEPS = 2, 2  # (c): 4x IDM windows of IDM_WINDOW frames
+DIST_AGENT_STREAMS, DIST_AGENT_STEPS = 8, 16  # (e)
+DIST_WRAP_RTOL = 1e-6  # (b) where a DTensor path reorders a reduction: loss relative, parameters of their max-abs
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_group(dev):
+    """One rank, as torchrun would start it: RANK=0, WORLD_SIZE=1,
+    LOCAL_RANK=0 and a free MASTER_PORT, through maybe_initialize_distributed,
+    which must pick NCCL for the card (gloo for the CPU); returns the NCCL
+    version (None on the CPU)."""
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.parallel import mesh as pm
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    if not pm.maybe_initialize_distributed(dev):
+        raise AssertionError("maybe_initialize_distributed started no group from torchrun's environment")
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.get_backend() != want:
+        raise AssertionError(f"the group's backend is {dist.get_backend()}, not {want}")
+    return ".".join(map(str, torch.cuda.nccl.version())) if dev.type == "cuda" else None
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_trainer_steps(trainer, batches, dev, carried):
+    """The steps of one wrapper: losses, grad norms, whole weights after (on
+    the host), ms a step from the second, peak memory, and B1's and B2's
+    launches in all."""
+    from vpt_tpu_torch.parallel.mesh import full_state_dict
+
+    state = trainer.initial_state(len(batches[0]["mask"])) if carried else None
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, norms, times = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        if carried:
+            state, loss, norm = trainer.train_step(batch, state)
+        else:
+            loss, norm = trainer.train_step(batch)
+        losses.append(loss.item())
+        norms.append(float(norm))
+        times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
+    return {"loss": losses, "grad_norm": norms, "weights": full_state_dict(trainer.policy),
+            "ms": 1e3 * sum(times[1:]) / max(len(times) - 1, 1), "peak_gb": peak, "launches": launches}
+
+
+def wrapped_gap(got, want):
+    """(bit for bit, loss relative gap, largest parameter gap over that
+    parameter's max-abs) of two runs' steps."""
+    exact = got["loss"] == want["loss"] and got["grad_norm"] == want["grad_norm"] and not differing(
+        got["weights"], want["weights"])
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], want["loss"]))
+    param_gap = max(((got["weights"][k].float() - v.float()).abs().max() / v.float().abs().max().clamp_min(1e-30)).item()
+                    for k, v in want["weights"].items() if v.is_floating_point())
+    return exact, loss_gap, param_gap
+
+
+def dist_report(label, run, plain, n_blocks, steps):
+    """`plain`: (what, ms a step) of the unwrapped step it stands beside."""
+    log(f"  {label}: losses {[round(x, 6) for x in run['loss']]}; {run['ms']:.1f} ms/step ({plain[0]} "
+        f"{plain[1]:.1f} ms), peak {run['peak_gb']:.2f} GB; launches B1 {run['launches'][0]}, "
+        f"B2 {run['launches'][1]}")
+    if run["launches"] != (n_blocks * steps, n_blocks * steps):
+        raise AssertionError(f"{label}: B1 and B2 launched {run['launches']} times in {steps} steps, "
+                             f"expected {n_blocks * steps} each")
+
+
+def dist_bc(dev, mesh, plain_ms):
+    """14(a) DDP on a dp=1 mesh against the meshless trainer, bit for bit;
+    (b) FSDP2 on the 1-rank fsdp axis and the TP plan on the 1-rank tp axis,
+    applied by hand (the trainer leaves parameters whole at size 1)."""
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.parallel.fsdp import apply_fsdp
+    from vpt_tpu_torch.parallel.tp import apply_tp
+    from vpt_tpu_torch.training.bc import BCTrainer, make_optimizer
+
+    def trainer(**kw):
+        t = BCTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, seed=0, device=dev, **kw)
+        t.init()
+        return t
+
+    T = 128
+    plain_t = trainer()
+    n_blocks = plain_t.cfg.n_recurrence_layers
+    batches = [bc_batch(dev, DIST_BC_B, T, plain_t.cfg.img_shape[0], 1400 + s,
+                        firsts_at=[0 if s == 0 else (13 * i + 29 * s) % T if (i + s) % 2 else None
+                                   for i in range(DIST_BC_B)],
+                        masked_tail=(DIST_BC_B - 1, T - 24) if s == DIST_BC_STEPS - 1 else None)
+               for s in range(DIST_BC_STEPS)]
+    runs = {"meshless": run_trainer_steps(plain_t, batches, dev, True)}
+    del plain_t
+    release_memory()
+    ddp = trainer(mesh=mesh)
+    if type(ddp.model._call).__name__ != "DistributedDataParallel":
+        raise AssertionError("the dp=1 trainer is not under DDP")
+    runs["DDP dp=1"] = run_trainer_steps(ddp, batches, dev, True)
+    del ddp
+    release_memory()
+    for label, wrap in (("FSDP2 fsdp=1", lambda p: apply_fsdp(p, mesh)), ("TP tp=1", lambda p: apply_tp(p, mesh["tp"]))):
+        t = trainer()
+        wrap(t.policy)
+        if not any(isinstance(p, torch.distributed.tensor.DTensor) for p in t.policy.parameters()):
+            raise AssertionError(f"{label}: no parameter is a DTensor")
+        t.optimizer = make_optimizer(t.trainable_parameters(), t.hp)
+        runs[label] = run_trainer_steps(t, batches, dev, True)
+        del t
+        release_memory()
+    for label, run in runs.items():
+        dist_report(f"14(a/b) BC {label} (2x, {DIST_BC_B}x{T}, f32)", run, ("phase 7(b)'s plain step at B=4", plain_ms),
+                    n_blocks, DIST_BC_STEPS)
+    for label in ("DDP dp=1", "FSDP2 fsdp=1", "TP tp=1"):
+        exact, loss_gap, param_gap = wrapped_gap(runs[label], runs["meshless"])
+        norm_gap = max(abs(a - b) / b for a, b in zip(runs[label]["grad_norm"], runs["meshless"]["grad_norm"]))
+        log(f"  {label} against the meshless trainer: bit for bit {exact}; loss gap {loss_gap:.3e}, grad norm gap "
+            f"{norm_gap:.3e}, parameter gap {param_gap:.3e} of max-abs")
+        if label == "DDP dp=1" and not exact:
+            raise AssertionError("DDP at dp=1 differs from the meshless trainer")
+        if not (exact or (loss_gap <= DIST_WRAP_RTOL and param_gap <= DIST_WRAP_RTOL)):
+            raise AssertionError(f"{label} differs from the meshless trainer beyond {DIST_WRAP_RTOL}")
+    return runs["DDP dp=1"]["launches"]
+
+
+def dist_idm(dev, mesh):
+    """14(c): the 4x IDM, 2 steps at 2 windows of 128 frames, on a dp=1
+    mesh against the meshless trainer's, bit for bit, after a throwaway
+    warm-up run of the meshless steps from the same state (cuDNN's first
+    call of a convolution differs from the later ones: --probe-first-call)."""
+    from vpt_tpu_torch.config import IDM_4X_KWARGS
+    from vpt_tpu_torch.training.bc import make_optimizer
+    from vpt_tpu_torch.training.idm import IDMHyperparams, IDMTrainer
+
+    def trainer(**kw):
+        t = IDMTrainer(IDM_4X_KWARGS, {}, seed=0, device=dev,
+                       hp=IDMHyperparams(batch_size=DIST_IDM_B, window=IDM_WINDOW), **kw)
+        t.init()
+        return t
+
+    batches = [idm_batch(DIST_IDM_B, IDM_WINDOW, 1450 + s, masked_tail=(1, IDM_WINDOW - 20) if s else None)
+               for s in range(DIST_IDM_STEPS)]
+    t = trainer()
+    n_blocks = t.cfg.n_recurrence_layers
+    start = {k: v.detach().clone() for k, v in t.policy.state_dict().items()}
+    warm_up = run_trainer_steps(t, batches, dev, False)  # thrown away
+    t.policy.load_state_dict(start)
+    t.optimizer = make_optimizer(t.policy.parameters(), t.hp)
+    plain = run_trainer_steps(t, batches, dev, False)
+    log(f"  the meshless IDM steps after the warm-up run equal to it: bit for bit {wrapped_gap(plain, warm_up)[0]}")
+    del t, start
+    release_memory()
+    t = trainer(mesh=mesh)
+    meshed = run_trainer_steps(t, batches, dev, False)
+    del t
+    release_memory()
+    dist_report(f"14(c) IDM DDP dp=1 (4x, {DIST_IDM_B}x{IDM_WINDOW}, f32)", meshed, ("the meshless step", plain["ms"]),
+                n_blocks, DIST_IDM_STEPS)
+    exact, loss_gap, param_gap = wrapped_gap(meshed, plain)
+    log(f"  against the meshless IDM trainer ({plain['ms']:.1f} ms/step): bit for bit {exact}; loss gap "
+        f"{loss_gap:.3e}, parameter gap {param_gap:.3e}")
+    if not exact:
+        raise AssertionError("the IDM under DDP at dp=1 differs from the meshless trainer")
+    return meshed["launches"]
+
+
+def dist_ppo(dev, mesh):
+    """14(d): one PPO update at 9(a)'s size (2 streams x 16 steps, one epoch
+    of one minibatch) on a dp=1 mesh against the meshless update of the same
+    trajectory, bit for bit."""
+    from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.training.rl import PPOHyperparams, PPOTrainer
+
+    def trainer(**kw):
+        hp = PPOHyperparams(rollout_len=PPO_CHECK_STEPS, n_epochs=1, n_minibatches=1)
+        t = PPOTrainer(FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS, hp=hp, seed=0, device=dev, **kw)
+        t.init()
+        return t
+
+    plain = trainer()
+    n_blocks = plain.cfg.n_recurrence_layers
+    traj, _, _ = plain.collect([MockMinecraftEnv(seed=i, done_prob=0.1) for i in range(PPO_CHECK_STREAMS)],
+                               reward_fn=attack_reward)
+    out = {}
+    for label, t in (("meshless", plain), ("DDP dp=1", None)):
+        t = t or trainer(mesh=mesh)
+        sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = t.update(traj)
+        sync(dev)
+        out[label] = {"metrics": metrics, "weights": {k: v.detach().cpu() for k, v in t.policy.state_dict().items()},
+                      "s": time.perf_counter() - t0, "launches": launch_counts()}
+        del t
+        release_memory()
+    got, want = out["DDP dp=1"], out["meshless"]
+    exact = got["metrics"] == want["metrics"] and not differing(got["weights"], want["weights"])
+    log(f"14(d) PPO update DDP dp=1 (2x, {PPO_CHECK_STREAMS}x{PPO_CHECK_STEPS}, f32): loss "
+        f"{got['metrics']['loss']:.6f}, {got['s'] * 1e3:.1f} ms against the meshless {want['s'] * 1e3:.1f} ms; "
+        f"bit for bit {exact}; launches B1 {got['launches'][0]}, B2 {got['launches'][1]}")
+    # the anchor's forward over the window and the one minibatch step
+    if got["launches"] != (2 * n_blocks, n_blocks):
+        raise AssertionError(f"the PPO update launched B1 and B2 {got['launches']} times, "
+                             f"expected {2 * n_blocks} and {n_blocks}")
+    if not exact:
+        raise AssertionError("the PPO update under DDP at dp=1 differs from the meshless update")
+    return got["launches"]
+
+
+def dist_agent(dev, mesh):
+    """14(e): a meshed MineRLAgent (dp=1) against the meshless agent, 8
+    streams x 16 deterministic steps on the linear cache (B1 once per block
+    and step): the same actions."""
+    from vpt_tpu_torch.agent.agent import MineRLAgent
+
+    rng = np.random.default_rng(14)
+    frames = [synthetic_obs(rng, DIST_AGENT_STREAMS) for _ in range(DIST_AGENT_STEPS)]
+    actions = {}
+    for label, kw in (("meshless", {}), ("dp=1", {"mesh": mesh})):
+        agent = MineRLAgent(device=dev, batch_size=DIST_AGENT_STREAMS, seed=0, ring_cache=False, **kw)
+        reset_launch_counts()
+        actions[label] = [agent.get_action(obs, first=np.full(DIST_AGENT_STREAMS, t == 0), stochastic=False)
+                          for t, obs in enumerate(frames)]
+        actions[label + " launches"] = launch_counts()
+        n_blocks = agent.cfg.n_recurrence_layers
+        del agent
+        release_memory()
+    same = all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for sa, sb in zip(actions["dp=1"], actions["meshless"])
+               for a, b in zip(sa, sb) for k in a)
+    log(f"14(e) meshed MineRLAgent (2x, {DIST_AGENT_STREAMS} streams x {DIST_AGENT_STEPS} steps, linear cache): "
+        f"actions equal to the meshless agent's {same}; launches B1 {actions['dp=1 launches'][0]}")
+    if not same:
+        raise AssertionError("the meshed agent's actions differ from the meshless agent's")
+    if actions["dp=1 launches"][0] != n_blocks * DIST_AGENT_STEPS:
+        raise AssertionError(f"the meshed agent launched B1 {actions['dp=1 launches'][0]} times")
+    return actions["dp=1 launches"][0] // DIST_AGENT_STEPS
+
+
+def check_distribution(dev, plain_ms):
+    """Phase 14: the process group at world size 1 (NCCL on the card), each
+    wrapper's steps against the meshless ones, with torch's deterministic
+    algorithms on; returns B1's and B2's launches of each wrapped step."""
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    version = start_group(dev)
+    try:
+        mesh = pm.make_mesh(n_dp=1)
+        log(f"phase 14: process group {dist.get_backend()} (NCCL {version}), world size {dist.get_world_size()}, "
+            f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} on {mesh.device_type}")
+        with deterministic_algorithms():
+            bc = dist_bc(dev, mesh, plain_ms)
+            idm = dist_idm(dev, mesh)
+            ppo = dist_ppo(dev, mesh)
+            agent = dist_agent(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    b1 = {"bc_step": bc[0] // DIST_BC_STEPS, "idm_step": idm[0] // DIST_IDM_STEPS, "ppo_update": ppo[0],
+          "agent_step": agent}
+    b2 = {"bc_step": bc[1] // DIST_BC_STEPS, "idm_step": idm[1] // DIST_IDM_STEPS, "ppo_update": ppo[1]}
+    return {"dist_launches": b1}, {"dist_launches": b2}
+
+
+def probe_first_call(dev):
+    """--probe-first-call: the 4x IDM's training step taken three times
+    from one state (weights and a fresh Adam) under deterministic
+    algorithms, with cuDNN (B=2), without it (B=1) and with it again (B=1,
+    a shape new to cuDNN): which gradients differ between the first call
+    and the later ones, and whether the gradient arriving at the first
+    Impala convolution's output does.  Returns the findings as a dict."""
+    from vpt_tpu_torch.config import IDM_4X_KWARGS
+    from vpt_tpu_torch.training.bc import make_optimizer
+    from vpt_tpu_torch.training.idm import IDMHyperparams, IDMTrainer
+
+    def grad_gaps(a, b):
+        return {k: (a[k] - b[k]).abs().max().item() for k in a if not torch.equal(a[k], b[k])}
+
+    found = {}
+    with deterministic_algorithms():
+        for label, use_cudnn, batch_size in (("cuDNN", True, 2), ("no cuDNN", False, 1), ("cuDNN", True, 1)):
+            torch.backends.cudnn.enabled = use_cudnn
+            try:
+                t = IDMTrainer(IDM_4X_KWARGS, {}, seed=0, device=dev,
+                               hp=IDMHyperparams(batch_size=batch_size, window=IDM_WINDOW))
+                t.init()
+                seen = []
+                hook = t.policy.net.img_process.cnn.stacks[0].firstconv.register_full_backward_hook(
+                    lambda m, gin, gout: seen.append(gout[0].detach().clone()))
+                batch = idm_batch(batch_size, IDM_WINDOW, 1450)
+                start = {k: v.detach().clone() for k, v in t.policy.state_dict().items()}
+                calls = []
+                for _ in range(3):
+                    t.policy.load_state_dict(start)
+                    t.optimizer = make_optimizer(t.policy.parameters(), t.hp)
+                    loss, _ = t.train_step(batch)
+                    calls.append({"loss": loss.item(), "dY": seen[-1],
+                                  "grads": {n: p.grad.detach().clone() for n, p in t.policy.named_parameters()
+                                            if p.grad is not None}})
+                hook.remove()
+            finally:
+                torch.backends.cudnn.enabled = True
+            for a, b in ((0, 1), (1, 2)):
+                key = f"{label}, B={batch_size}: call {a + 1} against call {b + 1}"
+                found[key] = {"loss equal": calls[a]["loss"] == calls[b]["loss"],
+                              "first conv's output gradient equal": torch.equal(calls[a]["dY"], calls[b]["dY"]),
+                              "gradients differing (max abs gap)": grad_gaps(calls[a]["grads"], calls[b]["grads"])}
+                log(f"  {key}: {found[key]}")
+            del t, calls, seen
+            release_memory()
+    return found
+
+
 # --time-kernels' shapes besides the 2x chunk: (kernel, label, B, H, t, mask), all T = t + 128 <= 512
 TIMED_SHAPES = (("B1", "IDM window", IDM_WINDOW_BATCH, 32, IDM_WINDOW, False),
                 ("B2", "IDM window", IDM_TRAIN_B, 32, IDM_WINDOW, False),
@@ -3034,6 +3400,9 @@ def main():
     parser.add_argument("--profile", action="store_true",
                         help="trace the chunked forward, the BC and IDM steps and the PPO update and stop")
     parser.add_argument("--profile-dir", default="profile_tables", help="where --profile writes its full tables")
+    parser.add_argument("--probe-first-call", action="store_true",
+                        help="compare the IDM step's first call with its later ones and stop")
+    parser.add_argument("--distribution", action="store_true", help="run phase 14 alone and stop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3069,6 +3438,13 @@ def main():
     if args.profile:
         print(json.dumps({"profiles": profile_phases(dev, args.profile_dir), "device": smi.splitlines()[0]}), flush=True)
         return 0
+    if args.probe_first_call:
+        print(json.dumps({"first_call": probe_first_call(dev), "device": smi.splitlines()[0]}), flush=True)
+        return 0
+    if args.distribution:
+        print(json.dumps({"distribution_launches": check_distribution(dev, float("nan")),
+                          "device": smi.splitlines()[0]}), flush=True)
+        return 0
     check_tensor_cores(KERNELS)
 
     def phase_done(phases):
@@ -3085,7 +3461,7 @@ def main():
     phase_done("6")
     trainer, cpu = train_card_vs_cpu(dev)
     del cpu
-    b2["launches"] = train_steps(trainer, dev)[0]
+    b2["launches"], plain_step_ms, _ = train_steps(trainer, dev)
     del trainer
     release_memory()
     trainer = bc_remat_vs_plain(dev)
@@ -3120,6 +3496,10 @@ def main():
     b1.update(b1_variants)
     b2.update(b2_variants)
     phase_done("13")
+    b1_dist, b2_dist = check_distribution(dev, plain_step_ms)
+    b1.update(b1_dist)
+    b2.update(b2_dist)
+    phase_done("14")
 
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,8 @@ def test_every_module_imports_without_jax_or_vpt_tpu():
     assert {"vpt_tpu_torch.ops.int8", "vpt_tpu_torch.checkpoint.native",
             "vpt_tpu_torch.checkpoint.averaging"} <= set(names)
     assert {"vpt_tpu_torch.ops.strided_attention", "vpt_tpu_torch.utils.minecraft"} <= set(names)
+    assert {"vpt_tpu_torch.parallel.mesh", "vpt_tpu_torch.parallel.fsdp", "vpt_tpu_torch.parallel.tp",
+            "vpt_tpu_torch.parallel.pp", "vpt_tpu_torch.parallel.model", "vpt_tpu_torch.training.pp_bc"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"

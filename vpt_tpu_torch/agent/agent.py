@@ -13,6 +13,14 @@ frames go to the card instead, and the step resizes them there
 waits for it.  With ``quantize_dense`` the trunk's dense layers serve int8
 weights (ops/int8.py), derived from the float weights after their cast to
 ``params_dtype``.
+
+With ``mesh`` (parallel/mesh.py) ``batch_size`` is the global stream count:
+each rank serves its own B/(dp·fsdp) streams and their recurrent state, its
+``get_action`` taking and returning those streams only, from weights that
+are the same on every rank.  Stochastic sampling draws the whole batch's
+noise from the shared seed and keeps the rank's rows
+(``dict_sample_noise``), so the ranks together sample what one agent of the
+global batch would.
 """
 
 from __future__ import annotations
@@ -33,12 +41,13 @@ from vpt_tpu_torch.config import (
     PolicyConfig,
 )
 from vpt_tpu_torch.device import resolve_device
-from vpt_tpu_torch.models.heads import dict_sample, head_specs_from_space
+from vpt_tpu_torch.models.heads import dict_sample, dict_sample_noise, head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
 from vpt_tpu_torch.ops.host_resize import native_resize_u8
 from vpt_tpu_torch.ops.int8 import quantized_model
 from vpt_tpu_torch.ops.resize import resize_bilinear
+from vpt_tpu_torch.parallel import mesh as pmesh
 from vpt_tpu_torch.spaces import DictType
 
 ENV_KWARGS = dict(  # reference: agent.py:47-54
@@ -94,6 +103,8 @@ class MineRLAgent:
     :param quantize_dense: serve the trunk's dense layers with int8 weights
         (per-output-channel scales) and int8 activations (per-row scales),
         quantized from the weights as ``params_dtype`` stores them
+    :param mesh: a data-parallel ``DeviceMesh`` (dp, fsdp): this rank serves
+        its rows of the ``batch_size`` streams
     """
 
     def __init__(
@@ -109,10 +120,17 @@ class MineRLAgent:
         resize_on_device: bool = False,
         params_dtype: str = "float32",
         quantize_dense: bool = False,
+        mesh=None,
     ):
         if env is not None:
             validate_env(env)
         self.device = resolve_device(device)
+        if any(pmesh.axis_size(mesh, a) > 1 for a in ("pp", "sp", "tp")):
+            raise NotImplementedError("an agent's mesh shards streams only (dp, fsdp); its weights stay whole")
+        self.mesh = mesh
+        self.global_batch_size = batch_size
+        self._rows = pmesh.local_rows(mesh, batch_size)
+        batch_size = self._rows.stop - self._rows.start  # this rank's streams
         self.batch_size = batch_size
         self.ring_cache = ring_cache
         self.resize_on_device = resize_on_device
@@ -211,8 +229,11 @@ class MineRLAgent:
         first_t = torch.from_numpy(first).to(self.device, non_blocking=True)
         out, state = self.policy(img_t, first_t, state)
         logits = {k: v[:, -1] for k, v in out["pi_logits"].items()}
+        noise = None
+        if stochastic and self.mesh is not None:  # the global batch's draw, this rank's rows of it
+            noise = dict_sample_noise(logits, self.head_specs, self._generator, self.global_batch_size, self._rows)
         action = dict_sample(logits, self.head_specs, deterministic=not stochastic,
-                             generator=self._generator)
+                             generator=self._generator, noise=noise)
         decoded = self.decoder.decode(action["buttons"][:, 0], action["camera"][:, 0])
         return torch.cat([decoded, out["vpred"][:, -1].float()], dim=1), state
 

@@ -31,11 +31,12 @@ from vpt_tpu_torch.actions import ActionTransformer, IDMActionMapping
 from vpt_tpu_torch.checkpoint import cast_params, load_state_dict_report, load_weights
 from vpt_tpu_torch.config import ACTION_TRANSFORMER_KWARGS, PolicyConfig
 from vpt_tpu_torch.device import resolve_device
-from vpt_tpu_torch.models.heads import head_specs_from_space
+from vpt_tpu_torch.models.heads import dict_sample, head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import InverseActionPolicy, policy_initial_state
 from vpt_tpu_torch.ops.int8 import quantized_model
 from vpt_tpu_torch.ops.resize import resize_image
+from vpt_tpu_torch.parallel import mesh as pmesh
 from vpt_tpu_torch.spaces import DictType
 
 # Resolution the published IDM expects its source videos at (reference:
@@ -61,12 +62,19 @@ class IDMAgent:
     :param params_dtype: "float32", or "bfloat16" to store every parameter
         of two or more dims in bfloat16 (``cast_params``)
     :param quantize_dense: label with int8 trunk dense layers
+    :param mesh: a ``DeviceMesh`` of parallel/mesh.py for batched labeling:
+        every rank passes the same windows to ``predict_actions_batched``,
+        labels its rows of them (dp, fsdp) and, with an sp axis, embeds its
+        slice of each window's frames; every rank returns all the labels
     """
 
     def __init__(self, idm_net_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any], device=None,
                  compute_dtype: str = "float32", seed: int = 0, params_dtype: str = "float32",
-                 quantize_dense: bool = False):
+                 quantize_dense: bool = False, mesh=None):
         self.device = resolve_device(device)
+        if any(pmesh.axis_size(mesh, a) > 1 for a in ("pp", "tp")):
+            raise NotImplementedError("an IDM agent's mesh shards windows (dp, fsdp) and frames (sp) only")
+        self.mesh = mesh
         self.params_dtype = params_dtype
         self.quantize_dense = quantize_dense
         self._seed = seed
@@ -153,13 +161,39 @@ class IDMAgent:
         """Enqueue :meth:`predict_actions_batched`'s forward and the copy of
         its labels to the host; returns a handle for :meth:`collect_actions`
         without waiting for the device."""
-        action, _ = self._forward(windows, policy_initial_state(self.cfg, windows.shape[0], device=self.device))
+        if self.mesh is not None:
+            action = self._mesh_labels(windows)
+        else:
+            action, _ = self._forward(windows, policy_initial_state(self.cfg, windows.shape[0], device=self.device))
         if self.device.type != "cuda":
             return action, None
         host = {k: v.to("cpu", non_blocking=True) for k, v in action.items()}  # into pinned memory
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
         return host, done
+
+    def _mesh_labels(self, windows: np.ndarray) -> Dict[str, torch.Tensor]:
+        """Argmax labels of a (B, N) window stack on the mesh: this rank's
+        windows where B divides over the data ranks (every window on every
+        rank otherwise), this rank's frames under sp (the CNN's share; the
+        latents gathered for the blocks), the labels gathered whole."""
+        from vpt_tpu_torch.parallel.model import SequenceParallelForward
+
+        self._maybe_quantize()
+        b = windows.shape[0]
+        shard = b % pmesh.data_shard(self.mesh)[1] == 0
+        rows = pmesh.local_rows(self.mesh, b) if shard else slice(0, b)
+        with torch.inference_mode():
+            img = torch.from_numpy(np.ascontiguousarray(windows[rows])).to(self.device)
+            first = torch.zeros(img.shape[:2], dtype=torch.bool, device=self.device)
+            state = policy_initial_state(self.cfg, img.shape[0], device=self.device)
+            out, _ = SequenceParallelForward(self.policy, self.mesh)(img, first, state)
+            action = dict_sample(out["pi_logits"], self.head_specs, deterministic=True)
+            if pmesh.axis_size(self.mesh, "sp") > 1:
+                action = {k: pmesh.all_gather_cat(v, pmesh.group(self.mesh, ("sp",)), dim=1) for k, v in action.items()}
+            if shard:
+                action = {k: pmesh.gather_rows(self.mesh, v) for k, v in action.items()}
+        return action
 
     def collect_actions(self, handle) -> Dict[str, np.ndarray]:
         """Wait for a dispatched forward and decode its labels to the MineRL

@@ -5,26 +5,32 @@ behavioural_cloning.py):
     python -m vpt_tpu_torch.behavioural_cloning --data-dir DIR --in-model M.model \\
         --in-weights M.weights --out-weights OUT.weights [--batch-size 8] [--chunk-len 128] \\
         [--epochs 2] [--compute-dtype float32] [--remat] [--cnn-scan-chunks N] [--labels-dir DIR] \\
-        [--qat-dense] [--checkpoint-dir DIR --checkpoint-every N [--resume]] [--device cuda]
+        [--qat-dense] [--checkpoint-dir DIR --checkpoint-every N [--resume]] [--device cuda] \
+        [--fsdp N] [--sp N] [--tp N]
 
-``--checkpoint-dir`` keeps mid-run checkpoints (every ``--checkpoint-every``
+Under ``torchrun --nproc_per_node=N`` it trains on every rank (NCCL on the
+card, gloo with ``--device cpu``): ``--batch-size`` is the global batch,
+data-parallel over the ranks ``--fsdp``, ``--sp`` and ``--tp`` leave
+(parallel/mesh.py), and rank 0 writes the weights.  ``--checkpoint-dir`` keeps mid-run checkpoints (every ``--checkpoint-every``
 steps, and on SIGTERM or SIGINT); ``--resume`` goes on from the newest one
 there.  Runs on CUDA unless ``--device cpu`` is given.
 """
 
 from argparse import ArgumentParser
 
+from vpt_tpu_torch.parallel.mesh import cli_mesh
 from vpt_tpu_torch.training.bc import BCHyperparams, BCTrainer
 
 
 def behavioural_cloning_train(data_dir, in_model, in_weights, out_weights, batch_size=8, chunk_len=128,
                               epochs=2, compute_dtype="float32", device=None, remat=False, cnn_scan_chunks=0,
                               labels_dir=None, qat_dense=False, checkpoint_dir=None, checkpoint_every=0,
-                              resume=False):
+                              resume=False, fsdp=1, sp=1, tp=1):
     hp = BCHyperparams(batch_size=batch_size, chunk_len=chunk_len, epochs=epochs,
                        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+    mesh = cli_mesh(device, fsdp=fsdp, sp=sp, tp=tp)
     trainer = BCTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, remat=remat,
-                                   cnn_scan_chunks=cnn_scan_chunks, qat_dense=qat_dense, device=device)
+                                   cnn_scan_chunks=cnn_scan_chunks, qat_dense=qat_dense, device=device, mesh=mesh)
     steps = trainer.train(data_dir, out_weights, labels_dir=labels_dir,
                           resume_dir=checkpoint_dir if resume else None)
     print(f"Finished: {steps} optimizer steps → {out_weights}")
@@ -53,13 +59,17 @@ def main(argv=None):
                         help="Steps between mid-run checkpoints (0 = only on SIGTERM/SIGINT)")
     parser.add_argument("--resume", action="store_true", help="Resume from the latest checkpoint in --checkpoint-dir")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
+    parser.add_argument("--fsdp", type=int, default=1, help="Ranks that shard the parameters and Adam's moments (FSDP2)")
+    parser.add_argument("--sp", type=int, default=1, help="Ranks that split each chunk's time axis")
+    parser.add_argument("--tp", type=int, default=1, help="Ranks that split the attention and MLP layers (tensor parallel)")
     args = parser.parse_args(argv)
     behavioural_cloning_train(args.data_dir, args.in_model, args.in_weights, args.out_weights,
                               batch_size=args.batch_size, chunk_len=args.chunk_len, epochs=args.epochs,
                               compute_dtype=args.compute_dtype, device=args.device, remat=args.remat,
                               cnn_scan_chunks=args.cnn_scan_chunks, labels_dir=args.labels_dir,
                               qat_dense=args.qat_dense, checkpoint_dir=args.checkpoint_dir,
-                              checkpoint_every=args.checkpoint_every, resume=args.resume)
+                              checkpoint_every=args.checkpoint_every, resume=args.resume, fsdp=args.fsdp,
+                              sp=args.sp, tp=args.tp)
 
 
 if __name__ == "__main__":

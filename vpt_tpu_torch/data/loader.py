@@ -33,7 +33,11 @@ recurrent state, the first chunk of a resumed stream is marked first only
 where it starts its trajectory: the port's trainers restore the recurrent
 state they were trained with.
 
-Not ported yet: shards (``shard_id``/``num_shards``).
+``shard_id``/``num_shards`` split the global stream grid over data-parallel
+ranks: with ``batch_size`` local streams, local stream i is global stream
+``shard_id·batch_size + i`` of a ``batch_size·num_shards``-stream loader,
+so the shards together serve exactly what one loader of the global batch
+would.  ``state()`` records the shard, and a resume checks it.
 """
 
 from __future__ import annotations
@@ -432,20 +436,26 @@ class SequenceDataLoader:
     ``labels_dir`` reads each video's jsonl from there (pseudo-labels kept
     apart from the videos); each jsonl's format is detected either way.
     ``resume_state`` is a :meth:`state` of a loader over the same data,
-    seed, epochs and batch size: each stream goes on from its first
-    unconsumed chunk.
+    seed, epochs, batch size and shard: each stream goes on from its first
+    unconsumed chunk.  ``shard_id``/``num_shards``: this loader serves the
+    ``batch_size`` streams of shard ``shard_id`` of a global batch of
+    ``batch_size·num_shards`` streams (the same ``seed`` on every shard).
     """
 
     def __init__(self, dataset_dir, batch_size=8, chunk_len=128, n_epochs=1, max_queue_size=8,
                  resolution: Tuple[int, int] = AGENT_RESOLUTION, seed: Optional[int] = None,
-                 labels_dir: Optional[str] = None, resume_state: Optional[Dict] = None):
+                 labels_dir: Optional[str] = None, resume_state: Optional[Dict] = None,
+                 shard_id: int = 0, num_shards: int = 1):
         from vpt_tpu_torch.data.video import build
 
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} outside num_shards {num_shards}")
         build()  # once here, not once per worker
         demonstration_tuples = _discover(dataset_dir, labels_dir)
-        if batch_size > len(demonstration_tuples):
-            raise ValueError(f"batch_size {batch_size} should be <= number of demonstrations "
-                             f"{len(demonstration_tuples)}")
+        global_streams = batch_size * num_shards
+        if global_streams > len(demonstration_tuples):
+            raise ValueError(f"global stream count {global_streams} (batch_size {batch_size} x num_shards "
+                             f"{num_shards}) should be <= number of demonstrations {len(demonstration_tuples)}")
         rng = random.Random(seed)
         self.demonstration_tuples = []
         for _ in range(n_epochs):
@@ -454,19 +464,23 @@ class SequenceDataLoader:
             self.demonstration_tuples += shuffled
         self.chunk_len = chunk_len
         self.batch_size = batch_size
-        # stream i owns list positions i, i + B, ...; its cursor is (position, chunks consumed)
+        self.shard_id, self.num_shards = shard_id, num_shards
+        # global stream g owns list positions g, g + G, ...; its cursor is (position, chunks consumed)
         streams = [(-1, 0)] * batch_size
         if resume_state is not None:
             streams = [(int(p), int(c)) for p, c in resume_state["streams"]]
             if len(streams) != batch_size:
                 raise ValueError(f"resume_state has {len(streams)} streams, the loader {batch_size}")
+            shard = list(resume_state.get("shard", [0, 1]))
+            if shard != [shard_id, num_shards]:
+                raise ValueError(f"resume_state is shard {shard}, the loader [{shard_id}, {num_shards}]")
         self._stream_cursor = list(streams)
         self.n_trajectories_dispatched = int((resume_state or {}).get("n_trajectories_dispatched", 0))
 
         self.task_queues = [_mp.Queue() for _ in range(batch_size)]
         for i in range(batch_size):
-            first_pos, skip_chunks = streams[i] if streams[i][0] >= 0 else (i, 0)
-            for pos in range(first_pos, len(self.demonstration_tuples), batch_size):
+            first_pos, skip_chunks = streams[i] if streams[i][0] >= 0 else (shard_id * batch_size + i, 0)
+            for pos in range(first_pos, len(self.demonstration_tuples), global_streams):
                 self.task_queues[i].put((pos, *self.demonstration_tuples[pos], skip_chunks if pos == first_pos else 0))
             self.task_queues[i].put(None)
         self.output_queues = [_mp.Queue(maxsize=max_queue_size) for _ in range(batch_size)]
@@ -485,7 +499,8 @@ class SequenceDataLoader:
         chunks consumed), and the trajectories dispatched so far.  Feed it
         back as ``resume_state=`` to go on with nothing skipped or repeated."""
         return {"n_trajectories_dispatched": self.n_trajectories_dispatched,
-                "streams": [list(c) for c in self._stream_cursor]}
+                "streams": [list(c) for c in self._stream_cursor],
+                "shard": [self.shard_id, self.num_shards]}
 
     def __iter__(self):
         return self

@@ -243,6 +243,26 @@ def dict_sample(logits: Dict[str, torch.Tensor], specs: Tuple[HeadSpec, ...],
     return out
 
 
+def dict_sample_noise(logits: Dict[str, torch.Tensor], specs: Tuple[HeadSpec, ...], generator: torch.Generator,
+                      batch: int, rows: slice) -> Dict[str, torch.Tensor]:
+    """The noise :func:`dict_sample` draws from ``generator`` for a batch of
+    ``batch`` rows, of which ``logits`` hold ``rows``: drawn whole, in the
+    same order, and cut to those rows.  Ranks that each hold some rows of a
+    batch and share a generator's seed so sample what one process sampling
+    the whole batch would."""
+    noise = {}
+    for s in specs:
+        x = logits[s.key]
+        if s.kind == "gaussian":
+            mean = x[..., 0]
+            noise[s.key] = torch.randn((batch,) + mean.shape[1:], generator=generator, device=x.device,
+                                       dtype=mean.dtype)[rows]
+        else:
+            noise[s.key] = torch.rand((batch,) + x.shape[1:], generator=generator, device=x.device,
+                                      dtype=torch.float32)[rows]
+    return noise
+
+
 def ewma_mean_var(stats: Dict[str, torch.Tensor], epsilon: float = 1e-5):
     """Debiased (mean, var) from raw EWMA accumulators
     (reference: normalize_ewma.py:25-31, 57-60)."""

@@ -240,7 +240,8 @@ class FanInInitLayer(nn.Module):
         if self.layer.bias is not None:
             self.layer.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding=None) -> torch.Tensor:
+        """``padding`` overrides the layer's own (a conv layer's)."""
         if self.norm is not None:
             x = self.norm(x)
         if self.quantize:
@@ -253,9 +254,9 @@ class FanInInitLayer(nn.Module):
         if self.layer_type == "linear":
             x = F.linear(x.to(dt), w, b)
         elif self.layer_type == "conv":
-            x = F.conv2d(x.to(dt), w, b, stride=self.stride, padding=self.padding)
+            x = F.conv2d(x.to(dt), w, b, stride=self.stride, padding=self.padding if padding is None else padding)
         else:
-            x = F.conv3d(x.to(dt), w, b, stride=self.stride, padding=self.padding)
+            x = F.conv3d(x.to(dt), w, b, stride=self.stride, padding=self.padding if padding is None else padding)
         return F.relu(x) if self.use_activation else x
 
 

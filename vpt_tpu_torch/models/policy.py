@@ -196,6 +196,15 @@ class MinecraftAgentPolicy(nn.Module):
         """Post-recurrence tail: relu → lastlayer → final_ln → heads."""
         return self._heads(self.net.latent(x))
 
+    def recurrent(self, x, first, state):
+        """The recurrent blocks (the state passes through where there are none)."""
+        return self.net.recurrent(x, first, state)
+
+    def embed_time_slice(self, img, time_slice: slice):
+        """:meth:`embed` of the steps ``time_slice`` of a (B, T) chunk (the
+        sequence-parallel split, parallel/model.py)."""
+        return self.embed(img[:, time_slice])
+
     def get_output_for_observation(self, img, state, first):
         """(pd, denormalised value, state_out) for one observation per stream
         (reference: policy.py:287-305).  :param img: (B, H, W, C); first: (B,)"""
@@ -262,12 +271,31 @@ class InverseActionNet(nn.Module):
         x = self.conv3d_layer(x.permute(0, 4, 1, 2, 3))  # (B, C', T', H', W')
         return x.transpose(1, 2).flatten(0, 1), x.shape[0], x.shape[2]
 
-    def embed(self, img: torch.Tensor) -> torch.Tensor:
-        """uint8 (B, T, H, W, C) → (B, T, hidsize) latents before the blocks."""
+    def embed(self, img: torch.Tensor, time_slice: Optional[slice] = None) -> torch.Tensor:
+        """uint8 (B, T, H, W, C) → (B, T, hidsize) latents before the blocks;
+        with ``time_slice``, the latents of those steps only, equal to that
+        slice of the whole window's."""
         x = self.img_preprocess(img)
         if self.conv3d_layer is None:
-            return self.img_process(x)
+            return self.img_process(x if time_slice is None else x[:, time_slice])
+        if time_slice is not None:
+            return self.img_process.forward_nchw(*self.conv3d_front_slice(x, time_slice))
         return self.img_process.forward_nchw(*self.conv3d_front(x))
+
+    def conv3d_front_slice(self, x: torch.Tensor, time_slice: slice):
+        """:meth:`conv3d_front`'s output frames ``time_slice`` alone, from the
+        input frames the time kernel reaches: past the window's edges those
+        are the conv's zero padding, elsewhere the neighbours' frames."""
+        layer = self.conv3d_layer
+        kt, (pt, *pad_hw), st = layer_kernel_time(layer)
+        if st != 1:
+            raise NotImplementedError("a time-sliced conv3d front end needs time stride 1")
+        t = x.shape[1]
+        lo, hi = time_slice.start - pt, time_slice.stop + kt - 1 - pt
+        xs = x[:, max(lo, 0):min(hi, t)]
+        xs = F.pad(xs, (0, 0, 0, 0, 0, 0, max(0, -lo), max(0, hi - t)))
+        y = layer(xs.permute(0, 4, 1, 2, 3), padding=(0, *pad_hw))  # (B, C', t, H', W')
+        return y.transpose(1, 2).flatten(0, 1), y.shape[0], y.shape[2]
 
     def forward(self, img, first, state):
         x, state_out = self.recurrent_layer(self.embed(img), first, state)
@@ -292,6 +320,17 @@ class InverseActionPolicy(nn.Module):
         :returns: ({"pi_logits": dict}, state_out)"""
         latent, state_out = self.net(img, first, state)
         return {"pi_logits": self.pi_head(latent, mask=action_mask)}, state_out
+
+    def recurrent(self, x, first, state):
+        return self.net.recurrent_layer(x, first, state)
+
+    def embed_time_slice(self, img, time_slice: slice):
+        return self.net.embed(img, time_slice)
+
+    def heads_from_recurrent(self, x):
+        """The forward's tail from the blocks' output (``lastlayer``, whose
+        result the forward discards, is not run)."""
+        return {"pi_logits": self.pi_head(self.net.final_ln(F.relu(x)))}
 
     def predict(self, img, first, state, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -324,6 +363,12 @@ def get_logprob_of_action(head_specs: Tuple[HeadSpec, ...], pd: Dict, action: Di
 def get_kl_of_action_dists(head_specs: Tuple[HeadSpec, ...], pd1: Dict, pd2: Dict) -> torch.Tensor:
     """KL(pd1 ‖ pd2) of two action distributions (reference: policy.py:281-285)."""
     return dict_kl(pd1, pd2, head_specs)
+
+
+def layer_kernel_time(layer) -> Tuple[int, Tuple[int, int, int], int]:
+    """A conv3d layer's (time kernel size, (t, h, w) padding, time stride)."""
+    kt = layer.layer.weight.shape[2]
+    return kt, _triple(layer.padding), _triple(layer.stride)[0]
 
 
 def _triple(x) -> Tuple[int, int, int]:

@@ -1,0 +1,132 @@
+"""A trainer's model on a mesh: the wrappers applied in order, the sequence-
+parallel forward, and the gradient reduction over the data axes.
+
+``ParallelModel(model, mesh, unused=...)``:
+
+  * tp > 1: the tensor-parallel plan (parallel/tp.py);
+  * fsdp > 1: FSDP2 over the (dp, fsdp) plane (parallel/fsdp.py), which
+    reduces the gradients itself;
+  * otherwise DDP over the (dp, sp) ranks, at any size (one rank included),
+    unless tp shards the parameters: then the gradients are all-reduced over
+    (dp, sp) after the backward by :meth:`sync_grads`, since DDP takes no
+    DTensor parameters.  DDP ignores the parameters in ``unused``, which the
+    loss never reaches (BC's value head, the IDM's discarded ``lastlayer``):
+    they get no gradient on any rank, so there is nothing to reduce.
+
+Sequence parallelism (``SequenceParallelForward``): each sp rank embeds its
+T/sp frames, which is the FLOPs bulk (the CNN; the IDM's conv3d takes the
+frames its kernel reaches across the slice's edges); the latents are
+gathered over sp with the differentiable ``all_gather`` of
+``torch.distributed.nn.functional``, whose backward sums each slice's
+gradient from every rank; the blocks run on the whole T from the same
+state, and the heads on the rank's own slice, which is all its loss covers.
+With each rank's loss a mean over its own B/(dp·fsdp) rows and T/sp steps,
+averaging over (dp, sp) gives the gradient of the global mean: the sum over
+sp of the slices' terms, the average over dp of the rows'.
+
+Nothing gives way quietly: a wrapper that fails to apply raises, and
+combinations the port does not compose (sp with fsdp or tp) raise too.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from torch.nn.parallel import DistributedDataParallel
+
+from vpt_tpu_torch.parallel.fsdp import apply_fsdp
+from vpt_tpu_torch.parallel.mesh import axis_size, group, local_time
+from vpt_tpu_torch.parallel.tp import apply_tp
+
+
+class SequenceParallelForward(nn.Module):
+    """``model(frames, firsts, state)`` with the time axis split over the
+    mesh's sp ranks; returns (the heads' outputs on this rank's time slice,
+    the state after the whole chunk).  At sp = 1 it is the model's own
+    forward, over the whole chunk."""
+
+    def __init__(self, model: nn.Module, mesh: Optional[DeviceMesh]):
+        super().__init__()
+        self.model = model
+        self.mesh = mesh
+        self.sp = axis_size(mesh, "sp")
+        self.group = group(mesh, ("sp",)) if self.sp > 1 else None
+
+    def time_slice(self, steps: int) -> slice:
+        return local_time(self.mesh, steps) if self.sp > 1 else slice(0, steps)
+
+    def forward(self, frames: torch.Tensor, firsts: torch.Tensor, state):
+        if self.sp == 1:
+            return self.model(frames, firsts, state)
+        from torch.distributed.nn.functional import all_gather
+
+        sl = self.time_slice(frames.shape[1])
+        x = self.model.embed_time_slice(frames, sl)
+        x = torch.cat(all_gather(x, group=self.group), dim=1)
+        x, state_out = self.model.recurrent(x, firsts, state)
+        return self.model.heads_from_recurrent(x[:, sl]), state_out
+
+
+def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
+    """The mesh's parameter sharding alone, in place (the tensor-parallel
+    plan where tp > 1, then FSDP2 where fsdp > 1): for a model that is run
+    but not trained, such as PPO's frozen anchor."""
+    if axis_size(mesh, "tp") > 1:
+        apply_tp(model, mesh["tp"])
+    if axis_size(mesh, "fsdp") > 1:
+        apply_fsdp(model, mesh)
+    return model
+
+
+class ParallelModel:
+    """``model`` (a MinecraftAgentPolicy or an InverseActionPolicy, on its
+    device, every rank holding the same weights) wrapped for training on
+    ``mesh``; the wrappers change ``model`` in place, so its parameters
+    (DTensors where sharded) are what the optimizer takes afterwards.
+    Calling it runs the forward of :class:`SequenceParallelForward`."""
+
+    def __init__(self, model: nn.Module, mesh: DeviceMesh, unused: Sequence[str] = ()):
+        self.mesh = mesh
+        self.model = model
+        sp, tp, fsdp = axis_size(mesh, "sp"), axis_size(mesh, "tp"), axis_size(mesh, "fsdp")
+        if axis_size(mesh, "pp") > 1:
+            raise NotImplementedError("a pp mesh trains through training/pp_bc.py's PPBCTrainer")
+        if sp > 1 and (fsdp > 1 or tp > 1):
+            raise NotImplementedError("sequence parallelism composes with dp only, not with fsdp or tp")
+        shard_model(model, mesh)
+        self.forward_module = SequenceParallelForward(model, mesh)
+        self._sync_group = None
+        self._call = self.forward_module
+        if fsdp == 1 and tp > 1:  # FSDP2 reduces its gradients itself, DDP takes no DTensors
+            if axis_size(mesh, "dp") * sp > 1:
+                self._sync_group = group(mesh, ("dp", "sp"))
+        elif fsdp == 1:
+            ignored = [f"model.{n}" for n, _ in model.named_parameters() if n.startswith(tuple(unused))]
+            DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(self.forward_module, ignored)
+            device = next(model.parameters()).device
+            self._call = DistributedDataParallel(
+                self.forward_module, process_group=group(mesh, ("dp", "sp")),
+                device_ids=[device.index] if device.type == "cuda" else None, broadcast_buffers=False)
+
+    def __call__(self, frames, firsts, state):
+        return self._call(frames, firsts, state)
+
+    def time_slice(self, steps: int) -> slice:
+        return self.forward_module.time_slice(steps)
+
+    def sync_grads(self) -> None:
+        """Average the gradients over (dp, sp) where no wrapper does (tensor
+        parallelism with data parallelism beside it); a no-op otherwise."""
+        if self._sync_group is None:
+            return
+        n = dist.get_world_size(self._sync_group)
+        for p in self.model.parameters():
+            if p.grad is not None:
+                g = p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad
+                dist.all_reduce(g, group=self._sync_group)
+                g.div_(n)

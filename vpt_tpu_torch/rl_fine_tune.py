@@ -4,18 +4,22 @@
     python -m vpt_tpu_torch.rl_fine_tune --in-model M.model --in-weights M.weights \\
         --out-weights OUT.weights --mock-env [--streams 8] [--updates 50] [--rollout-len 40] \\
         [--compute-dtype bfloat16] [--aux-phase-every 0] [--eval-every 0] \\
-        [--checkpoint-dir DIR --checkpoint-every N [--resume]] [--device cuda]
+        [--checkpoint-dir DIR --checkpoint-every N [--resume]] [--device cuda] [--fsdp N] [--tp N]
 
 ``--mock-env`` runs the whole loop on synthetic frames with a demo reward (+1
 per attack press), on machines without the Java MineRL env; without it the
 streams are ``gym.make("MineRLBasaltFindCave-v0")`` envs.  ``--checkpoint-dir``
 keeps snapshots (every ``--checkpoint-every`` updates, and on SIGTERM or
 SIGINT); ``--resume`` goes on from the newest one there.  Runs on CUDA unless
-``--device cpu`` is given.
+``--device cpu`` is given.  Under ``torchrun`` every rank steps its own
+``--streams`` env streams and the update runs over all the ranks' streams
+(``--fsdp`` and ``--tp`` shard the policy and its anchor; the evaluation is
+single-process, so ``--eval-every`` takes no process group).
 """
 
 from argparse import ArgumentParser
 
+from vpt_tpu_torch.parallel.mesh import cli_mesh, rank
 from vpt_tpu_torch.training.rl import PPOHyperparams, PPOTrainer
 from vpt_tpu_torch.utils.metrics import MetricsLogger
 
@@ -38,7 +42,7 @@ def main(in_model, in_weights, out_weights, mock_env=False, streams=8, updates=5
          learning_rate=3e-5, kl_coef=0.2, compute_dtype="bfloat16", metrics_path=None, aux_phase_every=0,
          aux_epochs=4, beta_clone=1.0, collect_groups=0, eval_every=0, eval_episodes=8, eval_streams=4,
          eval_max_steps=500, eval_record_dir=None, device=None, checkpoint_dir=None, checkpoint_every=0,
-         resume=False):
+         resume=False, fsdp=1, tp=1):
     hp = PPOHyperparams(
         rollout_len=rollout_len,
         learning_rate=learning_rate,
@@ -49,13 +53,18 @@ def main(in_model, in_weights, out_weights, mock_env=False, streams=8, updates=5
         aux_epochs=aux_epochs,
         beta_clone=beta_clone,
     )
-    trainer = PPOTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, device=device)
+    mesh = cli_mesh(device, fsdp=fsdp, tp=tp)
+    if mesh is not None and eval_every > 0:
+        raise ValueError("--eval-every is single-process: evaluate the written weights without torchrun")
+    trainer = PPOTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, device=device,
+                                    mesh=mesh)
+    first_env = rank() * streams  # each rank's streams are envs of their own
 
     eval_envs = None
     if mock_env:
         from vpt_tpu_torch.agent.rollout import MockMinecraftEnv
 
-        envs = [MockMinecraftEnv(seed=i) for i in range(streams)]
+        envs = [MockMinecraftEnv(seed=first_env + i) for i in range(streams)]
         reward_fn = demo_attack_reward
         if eval_every > 0:  # dedicated eval streams, with done_prob so that episodes end
             eval_envs = [MockMinecraftEnv(seed=10_000 + i, done_prob=0.02) for i in range(eval_streams)]
@@ -84,7 +93,7 @@ def parse_args(argv=None):
     parser.add_argument("--in-weights", required=True, type=str, help="Path to the .weights file (also the frozen KL anchor).")
     parser.add_argument("--out-weights", required=True, type=str, help="Path where finetuned weights will be saved.")
     parser.add_argument("--mock-env", action="store_true", help="Use synthetic envs with the demo attack reward (no Java).")
-    parser.add_argument("--streams", type=int, default=8, help="Parallel env streams.")
+    parser.add_argument("--streams", type=int, default=8, help="Parallel env streams (each rank's, under torchrun).")
     parser.add_argument("--updates", type=int, default=50, help="collect+update cycles.")
     parser.add_argument("--rollout-len", type=int, default=40, help="Steps collected per stream per update.")
     parser.add_argument("--learning-rate", type=float, default=3e-5)
@@ -114,6 +123,8 @@ def parse_args(argv=None):
                         help="Updates between checkpoints (0 = only on SIGTERM/SIGINT).")
     parser.add_argument("--resume", action="store_true", help="Continue from the newest checkpoint in --checkpoint-dir.")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
+    parser.add_argument("--fsdp", type=int, default=1, help="Ranks that shard the policy, its anchor and Adam's moments")
+    parser.add_argument("--tp", type=int, default=1, help="Ranks that split the attention and MLP layers (tensor parallel)")
     return parser.parse_args(argv)
 
 
@@ -127,4 +138,5 @@ if __name__ == "__main__":
         eval_every=args.eval_every, eval_episodes=args.eval_episodes, eval_streams=args.eval_streams,
         eval_max_steps=args.eval_max_steps, eval_record_dir=args.eval_record_dir, device=args.device,
         checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every, resume=args.resume,
+        fsdp=args.fsdp, tp=args.tp,
     )

@@ -27,7 +27,21 @@ Every recurrence of the policy config trains: the transformer, the three
 LSTM types (whose ``{h, c}`` carries are the streams' state) and ``none``
 (no state: None passes through), and a batch-norm CNN, whose running
 statistics stay as they are (models/layers.py ``BatchNorm``).
-Not ported yet: multi-process and sharded training.
+
+On a mesh (``mesh=``, parallel/mesh.py; one process a device under
+torchrun) the step equals the single-device step on the same global batch:
+``hp.batch_size`` is the global batch, each rank loads its B/(dp·fsdp)
+streams (the loader's shard), and ``train_step`` takes those local rows.
+The model is wrapped by parallel/model.py: DDP over (dp, sp), FSDP2 when
+fsdp > 1, the tensor-parallel plan when tp > 1, whole parameters on every
+rank otherwise.  The loss of each rank is the mean over its own rows and
+(under sp) its own time slice, so the data axes' gradient average is the
+global mean's gradient; the global batch must divide evenly over the ranks.
+The value head, which the loss never reaches, is outside DDP's reduction as
+it is outside the optimizer.  Rank 0 writes the weights and checkpoints,
+pulled whole from the shards by every rank together; every other rank
+writes its own cursor and streams' state under ``<checkpoint_dir>/shard<p>``.
+A stop signal on any rank stops every rank after a common checkpoint.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import os
 import queue
 import signal
 import threading
@@ -45,7 +60,7 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.actions.mapping import CameraHierarchicalMapping
-from vpt_tpu_torch.checkpoint import load_model_parameters, load_state_dict_report, load_weights, save_weights
+from vpt_tpu_torch.checkpoint import load_model_parameters, load_weights
 from vpt_tpu_torch.checkpoint import native as native_ckpt
 from vpt_tpu_torch.config import PolicyConfig
 from vpt_tpu_torch.device import resolve_device
@@ -54,6 +69,7 @@ from vpt_tpu_torch.models.layers import init_parameters, set_fake_quant
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
 from vpt_tpu_torch.models.transformer import map_state
 from vpt_tpu_torch.ops.int8 import qat_mask
+from vpt_tpu_torch.parallel import mesh as pmesh
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.utils.metrics import MetricsLogger
 from vpt_tpu_torch.utils.profiling import compiled_flops
@@ -176,7 +192,11 @@ class ClippedAdam:
     def __init__(self, params, hp):
         self.params: List[torch.nn.Parameter] = list(params)
         self.max_grad_norm = hp.max_grad_norm
-        self.adam = torch.optim.Adam(self.params, lr=hp.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        # tensor parallelism mixes plain and DTensor parameters, which one
+        # multi-tensor update does not take: they go in a group each
+        kinds = [[p for p in self.params if isinstance(p, torch.distributed.tensor.DTensor) == d] for d in (False, True)]
+        groups = [{"params": ps} for ps in kinds if ps] if all(kinds) else self.params
+        self.adam = torch.optim.Adam(groups, lr=hp.learning_rate, betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=hp.weight_decay)
 
     def zero_grad(self) -> None:
@@ -187,9 +207,17 @@ class ClippedAdam:
         for p in self.params:
             if p.grad is None:  # as in optax, a parameter the loss does not reach still decays
                 p.grad = torch.zeros_like(p)
-        norm = torch.nn.utils.clip_grad_norm_(self.params, self.max_grad_norm)
+        norm = pmesh.clip_grad_norm_(self.params, self.max_grad_norm)  # torch's own for plain tensors
         self.adam.step()
         return norm
+
+    def state_dict(self) -> Dict:
+        """Adam's whole state in the single-device layout (one group in
+        ``params`` order) on any mesh: a collective where it is sharded."""
+        return pmesh.full_optimizer_state(self.adam, self.params)
+
+    def load_state_dict(self, sd: Dict) -> None:
+        pmesh.load_full_optimizer_state(self.adam, self.params, sd)
 
 
 def make_optimizer(params, hp: BCHyperparams) -> ClippedAdam:
@@ -228,16 +256,32 @@ def stop_on_signals():
 
 class CheckpointMixin:
     """Native checkpoints of a trainer with ``policy``, ``optimizer`` (a
-    ``ClippedAdam``) and ``step_count``."""
+    ``ClippedAdam``), ``step_count`` and ``mesh`` (None on one device).  On
+    a mesh the saves and loads are collectives: every rank pulls the whole
+    weights and moments, rank 0 writes them, every rank reads them."""
+
+    def full_weights(self) -> Dict[str, torch.Tensor]:
+        """The policy's whole state_dict on the host (a collective on a mesh)."""
+        self.init()
+        return pmesh.full_state_dict(self.policy)
+
+    def save_weights(self, path: str) -> None:
+        """Write the ``.weights`` file from rank 0 (every rank calls it)."""
+        weights = self.full_weights()
+        if self._writer():
+            torch.save(weights, path)
 
     def save_checkpoint(self, directory: str, data_state: Optional[Dict] = None, extra: Any = None,
-                        keep: int = 3) -> str:
+                        keep: int = 3) -> Optional[str]:
         """Write ``directory/step_<step_count>``: the weights, the Adam
-        state, ``data_state`` with the step count, and ``extra``."""
-        self.init()
+        state, ``data_state`` with the step count, and ``extra``; returns
+        its path on the rank that writes (rank 0), else None."""
+        weights = self.full_weights()
+        opt = self.optimizer.state_dict()
+        if not self._writer():
+            return None
         return native_ckpt.save_checkpoint(
-            directory, self.step_count, {"policy": self.policy.state_dict()},
-            opt_state=self.optimizer.adam.state_dict(),
+            directory, self.step_count, {"policy": weights}, opt_state=opt,
             data_state={**(data_state or {}), "step_count": self.step_count}, extra=extra, keep=keep)
 
     def restore_checkpoint(self, directory: str) -> Optional[Tuple[Dict, Any]]:
@@ -247,10 +291,81 @@ class CheckpointMixin:
         payload, data_state = native_ckpt.restore_checkpoint(directory)
         if payload is None:
             return None
-        self.policy.load_state_dict(payload["variables"]["policy"], strict=True)
-        self.optimizer.adam.load_state_dict(payload["opt_state"])
+        pmesh.load_full_state_dict(self.policy, payload["variables"]["policy"])
+        self.optimizer.load_state_dict(payload["opt_state"])
         self.step_count = int(data_state["step_count"])
         return data_state, payload.get("extra")
+
+    def load_weights_report(self, state_dict: Dict[str, torch.Tensor]) -> Dict[str, list]:
+        """``load_state_dict_report`` of the policy, through its whole
+        weights (on a mesh every rank loads the same file)."""
+        return pmesh.load_weights_whole(self.policy, state_dict)
+
+    def _wrap(self, policy, unused=()):
+        """The trained model on ``self.mesh`` (parallel/model.py), or None."""
+        if self.mesh is None:
+            return None
+        from vpt_tpu_torch.parallel.model import ParallelModel
+
+        return ParallelModel(policy, self.mesh, unused=unused)
+
+    def _forward(self, frames, firsts, state):
+        """(heads' outputs, state_out) and the time slice they cover."""
+        if self.model is None:
+            out, state_out = self.policy(frames, firsts, state)
+            return out, state_out, slice(None)
+        out, state_out = self.model(frames, firsts, state)
+        return out, state_out, self.model.time_slice(frames.shape[1])
+
+    def _writer(self) -> bool:
+        """Whether this process writes the weights and checkpoints: rank 0 of a mesh."""
+        return self.mesh is None or pmesh.rank() == 0
+
+    def _shard_writer(self) -> bool:
+        """Whether this process keeps its own cursor under ``shard<rank>``."""
+        return self.mesh is not None and pmesh.rank() > 0
+
+    def _any_rank(self, flag: bool) -> bool:
+        return flag if self.mesh is None else pmesh.any_rank([flag], self.device)[0]
+
+    def _time_slice(self, steps: int) -> slice:
+        return slice(None) if self.model is None else self.model.time_slice(steps)
+
+    def _data_group(self):
+        return pmesh.group(self.mesh, ("dp", "fsdp", "sp"))
+
+    def _local_batch_size(self, batch_size: int) -> int:
+        """This rank's streams of a global ``batch_size``."""
+        rows = pmesh.local_rows(self.mesh, batch_size)
+        return rows.stop - rows.start
+
+    def _local_state(self, state):
+        """A whole-width initial state → the rank's heads of it under tp."""
+        from vpt_tpu_torch.parallel.tp import local_state
+
+        return local_state(state, self.mesh, self.cfg.attention_heads)
+
+    def _loader_shard(self, batch_size: int) -> Dict[str, int]:
+        """The loader arguments of this rank's streams of a global batch."""
+        index, count = pmesh.data_shard(self.mesh)
+        return {"batch_size": self._local_batch_size(batch_size), "shard_id": index, "num_shards": count}
+
+    def _sum_over_data(self, *values: float) -> List[float]:
+        """Per-rank sums added over the data and sp axes (as they are on one device)."""
+        if self.mesh is None:
+            return list(values)
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        torch.distributed.all_reduce(t, group=self._data_group())
+        return t.tolist()
+
+    def _shard_dir(self, directory: str) -> str:
+        """Where a rank other than 0 keeps its own cursor and state."""
+        return os.path.join(directory, f"shard{pmesh.rank()}")
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean of the ranks' losses over the data and sp axes: the
+        loss of the global batch (each rank's a mean over equal parts)."""
+        return loss.detach() if self.mesh is None else pmesh.all_mean(loss, self._data_group())
 
 
 def step_flops(trainer, *step_args) -> Optional[float]:
@@ -271,9 +386,12 @@ def step_flops(trainer, *step_args) -> Optional[float]:
 
 
 class BCTrainer(CheckpointMixin):
-    """Sequence-chunked BC fine-tuning on one device.
+    """Sequence-chunked BC fine-tuning on one device, or on a mesh.
 
-    :param device: torch device; None means CUDA, which must then exist
+    :param mesh: a ``DeviceMesh`` of parallel/mesh.py ``make_mesh`` (the
+        process group started first); None trains on one device
+    :param device: torch device; None means CUDA (the rank's own card under
+        a process group), which must then exist
     :param seed: seeds the initial weights (drawn on the CPU, so every
         device starts from the same weights) and the loader's shuffle
     :param remat, cnn_scan_chunks: the config's memory options (config.py)
@@ -293,9 +411,12 @@ class BCTrainer(CheckpointMixin):
         qat_dense: bool = False,
         seed: int = 0,
         device=None,
+        mesh=None,
     ):
         self.hp = hp or BCHyperparams()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.model = None
         self.cfg = PolicyConfig.from_kwargs(dict(policy_kwargs)).replace(
             compute_dtype=compute_dtype, remat=remat, cnn_scan_chunks=cnn_scan_chunks)
         self.temperature = float(pi_head_kwargs.get("temperature", 1.0))
@@ -317,6 +438,7 @@ class BCTrainer(CheckpointMixin):
         if self.qat_dense:
             set_fake_quant(policy, self.qat_mask(policy))
         self.policy = policy.to(self.device)
+        self.model = self._wrap(self.policy, unused=("value_head.",))
         self.optimizer = make_optimizer(self.trainable_parameters(), self.hp)
 
     def qat_mask(self, policy: Optional[MinecraftAgentPolicy] = None) -> Dict[str, bool]:
@@ -332,7 +454,7 @@ class BCTrainer(CheckpointMixin):
 
     def load_weights(self, path: str) -> Dict[str, list]:
         self.init()
-        return load_state_dict_report(self.policy, load_weights(path))
+        return self.load_weights_report(load_weights(path))
 
     @classmethod
     def from_files(cls, in_model: str, in_weights: Optional[str] = None, **kw) -> "BCTrainer":
@@ -344,7 +466,10 @@ class BCTrainer(CheckpointMixin):
         return trainer
 
     def initial_state(self, batch_size: int):
-        return policy_initial_state(self.cfg, batch_size, ring=False, device=self.device)
+        """The zero state of this rank's streams of a global ``batch_size``
+        (all of them on one device; the rank's heads of them under tp)."""
+        return self._local_state(policy_initial_state(self.cfg, self._local_batch_size(batch_size), ring=False,
+                                                      device=self.device))
 
     # ------------------------------------------------------------------- step
 
@@ -354,26 +479,35 @@ class BCTrainer(CheckpointMixin):
         return {k: batch[k].to(self.device, dtype) for k, dtype in TRAIN_KEYS.items()}
 
     def masked_nll(self, batch: Dict[str, torch.Tensor], state):
-        """(Σ −logp·mask, state_out) of one chunk."""
-        out, state_out = self.policy(batch["frames"], batch["firsts"], state)
-        actions = {"buttons": batch["buttons"][..., None], "camera": batch["camera"][..., None]}
-        logp = dict_logprob(out["pi_logits"], actions, self.head_specs)  # (B, T)
-        return -(logp * batch["mask"].float()).sum(), state_out
+        """(Σ −logp·mask, state_out) of one chunk (on a mesh under sp, of
+        this rank's time slice)."""
+        nll, state_out, _ = self._scored_nll(batch, state)
+        return nll, state_out
+
+    def _scored_nll(self, batch: Dict[str, torch.Tensor], state):
+        """:meth:`masked_nll` and the number of (row, step) pairs it scored."""
+        out, state_out, sl = self._forward(batch["frames"], batch["firsts"], state)
+        actions = {"buttons": batch["buttons"][:, sl, None], "camera": batch["camera"][:, sl, None]}
+        logp = dict_logprob(out["pi_logits"], actions, self.head_specs)  # (B, t)
+        return -(logp * batch["mask"][:, sl].float()).sum(), state_out, logp.numel()
 
     def train_step(self, batch, state):
         """One optimizer step on a (B, T) batch (host numpy, or tensors from
-        :class:`DevicePrefetcher`); returns (state, loss, grad_norm), the
-        state detached."""
+        :class:`DevicePrefetcher`; on a mesh, this rank's rows); returns
+        (state, loss, grad_norm), the state detached, the loss and the norm
+        those of the global batch."""
         self.init()
         batch = self.to_device(batch)
         self.optimizer.zero_grad()
-        nll, state_out = self.masked_nll(batch, state)
+        nll, state_out, n = self._scored_nll(batch, state)
         # normalised by B·T: at T=1 this is the reference's sum(-logprob)/BATCH_SIZE
-        loss = nll / (batch["mask"].shape[0] * batch["mask"].shape[1])
+        loss = nll / n
         loss.backward()
+        if self.model is not None:
+            self.model.sync_grads()
         grad_norm = self.optimizer.step()
         self.step_count += 1
-        return map_state(torch.Tensor.detach, state_out), loss.detach(), grad_norm
+        return map_state(torch.Tensor.detach, state_out), self._global_loss(loss), grad_norm
 
     def train_step_flops(self, batch, state) -> Optional[float]:
         """FLOPs of one :meth:`train_step` on ``batch`` from ``state``, which
@@ -393,24 +527,26 @@ class BCTrainer(CheckpointMixin):
 
         self.init()
         hp = self.hp
-        loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.chunk_len, n_epochs=1,
-                                    seed=self._seed, resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]),
-                                    labels_dir=labels_dir)
+        shard = self._loader_shard(hp.batch_size)
+        loader = SequenceDataLoader(data_dir, chunk_len=hp.chunk_len, n_epochs=1, seed=self._seed,
+                                    resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]),
+                                    labels_dir=labels_dir, **shard)
         state = self.initial_state(hp.batch_size)
-        last_episode = np.full(hp.batch_size, -1, np.int64)
+        last_episode = np.full(shard["batch_size"], -1, np.int64)
         nll_sum, frames, n_batches = 0.0, 0.0, 0
         try:
-            for batch in loader:
+            for batch in _in_step(loader, self.device, self.mesh):
                 last_episode = inject_episode_firsts(batch, last_episode, hp.chunk_len)
                 placed = self.to_device(batch)
-                nll, state = self.masked_nll(placed, state)
+                nll, state, _ = self._scored_nll(placed, state)
                 nll_sum += float(nll)
-                frames += float(batch["mask"].sum())
+                frames += float(placed["mask"][:, self._time_slice(hp.chunk_len)].sum())
                 n_batches += 1
                 if max_batches and n_batches >= max_batches:
                     break
         finally:
             loader.close()
+        nll_sum, frames = self._sum_over_data(nll_sum, frames)
         return {"nll_per_frame": nll_sum / max(frames, 1.0), "frames": int(frames), "batches": n_batches}
 
     # -------------------------------------------------------------------- run
@@ -429,19 +565,23 @@ class BCTrainer(CheckpointMixin):
         hp = self.hp
         self.init()
         metrics = metrics or MetricsLogger()
+        shard = self._loader_shard(hp.batch_size)
         state = self.initial_state(hp.batch_size)
-        last_episode = np.full(hp.batch_size, -1, np.int64)
+        last_episode = np.full(shard["batch_size"], -1, np.int64)
         resume_state = None
         restored = self.restore_checkpoint(resume_dir) if resume_dir else None
         if restored is not None:
             data_state, extra = restored
+            if self._shard_writer():  # this rank's own cursor and streams, of the step rank 0 restored
+                payload, data_state = native_ckpt.restore_checkpoint(self._shard_dir(resume_dir),
+                                                                     data_state["step_count"])
+                extra = payload["extra"]
             resume_state = data_state
             last_episode = np.asarray(data_state["last_episode"], np.int64)
             state = map_state(lambda v: v.to(self.device), extra["recurrent_state"])
-        loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.chunk_len,
-                                    n_epochs=hp.epochs, seed=self._seed,
+        loader = SequenceDataLoader(data_dir, chunk_len=hp.chunk_len, n_epochs=hp.epochs, seed=self._seed,
                                     resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]), labels_dir=labels_dir,
-                                    resume_state=resume_state)
+                                    resume_state=resume_state, **shard)
 
         def with_episode_firsts(batches):
             # in the prefetch thread: the cursor is read per batch, so a
@@ -456,9 +596,11 @@ class BCTrainer(CheckpointMixin):
         start = time.time()
         loss_sum, frames_seen = 0.0, 0
         prefetcher = DevicePrefetcher(with_episode_firsts(loader), self.device)
+        if self.mesh is not None:  # loader start-up skew ends here, not in the first step's collective
+            pmesh.barrier()
         try:
             with stop_on_signals() as stop:
-                for batch in prefetcher:
+                for batch in _in_step(prefetcher, self.device, self.mesh):
                     state, loss, grad_norm = self.train_step(batch, state)
                     loss_sum += float(loss)
                     frames_seen += batch["n_valid"]
@@ -468,14 +610,34 @@ class BCTrainer(CheckpointMixin):
                                     grad_norm=float(grad_norm), frames_per_sec=frames_seen / max(dt, 1e-9),
                                     wall_time=dt)
                         loss_sum = 0.0
+                    stop.requested = self._any_rank(stop.requested)  # a common snapshot
                     due = hp.checkpoint_every and self.step_count % hp.checkpoint_every == 0
                     if hp.checkpoint_dir and (due or stop.requested):
-                        self.save_checkpoint(hp.checkpoint_dir, batch["cursor"], extra={"recurrent_state": state})
+                        extra = {"recurrent_state": state}
+                        self.save_checkpoint(hp.checkpoint_dir, batch["cursor"], extra=extra)
+                        if self._shard_writer():
+                            native_ckpt.save_checkpoint(self._shard_dir(hp.checkpoint_dir), self.step_count, {},
+                                                        data_state=batch["cursor"], extra=extra)
                     if stop.requested:
                         metrics.log(event="preempted", step=self.step_count)
                         break
         finally:
             prefetcher.close()
             loader.close()
-        save_weights(out_weights, self.policy)
+        self.save_weights(out_weights)
         return self.step_count
+
+
+def _in_step(batches, device, mesh):
+    """The batches of a loop every rank of the mesh runs in step: it ends
+    for all where any rank's data ends (each rank's shard may end at another
+    step).  Without a mesh, the batches as they are."""
+    if mesh is None:
+        yield from batches
+        return
+    it = iter(batches)
+    while True:
+        batch = next(it, None)
+        if pmesh.any_rank([batch is None], device)[0]:
+            return
+        yield batch

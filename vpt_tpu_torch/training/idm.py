@@ -26,8 +26,16 @@ for memory; ``qat_dense`` trains against the int8-rounded dense weights of
 the ``quantize_dense`` labeling graph, as BC's does.  Checkpoints and
 resume are BC's (``hp.checkpoint_every``, ``hp.checkpoint_dir``,
 ``train(resume_dir=...)``, a snapshot on SIGTERM or SIGINT); windows start
-from a fresh state, so the loader's cursor is all of the data state.  Not
-ported yet: the mesh.
+from a fresh state, so the loader's cursor is all of the data state.
+
+On a mesh (``mesh=``) the step equals the single-device step on the same
+global batch, as BC's does (training/bc.py): ``hp.batch_size`` windows in
+all, each rank loading and stepping its own, the model wrapped by
+parallel/model.py (DDP, FSDP2, tensor parallelism, and sequence parallelism,
+where each rank embeds its slice of the window, the conv3d reaching across
+the slice's edges), rank 0 writing the weights and checkpoints and every
+other rank its loader cursor under ``<checkpoint_dir>/shard<p>``.  DDP
+leaves out ``lastlayer``, whose output the IDM discards.
 """
 
 from __future__ import annotations
@@ -40,18 +48,21 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.actions.mapping import CameraHierarchicalMapping, IDMActionMapping
-from vpt_tpu_torch.checkpoint import load_model_parameters, load_state_dict_report, load_weights, save_weights
+from vpt_tpu_torch.checkpoint import load_model_parameters, load_weights
+from vpt_tpu_torch.checkpoint import native as native_ckpt
 from vpt_tpu_torch.config import PolicyConfig
 from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.models.heads import dict_logprob, head_specs_from_space
 from vpt_tpu_torch.models.layers import init_parameters, set_fake_quant
 from vpt_tpu_torch.models.policy import InverseActionPolicy, policy_initial_state
 from vpt_tpu_torch.ops.int8 import qat_mask
+from vpt_tpu_torch.parallel import mesh as pmesh
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.training.bc import (
     TRAIN_KEYS,
     CheckpointMixin,
     DevicePrefetcher,
+    _in_step,
     batch_to_tensors,
     make_optimizer,
     step_flops,
@@ -86,9 +97,11 @@ def factored_targets(buttons_joint: np.ndarray, camera_joint: np.ndarray,
 
 
 class IDMTrainer(CheckpointMixin):
-    """Window-batched IDM training on one device.
+    """Window-batched IDM training on one device, or on a mesh.
 
-    :param device: torch device; None means CUDA, which must then exist
+    :param mesh: a ``DeviceMesh`` of parallel/mesh.py; None trains on one device
+    :param device: torch device; None means CUDA (the rank's own card under
+        a process group), which must then exist
     :param seed: seeds the initial weights (drawn on the CPU, so every
         device starts from the same weights) and the loader's shuffle
     :param remat, cnn_scan_chunks: the config's memory options (config.py)
@@ -97,9 +110,11 @@ class IDMTrainer(CheckpointMixin):
 
     def __init__(self, idm_net_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any],
                  hp: Optional[IDMHyperparams] = None, compute_dtype: str = "float32", remat: bool = False,
-                 cnn_scan_chunks: int = 0, qat_dense: bool = False, seed: int = 0, device=None):
+                 cnn_scan_chunks: int = 0, qat_dense: bool = False, seed: int = 0, device=None, mesh=None):
         self.hp = hp or IDMHyperparams()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.model = None
         self.cfg = PolicyConfig.from_kwargs(dict(idm_net_kwargs)).replace(
             compute_dtype=compute_dtype, remat=remat, cnn_scan_chunks=cnn_scan_chunks)
         assert self.hp.window <= self.cfg.timesteps, (
@@ -127,6 +142,7 @@ class IDMTrainer(CheckpointMixin):
         if self.qat_dense:
             set_fake_quant(policy, self.qat_mask(policy))
         self.policy = policy.to(self.device)
+        self.model = self._wrap(self.policy, unused=("net.lastlayer.",))
         self.optimizer = make_optimizer(self.policy.parameters(), self.hp)
 
     def qat_mask(self, policy: Optional[InverseActionPolicy] = None) -> Dict[str, bool]:
@@ -140,7 +156,7 @@ class IDMTrainer(CheckpointMixin):
         """Warm-start from a ``.weights`` file (the published 4x IDM, or an
         earlier run's output)."""
         self.init()
-        return load_state_dict_report(self.policy, load_weights(path))
+        return self.load_weights_report(load_weights(path))
 
     @classmethod
     def from_files(cls, in_model: str, in_weights: Optional[str] = None, **kw) -> "IDMTrainer":
@@ -152,7 +168,11 @@ class IDMTrainer(CheckpointMixin):
         return trainer
 
     def initial_state(self, batch_size: int):
-        return policy_initial_state(self.cfg, batch_size, device=self.device)
+        """The zero state of this rank's windows of a global ``batch_size``."""
+        return self._zero_state(self._local_batch_size(batch_size))
+
+    def _zero_state(self, rows: int):
+        return self._local_state(policy_initial_state(self.cfg, rows, device=self.device))
 
     # ------------------------------------------------------------------- step
 
@@ -176,16 +196,28 @@ class IDMTrainer(CheckpointMixin):
     def logits(self, frames: torch.Tensor, state=None) -> Dict[str, torch.Tensor]:
         """The IDM's logits of a (B, T) window batch, each window from a
         fresh zero state (``state`` if given) with no episode starts."""
-        state = self.initial_state(frames.shape[0]) if state is None else state
+        return self._logits(frames, state)[0]
+
+    def _logits(self, frames: torch.Tensor, state=None):
+        """(logits, the time slice they cover): on a mesh under sp, this
+        rank's slice of the window."""
+        state = self._zero_state(frames.shape[0]) if state is None else state
         first = torch.zeros(frames.shape[:2], dtype=torch.bool, device=frames.device)
-        out, _ = self.policy(frames, first, state)
-        return out["pi_logits"]
+        out, _, sl = self._forward(frames, first, state)
+        return out["pi_logits"], sl
 
     def masked_nll(self, batch: Dict[str, torch.Tensor], state=None):
-        """(Σ −logp·mask, logits) of a window batch."""
-        logits = self.logits(batch["frames"], state)
-        logp = dict_logprob(logits, {"buttons": batch["buttons"], "camera": batch["camera"]}, self.head_specs)
-        return -(logp * batch["mask"].float()).sum(), logits
+        """(Σ −logp·mask, logits) of a window batch (on a mesh under sp, of
+        this rank's time slice)."""
+        nll, logits, _ = self._scored_nll(batch, state)
+        return nll, logits
+
+    def _scored_nll(self, batch: Dict[str, torch.Tensor], state=None):
+        """:meth:`masked_nll` and the time slice it scored."""
+        logits, sl = self._logits(batch["frames"], state)
+        logp = dict_logprob(logits, {"buttons": batch["buttons"][:, sl], "camera": batch["camera"][:, sl]},
+                            self.head_specs)
+        return -(logp * batch["mask"][:, sl].float()).sum(), logits, sl
 
     def train_step(self, batch, state=None):
         """One optimizer step on a (B, T) window batch (host numpy with joint
@@ -194,12 +226,14 @@ class IDMTrainer(CheckpointMixin):
         self.init()
         batch = self.to_device(batch)
         self.optimizer.zero_grad()
-        nll, _ = self.masked_nll(batch, state)
-        loss = nll / (batch["mask"].shape[0] * batch["mask"].shape[1])  # reference normalisation: B·T
+        nll, logits, _ = self._scored_nll(batch, state)
+        loss = nll / logits["camera"].shape[:2].numel()  # reference normalisation: B·T
         loss.backward()
+        if self.model is not None:
+            self.model.sync_grads()
         grad_norm = self.optimizer.step()
         self.step_count += 1
-        return loss.detach(), grad_norm
+        return self._global_loss(loss), grad_norm
 
     def train_step_flops(self, batch, state=None) -> Optional[float]:
         """FLOPs of one :meth:`train_step`, which leaves the trainer as it
@@ -215,24 +249,25 @@ class IDMTrainer(CheckpointMixin):
         from vpt_tpu_torch.data.loader import SequenceDataLoader
 
         self.init()
-        loader = SequenceDataLoader(data_dir, batch_size=self.hp.batch_size, chunk_len=self.hp.window,
-                                    n_epochs=1, seed=self._seed,
-                                    resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]))
+        loader = SequenceDataLoader(data_dir, chunk_len=self.hp.window, n_epochs=1, seed=self._seed,
+                                    resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]),
+                                    **self._loader_shard(self.hp.batch_size))
         nll, btn, cam, frames, n_batches = 0.0, 0.0, 0.0, 0.0, 0
         try:
-            for batch in loader:
+            for batch in _in_step(loader, self.device, self.mesh):
                 placed = self.to_device(batch)
-                a, logits = self.masked_nll(placed)
-                mask = placed["mask"].float()
+                a, logits, sl = self._scored_nll(placed)
+                mask = placed["mask"][:, sl].float()
                 nll += float(a)
-                btn += float(((logits["buttons"].argmax(-1) == placed["buttons"]).all(-1) * mask).sum())
-                cam += float(((logits["camera"].argmax(-1) == placed["camera"]).all(-1) * mask).sum())
+                btn += float(((logits["buttons"].argmax(-1) == placed["buttons"][:, sl]).all(-1) * mask).sum())
+                cam += float(((logits["camera"].argmax(-1) == placed["camera"][:, sl]).all(-1) * mask).sum())
                 frames += float(mask.sum())
                 n_batches += 1
                 if max_batches and n_batches >= max_batches:
                     break
         finally:
             loader.close()
+        nll, btn, cam, frames = self._sum_over_data(nll, btn, cam, frames)
         frames = max(frames, 1.0)
         return {"nll_per_frame": nll / frames, "button_exact_match": btn / frames,
                 "camera_exact_match": cam / frames, "frames": int(frames), "batches": n_batches}
@@ -252,9 +287,12 @@ class IDMTrainer(CheckpointMixin):
         self.init()
         metrics = metrics or MetricsLogger()
         restored = self.restore_checkpoint(resume_dir) if resume_dir else None
-        loader = SequenceDataLoader(data_dir, batch_size=hp.batch_size, chunk_len=hp.window, n_epochs=hp.epochs,
-                                    seed=self._seed, resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]),
-                                    resume_state=None if restored is None else restored[0])
+        resume_state = None if restored is None else restored[0]
+        if restored is not None and self._shard_writer():  # this rank's own cursor, of the step rank 0 restored
+            resume_state = native_ckpt.restore_data_state(self._shard_dir(resume_dir), self.step_count)
+        loader = SequenceDataLoader(data_dir, chunk_len=hp.window, n_epochs=hp.epochs, seed=self._seed,
+                                    resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]),
+                                    resume_state=resume_state, **self._loader_shard(hp.batch_size))
 
         def with_targets(batches):  # in the prefetch thread: the conversion overlaps the step
             for batch in batches:
@@ -266,9 +304,11 @@ class IDMTrainer(CheckpointMixin):
         start = time.time()
         loss_sum, frames_seen = 0.0, 0
         prefetcher = DevicePrefetcher(with_targets(loader), self.device)
+        if self.mesh is not None:
+            pmesh.barrier()
         try:
             with stop_on_signals() as stop:
-                for batch in prefetcher:
+                for batch in _in_step(prefetcher, self.device, self.mesh):
                     loss, grad_norm = self.train_step(batch)
                     loss_sum += float(loss)
                     frames_seen += batch["n_valid"]
@@ -278,14 +318,18 @@ class IDMTrainer(CheckpointMixin):
                                     grad_norm=float(grad_norm), frames_per_sec=frames_seen / max(dt, 1e-9),
                                     wall_time=dt)
                         loss_sum = 0.0
+                    stop.requested = self._any_rank(stop.requested)  # a common snapshot
                     due = hp.checkpoint_every and self.step_count % hp.checkpoint_every == 0
                     if hp.checkpoint_dir and (due or stop.requested):
                         self.save_checkpoint(hp.checkpoint_dir, batch["cursor"])
+                        if self._shard_writer():
+                            native_ckpt.save_data_state(self._shard_dir(hp.checkpoint_dir), self.step_count,
+                                                        {**batch["cursor"], "step_count": self.step_count})
                     if stop.requested:
                         metrics.log(event="preempted", step=self.step_count)
                         break
         finally:
             prefetcher.close()
             loader.close()
-        save_weights(out_weights, self.policy)
+        self.save_weights(out_weights)
         return self.step_count

@@ -37,7 +37,22 @@ trade recompute for memory in the update and the aux phase.
 random streams go on exactly.  As in the JAX package, the env streams
 restart on resume (their recurrent state re-initialises at the next
 collect) and the PPG buffer of rollouts since the last aux phase is not
-kept.  Not ported yet: meshes and multi-process collection.
+kept.
+
+On a mesh (``mesh=``, parallel/mesh.py) every rank collects its own env
+streams, and ``update`` equals the single-process update of all the ranks'
+rows together: the advantages are normalised, and the value head's EWMA
+return statistics folded, over every rank's rows; each minibatch is the
+single process's (one permutation of the global rows from the shared
+generator), each rank stepping its equal share of it under DDP (dp), FSDP2
+(fsdp) or the tensor-parallel plan (tp), which the frozen anchor shares.
+The rows are gathered to every rank once an update.  Sampling draws the
+noise of the whole group from the shared seed and keeps the rank's rows
+(``dict_sample_noise``), so rank r's local group g samples what one process
+would for those streams of group g.  The gathered rows are process-major
+(rank r's [g0 | g1 | ...]), where one process holds the same streams
+group-major; the update draws its minibatches from the gathered rows.
+``evaluate`` stays single-process.
 """
 
 from __future__ import annotations
@@ -53,7 +68,7 @@ import torch
 
 from vpt_tpu_torch.actions import ActionTransformer
 from vpt_tpu_torch.actions.mapping import CameraHierarchicalMapping
-from vpt_tpu_torch.checkpoint import load_model_parameters, load_state_dict_report, load_weights, save_weights
+from vpt_tpu_torch.checkpoint import load_model_parameters, load_weights
 from vpt_tpu_torch.checkpoint import native as native_ckpt
 from vpt_tpu_torch.config import ACTION_TRANSFORMER_KWARGS, PolicyConfig
 from vpt_tpu_torch.device import resolve_device
@@ -62,6 +77,7 @@ from vpt_tpu_torch.models.heads import (
     dict_kl,
     dict_logprob,
     dict_sample,
+    dict_sample_noise,
     ewma_normalize,
     ewma_updated_stats,
     head_specs_from_space,
@@ -70,6 +86,7 @@ from vpt_tpu_torch.models.layers import init_parameters
 from vpt_tpu_torch.models.policy import MinecraftAgentPolicy, policy_initial_state
 from vpt_tpu_torch.models.transformer import map_state, ring_state_to_linear
 from vpt_tpu_torch.ops.host_resize import native_resize_u8
+from vpt_tpu_torch.parallel import mesh as pmesh
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.training.bc import ClippedAdam, stop_on_signals
 from vpt_tpu_torch.utils.metrics import MetricsLogger
@@ -208,6 +225,8 @@ class PPOTrainer:
         device starts from the same weights), the action sampling and the
         epochs' stream permutations (one generator each, on ``device``)
     :param remat: recompute the blocks and the CNN in the backward (config.py)
+    :param mesh: a ``DeviceMesh`` of parallel/mesh.py (dp, fsdp, tp); None
+        trains on one device
     """
 
     def __init__(
@@ -219,9 +238,14 @@ class PPOTrainer:
         remat: bool = False,
         seed: int = 0,
         device=None,
+        mesh=None,
     ):
         self.hp = hp or PPOHyperparams()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if pmesh.axis_size(mesh, "sp") > 1:
+            raise NotImplementedError("PPO takes dp, fsdp and tp meshes (its windows are short)")
+        self.model = None
         self.cfg = PolicyConfig.from_kwargs(dict(policy_kwargs)).replace(compute_dtype=compute_dtype, remat=remat)
         assert self.hp.rollout_len <= self.cfg.timesteps, (
             f"rollout_len {self.hp.rollout_len} exceeds the policy's chunk geometry timesteps={self.cfg.timesteps}"
@@ -240,6 +264,7 @@ class PPOTrainer:
         self.update_count = 0
         self._group_states = None  # per-group recurrent state (collection)
         self._aux_buffer: List[Dict[str, Any]] = []  # PPG: rollouts since the last aux phase
+        self._ranks_met = False
 
     # ------------------------------------------------------------------ setup
 
@@ -249,21 +274,48 @@ class PPOTrainer:
         policy = MinecraftAgentPolicy(self.cfg, self.head_specs, self.temperature)
         init_parameters(policy, torch.Generator().manual_seed(self._seed))
         self.policy = policy.to(self.device)
-        self.optimizer = ClippedAdam(self.policy.parameters(), self.hp)
         self.anchor = self._snapshot_anchor()
+        if self.mesh is not None:
+            from vpt_tpu_torch.parallel.model import ParallelModel, shard_model
+
+            self.model = ParallelModel(self.policy, self.mesh)
+            shard_model(self.anchor, self.mesh)
+        self.optimizer = ClippedAdam(self.policy.parameters(), self.hp)
 
     def _snapshot_anchor(self) -> MinecraftAgentPolicy:
         """A copy of the current policy, not an alias: the optimizer steps
         the trainable parameters in place."""
         return copy.deepcopy(self.policy).requires_grad_(False)
 
+    def _sync_ranks_once(self) -> None:
+        """On a mesh, every rank meets before its first collection or update,
+        so the start-up's skew ends here and not inside a collective."""
+        if self.mesh is not None and not self._ranks_met:
+            pmesh.barrier()
+            self._ranks_met = True
+
     def load_weights(self, path: str) -> Dict[str, list]:
         """Load foundation weights into both the trainable policy and the
-        frozen KL anchor."""
+        frozen KL anchor (on a mesh every rank loads the same file)."""
         self.init()
-        report = load_state_dict_report(self.policy, load_weights(path))
-        self.anchor = self._snapshot_anchor()
+        report = pmesh.load_weights_whole(self.policy, load_weights(path))
+        pmesh.load_full_state_dict(self.anchor, pmesh.full_state_dict(self.policy))
         return report
+
+    def save_weights(self, path: str) -> None:
+        """Write the policy's ``.weights`` file (rank 0 of a mesh; every rank calls it)."""
+        weights = pmesh.full_state_dict(self.policy)
+        if self._writer():
+            torch.save(weights, path)
+
+    def _writer(self) -> bool:
+        """Whether this process writes the weights and checkpoints: rank 0 of a mesh."""
+        return self.mesh is None or pmesh.rank() == 0
+
+    def _local_state(self, state):
+        from vpt_tpu_torch.parallel.tp import local_state
+
+        return local_state(state, self.mesh, self.cfg.attention_heads)
 
     @classmethod
     def from_files(cls, in_model: str, in_weights: Optional[str] = None, **kw) -> "PPOTrainer":
@@ -276,16 +328,27 @@ class PPOTrainer:
 
     # ------------------------------------------------------------ collection
 
-    @torch.inference_mode()
     def _act(self, img: np.ndarray, first: np.ndarray, state):
         """One t=1 step of a group: (packed (gb, 4) float32 [buttons, camera,
         logp, vpred], state after the step); a ring cache's slot is written
-        into ``state`` in place."""
+        into ``state`` in place.  Inference mode, but for FSDP2, whose
+        gathered parameters must keep their version counters: no grad."""
+        sharded = pmesh.axis_size(self.mesh, "fsdp") > 1
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return self._act_step(img, first, state)
+
+    def _act_step(self, img: np.ndarray, first: np.ndarray, state):
         img_t = torch.from_numpy(img).to(self.device, non_blocking=True)
         first_t = torch.from_numpy(first).to(self.device, non_blocking=True)
         out, state = self.policy(img_t[:, None], first_t[:, None], state)
         logits = {k: v[:, 0] for k, v in out["pi_logits"].items()}
-        action = dict_sample(logits, self.head_specs, generator=self.sample_generator)
+        noise = None
+        if self.mesh is not None:  # the whole group's draw, this rank's rows of it
+            gb = img_t.shape[0]
+            index, count = pmesh.data_shard(self.mesh)
+            noise = dict_sample_noise(logits, self.head_specs, self.sample_generator, gb * count,
+                                      slice(index * gb, (index + 1) * gb))
+        action = dict_sample(logits, self.head_specs, generator=self.sample_generator, noise=noise)
         logp = dict_logprob(logits, action, self.head_specs)
         # joint action indices are below 2^24, exact in float32
         packed = torch.stack([action["buttons"][:, 0].float(), action["camera"][:, 0].float(), logp,
@@ -315,6 +378,7 @@ class PPOTrainer:
             float`` per stream, overriding the env's reward.
         """
         self.init()
+        self._sync_ranks_once()
         hp = self.hp
         G = max(1, hp.n_collect_groups)
         b, t_len = len(envs), hp.rollout_len
@@ -328,7 +392,7 @@ class PPOTrainer:
             firsts = np.zeros(b, bool)
         firsts = np.asarray(firsts, bool).copy()
         if self._group_states is None:
-            self._group_states = [policy_initial_state(self.cfg, gb, ring=True, device=self.device)
+            self._group_states = [self._local_state(policy_initial_state(self.cfg, gb, ring=True, device=self.device))
                                   for _ in range(G)]
 
         with torch.no_grad():  # window-start snapshots, outside inference mode: the update trains on them
@@ -431,6 +495,8 @@ class PPOTrainer:
         from vpt_tpu_torch.agent.evaluation import evaluate_episodes
 
         self.init()
+        if self.mesh is not None:
+            raise NotImplementedError("evaluate is single-process: load the weights into a meshless trainer")
         if reward_fn is not None:
             envs = [_ShapedRewardEnv(e, reward_fn) for e in envs]
         return evaluate_episodes(_TrainerEvalAgent(self, len(envs)), envs, n_episodes,
@@ -473,7 +539,7 @@ class PPOTrainer:
         metrics as detached tensors."""
         hp = self.hp
         self.optimizer.zero_grad()
-        out, _ = self.policy(mb["frames"], mb["firsts"], state)
+        out, _ = self._train_forward(mb["frames"], mb["firsts"], state)
         logits = out["pi_logits"]
         actions = {"buttons": mb["buttons"][..., None], "camera": mb["camera"][..., None]}
         logp = dict_logprob(logits, actions, self.head_specs)  # (B, T)
@@ -486,6 +552,8 @@ class PPOTrainer:
         anchor_kl = dict_kl(mb["anchor_logits"], logits, self.head_specs).mean()
         total = pg + hp.vf_coef * v_loss - hp.ent_coef * entropy + kl_coef * anchor_kl
         total.backward()
+        if self.model is not None:
+            self.model.sync_grads()
         grad_norm = self.optimizer.step()
         return {
             "pg_loss": pg.detach(),
@@ -507,10 +575,12 @@ class PPOTrainer:
         trains hard without wrecking the policy: the clone KL pins π to its
         pre-phase snapshot.  The Adam state is the policy phase's."""
         self.optimizer.zero_grad()
-        out, _ = self.policy(mb["frames"], mb["firsts"], state)
+        out, _ = self._train_forward(mb["frames"], mb["firsts"], state)
         v_loss = self._value_loss(out, mb["returns"])
         clone_kl = dict_kl(mb["old_logits"], out["pi_logits"], self.head_specs).mean()
         (v_loss + self.hp.beta_clone * clone_kl).backward()
+        if self.model is not None:
+            self.model.sync_grads()
         self.optimizer.step()
         return {"aux_v_loss": v_loss.detach(), "aux_clone_kl": clone_kl.detach()}
 
@@ -534,6 +604,23 @@ class PPOTrainer:
                 aux = self._aux_step(mb, state)
         return {k: float(v) for k, v in aux.items()}
 
+    def _train_forward(self, frames, firsts, state):
+        """The policy's forward as the update differentiates it: through the
+        mesh's wrappers (DDP's gradient reduction) where there is a mesh."""
+        return (self.policy if self.model is None else self.model)(frames, firsts, state)
+
+    def _gather(self, x):
+        """Every rank's rows of ``x`` (an array, a tensor or a dict of
+        tensors) in rank order; ``x`` itself without a mesh."""
+        if self.mesh is None:
+            return x
+        if isinstance(x, dict):
+            return {k: self._gather(v) for k, v in x.items()}
+        if isinstance(x, np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            return pmesh.gather_rows(self.mesh, t).cpu().numpy()
+        return pmesh.gather_rows(self.mesh, x)
+
     @torch.no_grad()
     def _fold_return_stats(self, returns: np.ndarray) -> None:
         """Fold the batch's return targets into the value head's EWMA stats
@@ -554,17 +641,21 @@ class PPOTrainer:
         ``hp.n_minibatches`` minibatches.  ``traj['initial_state']`` may lie
         on any device."""
         self.init()
+        self._sync_ranks_once()
         hp = self.hp
         dev = self.device
-        b = traj["frames"].shape[0]
-        assert b % hp.n_minibatches == 0, (b, hp.n_minibatches)
+        n_shards = pmesh.data_shard(self.mesh)[1]
+        b = traj["frames"].shape[0] * n_shards  # the global streams
+        assert b % hp.n_minibatches == 0 and (b // hp.n_minibatches) % n_shards == 0, (b, hp.n_minibatches, n_shards)
 
+        # GAE is per stream: the rank's own rows suffice
         adv, returns = compute_gae(traj["rewards"], traj["values"], traj["firsts"], traj["last_value"],
                                    traj["last_first"], hp.gamma, hp.lam)
         adv, returns = adv.numpy(), returns.numpy()
+        adv_all, returns_all = self._gather(adv), self._gather(returns)  # every rank's, for the global statistics
         if hp.normalize_advantages:
-            adv = (adv - adv.mean()) / (adv.std() + 1e-8)
-        self._fold_return_stats(returns)
+            adv = (adv - adv_all.mean()) / (adv_all.std() + 1e-8)
+        self._fold_return_stats(returns_all)
 
         def place(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
@@ -580,20 +671,27 @@ class PPOTrainer:
             "returns": place(returns, torch.float32),
         }
         batch["anchor_logits"] = self._anchor_logits(batch["frames"], batch["firsts"], initial_state)
+        batch = self._gather(batch)
+        all_state = map_state(self._gather, initial_state)
 
         mb_size = b // hp.n_minibatches
+        share = pmesh.local_rows(self.mesh, mb_size)  # this rank's part of every minibatch
         last = {}
         for _ in range(hp.n_epochs):
             perm = torch.randperm(b, generator=self.perm_generator, device=dev)
             for m in range(hp.n_minibatches):
-                idx = perm[m * mb_size:(m + 1) * mb_size]
+                idx = perm[m * mb_size:(m + 1) * mb_size][share]
                 mb = {k: ({h: x[idx] for h, x in v.items()} if isinstance(v, dict) else v[idx])
                       for k, v in batch.items()}
-                last = self._ppo_step(mb, _select_rows(initial_state, idx), self.kl_coef)
+                last = self._ppo_step(mb, _select_rows(all_state, idx), self.kl_coef)
         self.kl_coef *= hp.kl_decay
         self.update_count += 1
+        if self.mesh is not None:  # the minibatch's metrics, not the rank's share's
+            keys = sorted(k for k in last if k != "grad_norm")
+            mean = pmesh.all_mean(torch.stack([last[k].float() for k in keys]), pmesh.group(self.mesh, ("dp", "fsdp")))
+            last.update(zip(keys, mean))
         metrics = {k: float(v) for k, v in last.items()}
-        metrics.update(mean_reward=float(traj["rewards"].mean()), mean_return=float(returns.mean()),
+        metrics.update(mean_reward=float(self._gather(traj["rewards"]).mean()), mean_return=float(returns_all.mean()),
                        kl_coef=self.kl_coef)
         if hp.aux_phase_every:
             # PPG: buffer this rollout (frames stay on the host; the returns
@@ -614,10 +712,12 @@ class PPOTrainer:
         """Snapshot ``directory/step_<update_count>``: everything a resumed
         run needs to go on with the anneal and the random streams exactly."""
         self.init()
+        variables = {"policy": pmesh.full_state_dict(self.policy), "anchor": pmesh.full_state_dict(self.anchor)}
+        opt = self.optimizer.state_dict()
+        if not self._writer():
+            return None
         return native_ckpt.save_checkpoint(
-            directory, self.update_count,
-            {"policy": self.policy.state_dict(), "anchor": self.anchor.state_dict()},
-            opt_state=self.optimizer.adam.state_dict(),
+            directory, self.update_count, variables, opt_state=opt,
             data_state={"kl_coef": self.kl_coef, "update_count": self.update_count},
             rng_state={"sample": self.sample_generator.get_state(), "perm": self.perm_generator.get_state()},
             keep=keep)
@@ -629,9 +729,9 @@ class PPOTrainer:
         payload, data_state = native_ckpt.restore_checkpoint(directory)
         if payload is None:
             return False
-        self.policy.load_state_dict(payload["variables"]["policy"], strict=True)
-        self.anchor.load_state_dict(payload["variables"]["anchor"], strict=True)
-        self.optimizer.adam.load_state_dict(payload["opt_state"])
+        pmesh.load_full_state_dict(self.policy, payload["variables"]["policy"])
+        pmesh.load_full_state_dict(self.anchor, payload["variables"]["anchor"])
+        self.optimizer.load_state_dict(payload["opt_state"])
         self.sample_generator.set_state(payload["rng_state"]["sample"])
         self.perm_generator.set_state(payload["rng_state"]["perm"])
         self.kl_coef = float(data_state["kl_coef"])
@@ -703,6 +803,8 @@ class PPOTrainer:
                             **report)
                 if do_eval and self.update_count % eval_every == 0:
                     report["eval_mean_return"] = run_eval()["mean_return"]
+                if self.mesh is not None:  # a common snapshot
+                    stop.requested = pmesh.any_rank([stop.requested], self.device)[0]
                 due = checkpoint_every and self.update_count % checkpoint_every == 0
                 if checkpoint_dir and (due or stop.requested):
                     self.save_checkpoint(checkpoint_dir)
@@ -710,5 +812,5 @@ class PPOTrainer:
                     metrics.log(event="preempted", update=self.update_count)
                     break
         if out_weights:
-            save_weights(out_weights, self.policy)
+            self.save_weights(out_weights)
         return report
