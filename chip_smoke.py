@@ -172,7 +172,31 @@ Phases, each of which fails the run if it fails:
      (e) a meshed MineRLAgent, 8 streams x 16 deterministic steps on the
      linear cache: the meshless agent's actions;
      every step launching B1 and B2 once per block, each wrapper's ms a step
-     and peak beside 7(b)'s plain step, and the phase's seconds.
+     and peak beside 7(b)'s plain step, and the phase's seconds;
+ 15. the entry points, each driven through its main(argv) in this process
+     on the default device (CUDA), from a 2x .model written with
+     save_model_parameters and .weights of the random inits of seeds 0 and
+     1, and the 4x IDM's pair from seed 0's (the weights of phase 8(b)):
+     (a) run_agent --mock-env --streams 8 --steps 64: automatic groups must
+     be 4 of 2 streams; frames/s and the step's p50/p99;
+     (b) tools.eval_agent --mock-env, 8 streams, 8 episodes, done-prob
+     0.05, seeds 0 and 1, then --compare of the two reports: every number
+     finite;
+     (c) tools.average_weights of the two 2x .weights on the card: every
+     tensor equal to the mean the CPU computes from the same files;
+     (d) on 512 synthetic 640x360 frames (8(b)'s) and the 4x IDM from its
+     files: tools.label_videos.label_frames (window 128, stride 64, 4
+     windows a forward) labels every frame once, in order, each label 8(b)'s
+     StreamingIDMLabeler's, B1 once per block and forward; the IDM CLI's
+     print-mode batch function (predict_batches, 128 frames a batch, the
+     state carried) every frame once, in order, its labels those of
+     predict_actions called directly on the same batches, B1 once per block
+     and batch; frames/s of both;
+     (e) tools.bench_bc_breakdown at 2x, B=4, T=128, float32 (--cnn-detail)
+     and tools.bench_breakdown at 2x, 8 streams: their JSON printed; the
+     BC step's own time within 10% of 7(b)'s; B1 and B2 once per block and
+     step of the breakdown's train steps;
+     and the phase's seconds.
 Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
 time them at the IDM's long-call shape and at the PPO minibatch's.  The CPU
 side of every train step held against the card (7(a), 8(a), 9(a), 11(c),
@@ -214,6 +238,11 @@ the gradient arriving at the first Impala convolution does.
     python3 chip_smoke.py --distribution
 
 builds, then runs phase 14 alone (its BC steps beside no 7(b) time).
+
+    python3 chip_smoke.py --entry-points
+
+builds, then runs phase 15 alone (its labels checked against a
+StreamingIDMLabeler run of its own, its BC step beside no 7(b) time).
 """
 
 import argparse
@@ -287,6 +316,13 @@ BC_REMAT_B, BC_REMAT_STEPS = 8, 3  # the JAX package's BC default batch (BCHyper
 IDM_REMAT_B, IDM_REMAT_STEPS = 8, 3  # the JAX package's IDM default batch (IDMHyperparams.batch_size)
 REMAT_LOSS_RTOL = 1e-6  # a step with remat against the same step without, on the card
 RESUME_RUNS = 4  # phase 12: uninterrupted step 3s from the saved state, which must agree bit for bit
+# phase 15: run_agent's and eval_agent's mock-env geometry, the IDM print mode's batch, the BC
+# breakdown's geometry and chain length, the rollout breakdown's streams, and how far the breakdown's
+# BC step may lie from 7(b)'s
+ENTRY_STREAMS, ENTRY_STEPS, ENTRY_EPISODES, ENTRY_DONE_PROB = 8, 64, 8, 0.05
+PRINT_MODE_FRAMES = 128
+BENCH_WIDTH, BENCH_BC_B, BENCH_BC_T, BENCH_ITERS, BENCH_STREAMS = 2, 4, 128, 3, 8
+BENCH_STEP_RTOL = 0.10
 
 
 def log(msg):
@@ -306,6 +342,39 @@ def release_memory():
     then return the cached blocks: the next phase's peak is then its own."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def cache_cpu_draws():
+    """Draw each model's random weights on the CPU once a run: a later
+    init_parameters of the same model class, config, structure and
+    generator state (a trainer or an agent built again from the same seed)
+    loads the weights the first one drew and leaves its generator where the
+    draw did, the same numbers bit for bit without the seconds of drawing
+    them again.  The checks build many such models (each trainer draws its
+    weights on the CPU), and the draws are most of the script's time on the
+    host.  Draws on the card are fast and are not cached."""
+    from vpt_tpu_torch.models import layers
+
+    draw, cache = layers.init_parameters, {}
+
+    def cached(model, generator):
+        if generator.device.type != "cpu":
+            return draw(model, generator)
+        key = (type(model).__qualname__, repr(getattr(model, "cfg", None)),
+               tuple((k, tuple(v.shape), v.dtype) for k, v in model.state_dict().items()),
+               bytes(generator.get_state().numpy()))
+        if key not in cache:
+            draw(model, generator)
+            cache[key] = ({k: v.detach().clone() for k, v in model.state_dict().items()}, generator.get_state())
+        else:
+            with torch.no_grad():
+                model.load_state_dict(cache[key][0])
+            generator.set_state(cache[key][1])
+        return model
+
+    for module in list(sys.modules.values()):
+        if getattr(module, "__name__", "").startswith("vpt_tpu_torch") and getattr(module, "init_parameters", None) is draw:
+            module.init_parameters = cached
 
 
 def host_cores():
@@ -3277,6 +3346,236 @@ def check_distribution(dev, plain_ms):
     return {"dist_launches": b1}, {"dist_launches": b2}
 
 
+# ------------------------------------------------------------------- phase 15
+
+
+def entry_files(dev, tmp):
+    """The files the entry points read: a 2x .model and the .weights of the
+    random inits of seeds 0 and 1 (MineRLAgent's draws on `dev`), the 4x
+    IDM's .model and the .weights of seed 0's (IDMAgent's, phase 8(b)'s
+    weights)."""
+    from vpt_tpu_torch.agent import IDMAgent, MineRLAgent
+    from vpt_tpu_torch.checkpoint import save_model_parameters, save_weights
+    from vpt_tpu_torch.config import FOUNDATION_PI_HEAD_KWARGS, FOUNDATION_POLICY_KWARGS, IDM_4X_KWARGS
+
+    paths = {k: os.path.join(tmp, k) for k in ("2x.model", "2x_seed0.weights", "2x_seed1.weights",
+                                                "4x_idm.model", "4x_idm.weights")}
+    save_model_parameters(paths["2x.model"], FOUNDATION_POLICY_KWARGS, FOUNDATION_PI_HEAD_KWARGS)
+    for seed in (0, 1):
+        agent = MineRLAgent(device=dev, seed=seed)
+        save_weights(paths[f"2x_seed{seed}.weights"], agent.policy)
+        del agent
+    save_model_parameters(paths["4x_idm.model"], IDM_4X_KWARGS, {})
+    agent = IDMAgent(IDM_4X_KWARGS, {}, device=dev, seed=0)
+    save_weights(paths["4x_idm.weights"], agent.policy)
+    return paths
+
+
+def finite_numbers(tree, where=""):
+    """Every number of a JSON-like tree is finite (None is no number)."""
+    if isinstance(tree, dict):
+        return all(finite_numbers(v, f"{where}/{k}") for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return all(finite_numbers(v, where) for v in tree)
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        if not np.isfinite(tree):
+            raise AssertionError(f"{where} is {tree}")
+    return True
+
+
+def entry_run_agent(paths, device_args):
+    """15(a)."""
+    from vpt_tpu_torch import run_agent
+
+    reset_launch_counts()
+    stats = run_agent.main(["--model", paths["2x.model"], "--weights", paths["2x_seed0.weights"], "--mock-env",
+                            "--streams", str(ENTRY_STREAMS), "--steps", str(ENTRY_STEPS)] + device_args)
+    lat = stats["latency"]
+    log(f"15(a) run_agent --mock-env --streams {ENTRY_STREAMS} --steps {ENTRY_STEPS} (2x, bf16): "
+        f"{stats['groups']} groups, {stats['frames_per_sec']:.1f} frames/s, a rotation p50 {lat['p50_ms']:.2f} ms, "
+        f"p99 {lat['p99_ms']:.2f} ms; B1 launches {launch_counts()[0]}")
+    if stats["groups"] != 4 or stats["frames"] != ENTRY_STREAMS * ENTRY_STEPS:
+        raise AssertionError(f"run_agent took {stats['groups']} groups and {stats['frames']} frames, expected 4 "
+                             f"groups of {ENTRY_STREAMS // 4} and {ENTRY_STREAMS * ENTRY_STEPS} frames")
+    finite_numbers(stats, "run_agent")
+    return stats
+
+
+def entry_eval_agent(paths, device_args, tmp):
+    """15(b)."""
+    from vpt_tpu_torch.tools import eval_agent
+
+    reports = []
+    for seed in (0, 1):
+        out = os.path.join(tmp, f"eval_seed{seed}.json")
+        t0 = time.perf_counter()
+        reports.append((out, eval_agent.main(
+            ["--mock-env", "--model", paths["2x.model"], "--weights", paths["2x_seed0.weights"], "--streams",
+             str(ENTRY_STREAMS), "--episodes", str(ENTRY_EPISODES), "--done-prob", str(ENTRY_DONE_PROB), "--seed",
+             str(seed), "--out", out] + device_args), time.perf_counter() - t0))
+    compared = eval_agent.main(["--compare", reports[0][0], reports[1][0]] + device_args)
+    for (_, report, seconds), seed in zip(reports, (0, 1)):
+        finite_numbers(report, f"eval_agent seed {seed}")
+        if report["episodes"] != ENTRY_EPISODES:
+            raise AssertionError(f"eval_agent reported {report['episodes']} episodes, not {ENTRY_EPISODES}")
+        log(f"15(b) eval_agent seed {seed}: {report['episodes']} episodes, {report['steps']} steps in {seconds:.2f} s, "
+            f"mean length {report['mean_length']}, mean value {report['mean_vpred']:.4f}, step p99 "
+            f"{report['latency']['p99_ms']:.2f} ms")
+    finite_numbers(compared, "eval_agent --compare")
+    log(f"15(b) --compare: {json.dumps(compared)}")
+
+
+def entry_average_weights(paths, device_args, tmp):
+    """15(c)."""
+    from vpt_tpu_torch.checkpoint import load_weights
+    from vpt_tpu_torch.checkpoint.averaging import average_state_dicts
+    from vpt_tpu_torch.tools import average_weights
+
+    out = os.path.join(tmp, "2x_avg.weights")
+    t0 = time.perf_counter()
+    average_weights.main([out, paths["2x_seed0.weights"], paths["2x_seed1.weights"]] + device_args)
+    seconds = time.perf_counter() - t0
+    got = load_weights(out)
+    want = average_state_dicts([load_weights(paths["2x_seed0.weights"]), load_weights(paths["2x_seed1.weights"])])
+    bad = [k for k in want if not (got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]))]
+    log(f"15(c) average_weights of two 2x .weights ({len(want)} tensors) in {seconds:.2f} s: "
+        f"{len(want) - len(bad)} equal to the CPU's mean")
+    if bad or got.keys() != want.keys():
+        raise AssertionError(f"average_weights differs from the CPU's mean in {bad[:5]}")
+
+
+def entry_labeling(paths, dev, frames, labels_8b):
+    """15(d): label_frames against 8(b)'s labels (a StreamingIDMLabeler run
+    of its own where 8(b) did not run), the print mode's batch function
+    against predict_actions; returns B1's launches a forward of each."""
+    from vpt_tpu_torch.agent import IDMAgent, StreamingIDMLabeler, action_jsonl_row
+    from vpt_tpu_torch.checkpoint import load_model_parameters
+    from vpt_tpu_torch.ops.resize import resize_image
+    from vpt_tpu_torch.run_inverse_dynamics_model import predict_batches
+    from vpt_tpu_torch.tools.label_videos import label_frames
+
+    agent = IDMAgent(*load_model_parameters(paths["4x_idm.model"]), device=dev)
+    agent.load_weights(paths["4x_idm.weights"])
+    n_blocks, n = agent.cfg.n_recurrence_layers, len(frames)
+    size = (agent.cfg.img_shape[1], agent.cfg.img_shape[0])
+    if labels_8b is None:
+        labeler = StreamingIDMLabeler(agent, window=IDM_WINDOW, stride=IDM_STRIDE, window_batch=IDM_WINDOW_BATCH)
+        labels_8b = [lab for f in frames for lab in labeler.feed(f)] + labeler.finish()
+    want = [{"frame": i, "action": action_jsonl_row(a)} for i, a in labels_8b]
+
+    def resized_batches():
+        for start in range(0, n, 64):
+            yield np.stack([resize_image(f, size) for f in frames[start:start + 64]])
+
+    out = os.path.join(os.path.dirname(paths["4x_idm.model"]), "labels.jsonl")
+    calls = counted_dispatches(agent)
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got_n = label_frames(agent, resized_batches(), out, IDM_WINDOW, IDM_STRIDE, IDM_WINDOW_BATCH)
+    seconds = time.perf_counter() - t0
+    launches, forwards = launch_counts()[0], len(calls)
+    rows = [json.loads(line) for line in open(out)]
+    if got_n != n or [r["frame"] for r in rows] != list(range(n)):
+        raise AssertionError("label_frames did not label every frame once, in order")
+    wrong = [r["frame"] for r, w in zip(rows, want) if r != w]
+    if wrong or len(rows) != len(want):
+        raise AssertionError(f"{len(wrong)} labels of label_frames differ from phase 8(b)'s: {wrong[:8]}")
+    if launches != n_blocks * forwards:
+        raise AssertionError(f"label_frames launched B1 {launches} times in {forwards} forwards")
+    log(f"15(d) label_frames (4x IDM, f32, window {IDM_WINDOW}, stride {IDM_STRIDE}, {IDM_WINDOW_BATCH} windows a "
+        f"forward): {n} frames in {seconds:.2f} s ({n / seconds:.1f} frames/s, the host resize included), "
+        f"{forwards} forwards, B1 launches {launches}; every label 8(b)'s")
+
+    batches = [frames[s:s + PRINT_MODE_FRAMES] for s in range(0, n, PRINT_MODE_FRAMES)]
+    agent.reset()
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    printed = list(predict_batches(agent, iter(batches)))
+    print_s = time.perf_counter() - t0
+    print_launches = launch_counts()[0]
+    agent.reset()
+    direct = []
+    for batch in batches:
+        pred = agent.predict_actions(batch)
+        direct.extend(action_jsonl_row({k: v[0, i] for k, v in pred.items()}) for i in range(len(batch)))
+    if [i for i, _ in printed] != list(range(n)):
+        raise AssertionError("the print mode did not label every frame once, in order")
+    wrong = [i for (i, r), d in zip(printed, direct) if r != d]
+    if wrong:
+        raise AssertionError(f"{len(wrong)} print-mode labels differ from predict_actions': {wrong[:8]}")
+    if print_launches != n_blocks * len(batches):
+        raise AssertionError(f"the print mode launched B1 {print_launches} times in {len(batches)} batches")
+    log(f"15(d) print mode (predict_batches, {PRINT_MODE_FRAMES} frames a batch, the state carried): {n} frames in "
+        f"{print_s:.2f} s ({n / print_s:.1f} frames/s), B1 launches {print_launches}; every label predict_actions'")
+    return launches // max(forwards, 1), print_launches // len(batches)
+
+
+def entry_benches(dev, device_args, plain_ms):
+    """15(e): the two breakdown tools; returns B1's and B2's launches a BC
+    step of the breakdown's train-step chain."""
+    from vpt_tpu_torch.config import FOUNDATION_POLICY_KWARGS
+    from vpt_tpu_torch.tools import bench_bc_breakdown, bench_breakdown
+
+    bc = bench_bc_breakdown.main(["--width", str(BENCH_WIDTH), "--batch", str(BENCH_BC_B), "--chunk", str(BENCH_BC_T),
+                                  "--iters", str(BENCH_ITERS), "--compute-dtype", "float32", "--cnn-detail"]
+                                 + device_args)
+    rollout = bench_breakdown.main(["--width", str(BENCH_WIDTH), "--streams", str(BENCH_STREAMS), "--iters", "20"]
+                                   + device_args)
+    step = bc["chains"]["step_ms"]
+    n_blocks = FOUNDATION_POLICY_KWARGS["n_recurrence_layers"]
+    gap = bc["step_ms"] / plain_ms - 1
+    log(f"15(e) bench_bc_breakdown (2x, B={BENCH_BC_B}, T={BENCH_BC_T}, f32): step {bc['step_ms']:.1f} ms against "
+        f"7(b)'s {plain_ms:.1f} ({100 * gap:+.1f}%), forward {bc['fwd_ms']:.1f}, forward and backward "
+        f"{bc['grad_ms']:.1f}, optimizer {bc['optimizer_ms']:.1f}; B1 {step['B1']} and B2 {step['B2']} in "
+        f"{step['calls']} steps; seconds " + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in bc["chains"].items()))
+    log(f"15(e) bench_breakdown (2x, {BENCH_STREAMS} streams, t=1, bf16): CNN {rollout['cnn_ms']:.3f} ms, blocks "
+        f"{rollout['transformer_ms']:.3f}, tail {rollout['tail_ms']:.3f}; the CNN at "
+        f"{rollout['cnn_achieved_tflops']:.2f} TFLOP/s")
+    if (step["B1"], step["B2"]) != (n_blocks * step["calls"], n_blocks * step["calls"]):
+        raise AssertionError(f"the breakdown's {step['calls']} BC steps launched B1 {step['B1']} and B2 "
+                             f"{step['B2']} times, expected {n_blocks} each a step")
+    if plain_ms == plain_ms and not abs(gap) <= BENCH_STEP_RTOL:
+        raise AssertionError(f"the breakdown's BC step takes {bc['step_ms']:.1f} ms, 7(b)'s {plain_ms:.1f}: "
+                             f"more than {BENCH_STEP_RTOL:.0%} apart")
+    return step["B1"] // step["calls"], step["B2"] // step["calls"]
+
+
+def check_entry_points(dev, plain_ms, float_labeling=None):
+    """Phase 15: the entry points through their main(argv) on `dev`'s
+    default (no --device on CUDA); returns B1's and B2's launches of (d)'s
+    and (e)'s paths.  `float_labeling` is phase 8's (frames and labels), or
+    None: then the frames are drawn as 8(b) draws them and labeled here."""
+    t0 = time.perf_counter()
+    device_args = [] if dev.type == "cuda" else ["--device", str(dev)]
+    if float_labeling is None:
+        frames = np.random.default_rng(0).integers(0, 256, (IDM_LABEL_FRAMES, 360, 640, 3), dtype=np.uint8)
+        labels = None
+    else:
+        frames, labels = float_labeling["frames"], float_labeling["labels"]
+    seconds = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        release_memory()
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        paths = timed("files", entry_files, dev, tmp)
+        timed("a", entry_run_agent, paths, device_args)
+        timed("b", entry_eval_agent, paths, device_args, tmp)
+        timed("c", entry_average_weights, paths, device_args, tmp)
+        per_forward, per_batch = timed("d", entry_labeling, paths, dev, frames, labels)
+    b1_step, b2_step = timed("e", entry_benches, dev, device_args, plain_ms)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
+    return ({"entry_point_launches": {"label_frames_forward": per_forward, "print_mode_batch": per_batch,
+                                      "bench_bc_step": b1_step}},
+            {"entry_point_launches": {"bench_bc_step": b2_step}})
+
+
 def probe_first_call(dev):
     """--probe-first-call: the 4x IDM's training step taken three times
     from one state (weights and a fresh Adam) under deterministic
@@ -3403,6 +3702,7 @@ def main():
     parser.add_argument("--probe-first-call", action="store_true",
                         help="compare the IDM step's first call with its later ones and stop")
     parser.add_argument("--distribution", action="store_true", help="run phase 14 alone and stop")
+    parser.add_argument("--entry-points", action="store_true", help="run phase 15 alone and stop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3425,6 +3725,9 @@ def main():
         report = cuda_build.build(KERNELS)
         backend = host_build.result()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s; host resize backend: {backend}")
+    import vpt_tpu_torch.agent  # noqa: F401  (the modules whose draws cache_cpu_draws caches)
+    import vpt_tpu_torch.training.bc, vpt_tpu_torch.training.idm, vpt_tpu_torch.training.rl  # noqa: E401, F401
+    cache_cpu_draws()
     for name, r in report.items():
         spills = ptxas_spills(r["log"])
         log(f"  {name}: {r['seconds']:.1f} s; {r['log'].count('Function properties for')} functions, "
@@ -3443,6 +3746,10 @@ def main():
         return 0
     if args.distribution:
         print(json.dumps({"distribution_launches": check_distribution(dev, float("nan")),
+                          "device": smi.splitlines()[0]}), flush=True)
+        return 0
+    if args.entry_points:
+        print(json.dumps({"entry_point_launches": check_entry_points(dev, float("nan")),
                           "device": smi.splitlines()[0]}), flush=True)
         return 0
     check_tensor_cores(KERNELS)
@@ -3482,7 +3789,6 @@ def main():
     check_wide_shapes(dev)
     phase_done("10")
     int8_forward, qat_bc, qat_idm = check_int8_qat(dev, float_labeling)
-    del float_labeling
     release_memory()
     b1["int8_launches"] = {"labeling_forward": int8_forward}
     b1["qat_launches"] = {"bc_step": qat_bc[0], "idm_step": qat_idm[0]}
@@ -3500,7 +3806,13 @@ def main():
     b1.update(b1_dist)
     b2.update(b2_dist)
     phase_done("14")
+    b1_entry, b2_entry = check_entry_points(dev, plain_step_ms, float_labeling)
+    del float_labeling
+    b1.update(b1_entry)
+    b2.update(b2_entry)
+    phase_done("15")
 
+    log(smi.splitlines()[0])  # again beside the results, for a reader of the log's tail
     log(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -42,6 +42,7 @@ def test_every_module_imports_without_jax_or_vpt_tpu():
     assert {"vpt_tpu_torch.ops.strided_attention", "vpt_tpu_torch.utils.minecraft"} <= set(names)
     assert {"vpt_tpu_torch.parallel.mesh", "vpt_tpu_torch.parallel.fsdp", "vpt_tpu_torch.parallel.tp",
             "vpt_tpu_torch.parallel.pp", "vpt_tpu_torch.parallel.model", "vpt_tpu_torch.training.pp_bc"} <= set(names)
+    assert {"vpt_tpu_torch.run_agent"} | {f"vpt_tpu_torch.tools.{t}" for t in ENTRY_TOOLS} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"
@@ -74,6 +75,53 @@ def test_default_device_raises_without_cuda():
     res = _run(code, CUDA_VISIBLE_DEVICES="")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "raised"
+
+
+# the port's counterparts of the root tools/ (profile_ops is profile_hlo's)
+ENTRY_TOOLS = ("label_videos", "eval_loss", "eval_agent", "average_weights", "record_demonstrations",
+               "download_dataset", "bench_breakdown", "bench_bc_breakdown", "bench_dataplane", "profile_ops")
+# modules of the repo's root that are the JAX package's: its tools and the reference harness
+_ROOT_MODULES = {"tools", "bench_torch_reference", "bench_torch_ref", "bench", "run_agent",
+                 "run_inverse_dynamics_model", "behavioural_cloning", "inverse_dynamics_train", "rl_fine_tune"}
+# a string naming a file of the root tools/ or the reference harness (the port's own tools are
+# vpt_tpu_torch/tools/)
+_ROOT_PATH = re.compile(r"(^|[^\w/])tools[/\\]\w+\.py|(^|[/\\])tools$|bench_torch_ref")
+
+
+def _root_references(path: Path):
+    """Imports of the root's JAX modules, and string constants (docstrings
+    aside) that name a file of tools/ or the reference harness."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node) for node in _docstrings(tree)}
+    hits = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            hits += [a.name for a in node.names if a.name.split(".")[0] in _ROOT_MODULES]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if node.module.split(".")[0] in _ROOT_MODULES:
+                hits.append(node.module)
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs
+              and _ROOT_PATH.search(node.value)):
+            hits.append(node.value)
+    return hits
+
+
+def test_no_file_of_the_port_imports_or_opens_the_root_tools():
+    root = Path(REPO)
+    files = sorted((root / "vpt_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert {p.name for p in (root / "vpt_tpu_torch" / "tools").glob("*.py")} >= {f"{t}.py" for t in ENTRY_TOOLS}
+    found = {str(p.relative_to(root)): hits for p in files if (hits := _root_references(p))}
+    assert found == {}, found
+    # the check finds what it looks for
+    probe = root / "tests" / "_probe_root_refs.py"
+    try:
+        probe.write_text('import tools.eval_loss\nfrom bench_torch_reference import install_reference\n'
+                         'import run_agent\nPATH = os.path.join(REPO, "tools/label_videos.py")\n'
+                         'OK = "vpt_tpu_torch/tools/label_videos.py"\n')
+        assert _root_references(probe) == ["tools.eval_loss", "bench_torch_reference", "run_agent",
+                                           "tools/label_videos.py"]
+    finally:
+        probe.unlink()
 
 
 # a path component naming the JAX package's directory: "vpt_tpu" alone, or

@@ -29,6 +29,6 @@ def average_state_dicts(state_dicts: Sequence[Mapping[str, torch.Tensor]]) -> Di
     return out
 
 
-def load_average(paths: List[str]) -> Dict[str, torch.Tensor]:
-    """Average several ``.weights`` files into one state_dict."""
-    return average_state_dicts([load_weights(p) for p in paths])
+def load_average(paths: List[str], device="cpu") -> Dict[str, torch.Tensor]:
+    """Average several ``.weights`` files into one state_dict, on ``device``."""
+    return average_state_dicts([{k: v.to(device) for k, v in load_weights(p).items()} for p in paths])

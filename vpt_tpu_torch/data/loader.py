@@ -87,6 +87,7 @@ def trajectory_steps(
     cursor=None,
     quit_event=None,
     skip_steps: int = 0,
+    batch_frames: int = DECODE_BATCH,
 ):
     """Generator of (frame uint8 RGB at ``resolution`` (w, h), env_action)
     for one recording, with all reference fixups applied and null actions
@@ -94,7 +95,7 @@ def trajectory_steps(
 
     The sequential action fixups run over the whole jsonl first; then the
     pixels (decode, cursor composite, resize) go through the native library
-    ``DECODE_BATCH`` frames per call.  ``skip_steps`` passes over the first
+    ``batch_frames`` frames per call.  ``skip_steps`` passes over the first
     that many non-null steps without yielding them (a resumed trajectory):
     the fixups still run and every frame is still decoded, to stay in step.
     """
@@ -135,14 +136,14 @@ def trajectory_steps(
             if emit and step_data.get("isGuiOpen", False):
                 xy = (int(step_data["mouse"]["x"] * scale), int(step_data["mouse"]["y"] * scale))
             steps.append((action, emit, xy))
-        yield from _emit_resized_frames(video, steps, resolution, cursor, quit_event, video_path)
+        yield from _emit_resized_frames(video, steps, resolution, cursor, quit_event, video_path, batch_frames)
     finally:
         video.close()
 
 
-def _emit_resized_frames(video, steps, resolution, cursor, quit_event, video_path):
+def _emit_resized_frames(video, steps, resolution, cursor, quit_event, video_path, batch_frames=DECODE_BATCH):
     """The pixel phase of a step plan ``[(action, emit, cursor_xy or None)]``:
-    decode, cursor composite and resize ``DECODE_BATCH`` frames a native
+    decode, cursor composite and resize ``batch_frames`` frames a native
     call, yielding (frame, action) for the emitting steps."""
     from vpt_tpu_torch.data.video import VideoReader
 
@@ -150,7 +151,7 @@ def _emit_resized_frames(video, steps, resolution, cursor, quit_event, video_pat
     while pos < len(steps):
         if quit_event is not None and quit_event.is_set():
             break
-        chunk = steps[pos:pos + DECODE_BATCH]
+        chunk = steps[pos:pos + batch_frames]
         n = len(chunk)
         emit_mask = np.fromiter((s[1] for s in chunk), np.uint8, n)
         xy = np.full((n, 2), VideoReader.CURSOR_NONE, np.int32)

@@ -79,9 +79,12 @@ def fsdp_units(model: nn.Module):
     return units
 
 
-def apply_fsdp(model: nn.Module, mesh: DeviceMesh, min_size: int = MIN_SHARD_SIZE) -> nn.Module:
+def apply_fsdp(model: nn.Module, mesh: DeviceMesh, min_size: int = MIN_SHARD_SIZE,
+               root: Optional[nn.Module] = None) -> nn.Module:
     """``fully_shard`` the policy or IDM in place over the mesh's fsdp axis
-    (its (dp, fsdp) plane when dp > 1); returns the model."""
+    (its (dp, fsdp) plane when dp > 1); returns the model.  The root
+    ``fully_shard`` goes to ``root`` (a module holding the model, whose
+    forward is the one called) where given, else to the model."""
     fsdp = axis_size(mesh, "fsdp")
     shard_mesh = mesh["dp", "fsdp"] if axis_size(mesh, "dp") > 1 else mesh["fsdp"]
     names = {id(p): n for n, p in model.named_parameters()}
@@ -92,7 +95,7 @@ def apply_fsdp(model: nn.Module, mesh: DeviceMesh, min_size: int = MIN_SHARD_SIZ
 
     for unit in fsdp_units(model):
         fully_shard(unit, mesh=shard_mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=shard_mesh, shard_placement_fn=placement)
+    fully_shard(model if root is None else root, mesh=shard_mesh, shard_placement_fn=placement)
     # the IDM's embedding enters the CNN through forward_nchw, not its forward
     register_fsdp_forward_method(model.net.img_process, "forward_nchw")
     return model

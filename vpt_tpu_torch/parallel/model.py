@@ -5,27 +5,40 @@ parallel forward, and the gradient reduction over the data axes.
 
   * tp > 1: the tensor-parallel plan (parallel/tp.py);
   * fsdp > 1: FSDP2 over the (dp, fsdp) plane (parallel/fsdp.py), which
-    reduces the gradients itself;
+    reduces the gradients over dp and fsdp itself;
   * otherwise DDP over the (dp, sp) ranks, at any size (one rank included),
-    unless tp shards the parameters: then the gradients are all-reduced over
-    (dp, sp) after the backward by :meth:`sync_grads`, since DDP takes no
-    DTensor parameters.  DDP ignores the parameters in ``unused``, which the
-    loss never reaches (BC's value head, the IDM's discarded ``lastlayer``):
-    they get no gradient on any rank, so there is nothing to reduce.
+    unless tp shards the parameters, since DDP takes no DTensor parameters.
+    DDP ignores the parameters in ``unused``, which the loss never reaches
+    (BC's value head, the IDM's discarded ``lastlayer``): they get no
+    gradient on any rank, so there is nothing to reduce.
+
+What no wrapper reduces, :meth:`ParallelModel.sync_grads` averages by hand
+after the backward: over (dp, sp) under tp without fsdp, over sp under
+fsdp.
 
 Sequence parallelism (``SequenceParallelForward``): each sp rank embeds its
 T/sp frames, which is the FLOPs bulk (the CNN; the IDM's conv3d takes the
 frames its kernel reaches across the slice's edges); the latents are
-gathered over sp with the differentiable ``all_gather`` of
-``torch.distributed.nn.functional``, whose backward sums each slice's
-gradient from every rank; the blocks run on the whole T from the same
+gathered over sp by ``_GatherTime``, whose backward sums each slice's
+gradient from every rank (an all-reduce, then the rank's slice: the
+``all_gather`` of ``torch.distributed.nn.functional`` scatters from global
+rank numbers in its gloo backward, which fails on any sp group that does
+not hold rank 0); the blocks run on the whole T from the same
 state, and the heads on the rank's own slice, which is all its loss covers.
 With each rank's loss a mean over its own B/(dp·fsdp) rows and T/sp steps,
 averaging over (dp, sp) gives the gradient of the global mean: the sum over
 sp of the slices' terms, the average over dp of the rows'.
 
-Nothing gives way quietly: a wrapper that fails to apply raises, and
-combinations the port does not compose (sp with fsdp or tp) raise too.
+The exchange is of the latents, before the blocks, so it stays on the sp
+group whatever shards the parameters.  Under tp each rank then runs its
+heads of every block on the whole T: B1 and B2 get the rank's heads of q,
+k, v and R, as under tp alone.  Under fsdp the FSDP2 root is the
+sequence-parallel forward (it enters the model through ``embed_time_slice``,
+``recurrent`` and ``heads_from_recurrent``, not its ``forward``), so the
+root's parameters are gathered for the whole call.
+
+Nothing gives way quietly: a wrapper that fails to apply raises, and a pp
+mesh raises (it trains through training/pp_bc.py).
 """
 
 from __future__ import annotations
@@ -42,6 +55,26 @@ from torch.nn.parallel import DistributedDataParallel
 from vpt_tpu_torch.parallel.fsdp import apply_fsdp
 from vpt_tpu_torch.parallel.mesh import axis_size, group, local_time
 from vpt_tpu_torch.parallel.tp import apply_tp
+
+
+class _GatherTime(torch.autograd.Function):
+    """The group's (B, t, E) slices concatenated on the time axis in rank
+    order; the backward sums the whole gradient over the group and keeps
+    this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.steps = group, x.shape[1]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        start = dist.get_rank(ctx.group) * ctx.steps
+        return grad[:, start:start + ctx.steps], None
 
 
 class SequenceParallelForward(nn.Module):
@@ -63,23 +96,21 @@ class SequenceParallelForward(nn.Module):
     def forward(self, frames: torch.Tensor, firsts: torch.Tensor, state):
         if self.sp == 1:
             return self.model(frames, firsts, state)
-        from torch.distributed.nn.functional import all_gather
-
         sl = self.time_slice(frames.shape[1])
-        x = self.model.embed_time_slice(frames, sl)
-        x = torch.cat(all_gather(x, group=self.group), dim=1)
+        x = _GatherTime.apply(self.model.embed_time_slice(frames, sl), self.group)
         x, state_out = self.model.recurrent(x, firsts, state)
         return self.model.heads_from_recurrent(x[:, sl]), state_out
 
 
-def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
+def shard_model(model: nn.Module, mesh: DeviceMesh, root: Optional[nn.Module] = None) -> nn.Module:
     """The mesh's parameter sharding alone, in place (the tensor-parallel
-    plan where tp > 1, then FSDP2 where fsdp > 1): for a model that is run
-    but not trained, such as PPO's frozen anchor."""
+    plan where tp > 1, then FSDP2 where fsdp > 1, its root ``root`` or the
+    model): for a model that is run but not trained, such as PPO's frozen
+    anchor, and for the trained one."""
     if axis_size(mesh, "tp") > 1:
         apply_tp(model, mesh["tp"])
     if axis_size(mesh, "fsdp") > 1:
-        apply_fsdp(model, mesh)
+        apply_fsdp(model, mesh, root=root)
     return model
 
 
@@ -96,16 +127,17 @@ class ParallelModel:
         sp, tp, fsdp = axis_size(mesh, "sp"), axis_size(mesh, "tp"), axis_size(mesh, "fsdp")
         if axis_size(mesh, "pp") > 1:
             raise NotImplementedError("a pp mesh trains through training/pp_bc.py's PPBCTrainer")
-        if sp > 1 and (fsdp > 1 or tp > 1):
-            raise NotImplementedError("sequence parallelism composes with dp only, not with fsdp or tp")
-        shard_model(model, mesh)
         self.forward_module = SequenceParallelForward(model, mesh)
+        shard_model(model, mesh, root=self.forward_module if sp > 1 else None)
         self._sync_group = None
         self._call = self.forward_module
-        if fsdp == 1 and tp > 1:  # FSDP2 reduces its gradients itself, DDP takes no DTensors
+        if fsdp > 1:  # FSDP2 reduces over (dp, fsdp); sp is left
+            if sp > 1:
+                self._sync_group = group(mesh, ("sp",))
+        elif tp > 1:  # DDP takes no DTensors
             if axis_size(mesh, "dp") * sp > 1:
                 self._sync_group = group(mesh, ("dp", "sp"))
-        elif fsdp == 1:
+        else:
             ignored = [f"model.{n}" for n, _ in model.named_parameters() if n.startswith(tuple(unused))]
             DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(self.forward_module, ignored)
             device = next(model.parameters()).device
@@ -120,8 +152,8 @@ class ParallelModel:
         return self.forward_module.time_slice(steps)
 
     def sync_grads(self) -> None:
-        """Average the gradients over (dp, sp) where no wrapper does (tensor
-        parallelism with data parallelism beside it); a no-op otherwise."""
+        """Average the gradients over the axes no wrapper reduces ((dp, sp)
+        under tp without fsdp, sp under fsdp); a no-op otherwise."""
         if self._sync_group is None:
             return
         n = dist.get_world_size(self._sync_group)

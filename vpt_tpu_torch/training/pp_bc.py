@@ -5,7 +5,11 @@ The policy's three split points (``embed`` → the recurrent blocks →
 ``heads_from_recurrent``) make one train step in which the block stack runs
 as a GPipe pipeline over the mesh's pp ranks (parallel/pp.py): each rank
 holds its stage's blocks only, stage 0 runs the CNN, every stage runs the
-heads on the stack's output.  The published configs never need it (dp and
+heads on the stack's output.  With dp > 1 beside pp (the JAX package's
+``make_mesh(n_dp=..., n_pp=...)``) the rows split over dp: each of the dp
+pipelines runs its share of the rows, and every gradient is averaged over
+the stage's dp group before the clip and Adam, so the loss, the grad norm
+and the step are the global batch's.  The published configs never need it (dp and
 fsdp cover them); it is the geometry for much deeper stacks, and
 ``BCTrainer`` stays the default.
 
@@ -13,7 +17,7 @@ The step is ``BCTrainer``'s: the same loss, the same optimizer chain (the
 clip's norm over every parameter of every stage), the value head outside
 the optimizer.  Each stage backpropagates the loss divided by the stage
 count, and the parameters every stage holds sum their gradients over the
-stages.  ``checkpoint_params`` gathers the standard state_dict (every
+stages; then every gradient is averaged over dp.  ``checkpoint_params`` gathers the standard state_dict (every
 stage's blocks, ``merge_policy_params``), and ``load_weights`` takes one.
 """
 
@@ -49,8 +53,12 @@ BLOCKS = "net.recurrent_layer.blocks"
 class PPBCTrainer:
     """Sequence-chunked BC with the transformer stack pipelined over ``pp``.
 
-    :param mesh: a mesh of parallel/mesh.py with a pp axis (the other axes 1)
-    :param n_micro: microbatches a step; must divide the batch
+    :param mesh: a mesh of parallel/mesh.py over (pp, dp); fsdp, sp and tp
+        must be 1
+    :param n_micro: microbatches a step; must divide this rank's rows
+
+    ``train_step`` takes this rank's rows (``parallel.mesh.local_batch``)
+    and ``initial_state`` the global batch size, as ``BCTrainer``'s.
     """
 
     def __init__(self, policy_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any],
@@ -58,8 +66,11 @@ class PPBCTrainer:
                  seed: int = 0, device=None):
         self.hp = hp or BCHyperparams()
         self.device = resolve_device(device)
-        if mesh is None or any(pmesh.axis_size(mesh, a) > 1 for a in ("dp", "fsdp", "sp", "tp")):
-            raise ValueError("PPBCTrainer takes a mesh whose only axis above 1 is pp")
+        if mesh is None:
+            raise ValueError("PPBCTrainer takes a mesh with a pp axis")
+        for axis in ("fsdp", "sp", "tp"):
+            if pmesh.axis_size(mesh, axis) > 1:
+                raise ValueError(f"PPBCTrainer takes the pp and dp axes, not {axis}")
         self.mesh = mesh
         self.n_micro = n_micro
         self.cfg = PolicyConfig.from_kwargs(dict(policy_kwargs)).replace(compute_dtype=compute_dtype)
@@ -67,6 +78,7 @@ class PPBCTrainer:
             raise ValueError("the pipeline runs the transformer stack")
         self.n_block = self.cfg.n_recurrence_layers
         self.group = pmesh.group(mesh, ("pp",))
+        self.dp_group = pmesh.group(mesh, ("dp",)) if pmesh.axis_size(mesh, "dp") > 1 else None
         self.stage, self.n_stages = dist.get_rank(self.group), dist.get_world_size(self.group)
         self.lo, self.hi = stage_blocks(self.n_block, self.stage, self.n_stages)
         self.temperature = float(pi_head_kwargs.get("temperature", 1.0))
@@ -116,14 +128,13 @@ class PPBCTrainer:
         self.policy.load_state_dict({**rest, **local}, strict=True)
 
     def initial_state(self, batch_size: int):
-        """This stage's blocks' zero state."""
-        return policy_initial_state(self.cfg, batch_size, device=self.device)[self.lo:self.hi]
+        """This stage's blocks' zero state for this rank's rows of a global
+        batch of ``batch_size``."""
+        rows = pmesh.local_rows(self.mesh, batch_size)
+        return policy_initial_state(self.cfg, rows.stop - rows.start, device=self.device)[self.lo:self.hi]
 
     def _clip_norm(self) -> torch.Tensor:
         """Clip every stage's gradients by the norm of all of them together."""
-        for p in self.optimizer.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
         stage_sq = _squared_norm(self.stage_params)
         dist.all_reduce(stage_sq, group=self.group)
         total = torch.sqrt(_squared_norm(self.replicated) + stage_sq)
@@ -132,9 +143,19 @@ class PPBCTrainer:
             p.grad.mul_(coef)
         return total
 
+    def _average_over_dp(self) -> None:
+        """Average every gradient over the stage's dp group (a no-op at dp = 1)."""
+        if self.dp_group is None:
+            return
+        n = dist.get_world_size(self.dp_group)
+        for p in self.optimizer.params:
+            dist.all_reduce(p.grad, group=self.dp_group)
+            p.grad.div_(n)
+
     def train_step(self, batch, state):
-        """One optimizer step on a (B, T) batch from this stage's blocks'
-        ``state``; returns (state, loss, grad_norm) as ``BCTrainer.train_step``."""
+        """One optimizer step on this rank's rows of a (B, T) batch from this
+        stage's blocks' ``state``; returns (state, loss, grad_norm) as
+        ``BCTrainer.train_step``, the loss and the norm the global batch's."""
         self.init()
         if not isinstance(batch["frames"], torch.Tensor):
             batch = batch_to_tensors(batch)
@@ -153,10 +174,15 @@ class PPBCTrainer:
         loss = -(logp * batch["mask"].float()).sum() / (b * t)
         (loss / self.n_stages).backward()
         sync_replicated_grads(self.replicated, self.group)
+        for p in self.optimizer.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self._average_over_dp()
         grad_norm = self._clip_norm()
         self.optimizer.adam.step()
         self.step_count += 1
-        return map_state(torch.Tensor.detach, state_out), loss.detach(), grad_norm
+        loss = loss.detach() if self.dp_group is None else pmesh.all_mean(loss, self.dp_group)
+        return map_state(torch.Tensor.detach, state_out), loss, grad_norm
 
 
 def _squared_norm(params) -> torch.Tensor:
