@@ -197,6 +197,19 @@ Phases, each of which fails the run if it fails:
      BC step's own time within 10% of 7(b)'s; B1 and B2 once per block and
      step of the breakdown's train steps;
      and the phase's seconds.
+ 16. head dims past the four the kernels take whole (64, 128, 192, 256):
+     (a) B1 and B2 at d = 16, 32 and 96 (zero-padded by the wrappers to the
+     next multiple of 64) and 384 (K and V 64 columns at a time), f32 and
+     bf16, mask and bias, at the 2x chunk's geometry at 8 heads and at d =
+     384 past 512 keys, against their plain versions at phase 3's and 6's
+     limits; their times beside the plain versions', SDPA's and the bound of
+     the unpadded work;
+     (b) one-block policies at d = 32 (hidsize 256, 8 heads) and d = 96
+     (hidsize 384, 4 heads), the 2x policy's CNN at width 1: a (2, 16)
+     chunked forward on the card against the CPU (logits and value at
+     phase 5's limit) and one BC step at phase 7(a)'s limits, then a step
+     whose launches are counted, B1 and B2 once each;
+     and the phase's seconds.
 Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
 time them at the IDM's long-call shape and at the PPO minibatch's.  The CPU
 side of every train step held against the card (7(a), 8(a), 9(a), 11(c),
@@ -221,7 +234,8 @@ same clock, for a comparison inside one call.
     python3 chip_smoke.py --profile
 
 builds as phases 1 and 2 do, then traces phase 5's chunked forward, 7(b)'s
-BC step, 8(c)'s IDM step and 9(b)'s PPO update with torch.profiler
+BC step, 8(c)'s IDM step, 9(b)'s PPO update and the BC step that
+profile_ops' geometry flags PROFILE_FLAGS build with torch.profiler
 (vpt_tpu_torch/tools/profile_ops.py), prints each one's device time by
 kernel category and its top kernels, writes the full tables to
 profile_*.json in --profile-dir (default profile_tables/), and prints them
@@ -243,6 +257,11 @@ builds, then runs phase 14 alone (its BC steps beside no 7(b) time).
 
 builds, then runs phase 15 alone (its labels checked against a
 StreamingIDMLabeler run of its own, its BC step beside no 7(b) time).
+
+    python3 chip_smoke.py --head-dims
+
+builds, then runs phase 16 alone (on a fresh process its SDPA and plain
+timings pay first calls that phase 6 pays in the whole script).
 """
 
 import argparse
@@ -392,7 +411,11 @@ def cuda_time_ms(fn, iters=20, warmup=3, tries=3):
     is made 4 times longer and the calls timed again.  A fn that waits on the
     device itself (a boolean-mask index, .item()) can never be queued behind
     the spin: its time is then the host's and the device's together, and the
-    second value is False."""
+    second value is False.  The first call, which may pay one-time costs
+    (an algorithm's choice, a library's first load), is left out of the
+    spin's estimate: a spin sized from it ran for minutes."""
+    fn()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
@@ -2228,6 +2251,114 @@ def check_wide_shapes(dev):
         wide_block(dev, *block)
 
 
+# ------------------------------------------------------------------ phase 16
+
+# head dims past the four the kernels took whole before: zero-padded to the next multiple of 64 (16: the tiny
+# test configs; 32: hidsize 512 at 16 heads; 96) and taken 64 columns of K and V at a time (384: hidsize 6144)
+HEAD_DIMS = (16, 32, 96, 384)
+HEAD_DIM_SHAPE = (4, 8, 128, 128)  # (B, H, t, maxlen) of 16(a): the 2x chunk's geometry at 8 heads
+# 16(b)'s one-block policies: (hidsize, heads), d = 32 and 96, the 2x policy's CNN at width 1
+HEAD_DIM_POLICIES = ((256, 8), (384, 4))
+
+
+def head_dim_kernels(dev):
+    """Phase 16(a): B1 and B2 at every d of HEAD_DIMS, f32 and bf16, mask
+    and relative bias, against their plain versions at phase 3's and 6's
+    limits, and past 512 keys at d = 384 (the chunked kernels); then their
+    times at the 2x chunk's geometry (a bound of the unpadded work).
+    Returns {"d=<d> <dtype>": {"B1": timing keys, "B2": ...}}."""
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    t0 = time.perf_counter()
+    B, H, t, maxlen = HEAD_DIM_SHAPE
+    cases = [(d, B, H, t, maxlen) for d in HEAD_DIMS] + [(384, 1, 4, 128, 512)]
+    for d, b, h, tq, ml in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, R, b_nd = attention_inputs(dev, b, h, tq, ml, d, dtype, d + ml)
+            label = f"d={d} T={tq + ml}"
+            check_b1_case(wa, q, k, v, mask, R, b_nd, label)
+            dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(d), device=dev).to(dtype)
+            got = wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+            torch.cuda.synchronize()
+            errs = b2_errors(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, dO, True), dtype)
+            log(f"B2 {label} {str(dtype)[6:]} mask=True rel=True: max_abs_err (tol) "
+                + ", ".join(f"{n} {e:.3e} ({b:.2e})" for n, (e, b) in errs.items()))
+            if not all(e <= b for e, b in errs.values()):
+                raise AssertionError(f"B2 disagrees with its plain version ({label}): {errs}")
+    log(f"  16(a) checks: {time.perf_counter() - t0:.1f} s")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    times = {}
+    for d in HEAD_DIMS:
+        q, k, v, mask, R, b_nd = attention_inputs(dev, B, H, t, maxlen, d, torch.float32, d)
+        dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(d + 1), device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd, gd = (x.to(dtype) for x in (q, k, v, dO))
+            times[f"d={d} {str(dtype)[6:]}"] = {
+                "B1": dict(zip(keys, time_b1(qd, kd, vd, mask, R, b_nd, label=f"d={d} (B={B}, H={H})"))),
+                "B2": dict(zip(keys, time_b2(qd, kd, vd, mask, R, b_nd, gd, label=f"d={d} (B={B}, H={H})"))),
+            }
+    return times
+
+
+def head_dim_policy(dev, hidsize, heads):
+    """Phase 16(b): a one-block policy at d = hidsize / heads on the card
+    against the CPU from the same weights: a (2, 16) chunked forward (logits
+    and value at phase 5's limit, the CPU replaying the card's dense ReLU
+    decisions) and one BC step at phase 7(a)'s limits.  Returns the B1 and
+    B2 launches of the two."""
+    from vpt_tpu_torch.models.policy import policy_initial_state
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    kwargs = variant_kwargs(hidsize=hidsize, attention_heads=heads, n_recurrence_layers=1, impala_width=1,
+                            timesteps=16, attention_memory_size=32)
+    gpu, cpu = bc_trainer_pair(dev, kwargs)
+    B, T = 2, 16
+    g = torch.Generator().manual_seed(2)
+    img = torch.randint(0, 256, (B, T, *gpu.cfg.img_shape), generator=g, dtype=torch.uint8)
+    first = torch.zeros((B, T), dtype=torch.bool)
+    first[:, 0] = first[1, T // 2] = True
+    reset_launch_counts()
+    relus = ReluDecisions()
+    with torch.no_grad():
+        with relus.record(gpu.policy):
+            out_g, _ = gpu.policy(img.to(dev), first.to(dev), policy_initial_state(gpu.cfg, B, ring=False, device=dev))
+        torch.cuda.synchronize()
+        forward = wa.launches
+        with relus.replay(cpu.policy):
+            out_c, _ = cpu.policy(img, first, policy_initial_state(cpu.cfg, B, ring=False))
+    errs = {k: (out_g["pi_logits"][k].cpu() - out_c["pi_logits"][k]).abs().max().item() for k in out_c["pi_logits"]}
+    errs["vpred"] = (out_g["vpred"].cpu() - out_c["vpred"]).abs().max().item()
+    log(f"d={hidsize // heads} policy (hidsize {hidsize}, {heads} heads, 1 block), chunked ({B}, {T}) forward card vs "
+        f"CPU: max_abs_err {errs} (tol {STEP_TOL}), B1 launches {forward}; {relus.report()}")
+    if not all(e <= STEP_TOL for e in errs.values()) or forward != 1:
+        raise AssertionError(f"the d={hidsize // heads} chunked forward disagrees with the CPU's ({errs}) or "
+                             f"launched B1 {forward} times")
+    train_card_vs_cpu(dev, label=f"d={hidsize // heads} train_step", pair=(gpu, cpu))
+    reset_launch_counts()  # the step above also ran the calibration's forwards and backwards
+    gpu.train_step(bc_batch(dev, B, T, gpu.cfg.img_shape[0], 9), gpu.initial_state(B))
+    torch.cuda.synchronize()
+    counts = (wa.launches, wa.bwd_launches)
+    log(f"  d={hidsize // heads} BC step at ({B}, {T}): B1 {counts[0]}, B2 {counts[1]} launches")
+    if counts != (1, 1):
+        raise AssertionError(f"the d={hidsize // heads} BC step launched (B1, B2) {counts}, expected (1, 1)")
+    return {"forward": forward, "bc_step": counts}
+
+
+def check_head_dims(dev):
+    """Phase 16: every head dim a PolicyConfig admits up to 512 goes through
+    B1 and B2 (16(a)), and policies at d = 32 and 96 run on them (16(b))."""
+    t0 = time.perf_counter()
+    times = head_dim_kernels(dev)
+    seconds = {"(a)": time.perf_counter() - t0}
+    launches = {}
+    for h, n in HEAD_DIM_POLICIES:
+        t = time.perf_counter()
+        launches[f"d={h // n}"] = head_dim_policy(dev, h, n)
+        seconds[f"(b) d={h // n}"] = time.perf_counter() - t
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
+    return times, launches
+
+
 # ------------------------------------------------------------------ phase 11
 
 INT8_VALUE_ATOL = 0.15   # int8 against float value estimates (tests/test_int8.py, vpt_tpu's rule)
@@ -3650,10 +3781,14 @@ def time_kernels(dev):
     return times
 
 
+PROFILE_FLAGS = ["--step", "bc", "--width", "2", "--batch", "8", "--chunk", "32", "--compute-dtype", "bfloat16"]
+
+
 def profile_phases(dev, out_dir):
     """--profile: a table of device time by CUDA kernel (tools/profile_ops.py)
     of phase 5's chunked forward, 7(b)'s BC step, 8(c)'s IDM step and 9(b)'s
-    PPO update; each full table goes to out_dir/profile_<name>.json."""
+    PPO update, and of the BC step the tool's geometry flags PROFILE_FLAGS
+    build; each full table goes to out_dir/profile_<name>.json."""
     from vpt_tpu_torch.agent import MineRLAgent
     from vpt_tpu_torch.models.policy import policy_initial_state
     from vpt_tpu_torch.tools import profile_ops
@@ -3670,7 +3805,10 @@ def profile_phases(dev, out_dir):
     steps = (("chunked_forward", "phase 5: 2x chunked forward (4, 128), f32", lambda: chunked_forward, 2, 3),
              ("bc_step", "phase 7(b): 2x BC train step (4, 128), f32", lambda: profile_ops.make_bc_step(dev), 2, 3),
              ("idm_step", "phase 8(c): 4x IDM train step (3, 128), f32", lambda: profile_ops.make_idm_step(dev), 2, 3),
-             ("ppo_update", "phase 9(b): 2x PPO update, 64 x 64, bf16", lambda: profile_ops.make_ppo_step(dev), 1, 1))
+             ("ppo_update", "phase 9(b): 2x PPO update, 64 x 64, bf16", lambda: profile_ops.make_ppo_step(dev), 1, 1),
+             # the tool's geometry flags (profile_hlo.py's): its bc step at their defaults but the width
+             ("flags_bc", f"profile_ops {' '.join(PROFILE_FLAGS)}",
+              lambda: profile_ops.make_step(profile_ops.parser().parse_args(PROFILE_FLAGS), dev), 1, 2))
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     tables = {}
@@ -3703,6 +3841,7 @@ def main():
                         help="compare the IDM step's first call with its later ones and stop")
     parser.add_argument("--distribution", action="store_true", help="run phase 14 alone and stop")
     parser.add_argument("--entry-points", action="store_true", help="run phase 15 alone and stop")
+    parser.add_argument("--head-dims", action="store_true", help="run phase 16 alone and stop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3751,6 +3890,9 @@ def main():
     if args.entry_points:
         print(json.dumps({"entry_point_launches": check_entry_points(dev, float("nan")),
                           "device": smi.splitlines()[0]}), flush=True)
+        return 0
+    if args.head_dims:
+        print(json.dumps({"head_dims": check_head_dims(dev), "device": smi.splitlines()[0]}), flush=True)
         return 0
     check_tensor_cores(KERNELS)
 
@@ -3811,6 +3953,12 @@ def main():
     b1.update(b1_entry)
     b2.update(b2_entry)
     phase_done("15")
+    head_dim_times, head_dim_launches = check_head_dims(dev)
+    for b, name in ((b1, "B1"), (b2, "B2")):
+        b["head_dim_shapes"] = {k: v[name] for k, v in head_dim_times.items()}
+        b["head_dim_launches"] = {k: v["forward"] if name == "B1" else v["bc_step"][1]
+                                  for k, v in head_dim_launches.items()}
+    phase_done("16")
 
     log(smi.splitlines()[0])  # again beside the results, for a reader of the log's tail
     log(json.dumps({"kernels": [b1, b2]}))

@@ -1,8 +1,10 @@
 """The port's data plane against vpt_tpu's, on synthetic mp4 + jsonl fixtures
 written with the JAX package's VideoWriter (as tests/test_data_loader.py):
-json actions, every fixup branch of ``trajectory_steps``, the native video
-binding, ``SequenceDataLoader`` batches, and ``BCTrainer.train`` over a
-three-trajectory dataset.
+json actions, every fixup branch of ``trajectory_steps`` (with and without
+the recorder-version mouse scalers), the native video binding,
+``SequenceDataLoader`` batches (and from a cursor of another stream
+geometry, which both drop for the coarse trajectory cursor), and
+``BCTrainer.train`` over a three-trajectory dataset.
 
 Everything is compared exactly (the two packages drive the same native
 library), except the per-step training losses: rtol 1e-5, atol 1e-6
@@ -143,6 +145,30 @@ def test_trajectory_steps_match_vpt_tpu(native, tmp_path, fixup, resolution):
         _same_action(a, ja)
 
 
+VERSIONED = [dict(_step(dx=dx, dy=-dx / 2, gui=gui, x=100.0, y=100.0), dataVersion=version)
+             for dx, gui, version in ((40.0, True, "5.7"), (20.0, False, "6.7"), (16.0, True, "6.8"), (30.0, True, "1"),
+                                      (12.0, True, "6.9"), (25.0, True, None))]
+
+
+@pytest.mark.parametrize("apply", [False, True])
+def test_version_scalers_match_vpt_tpu(native, tmp_path, apply):
+    """``apply_version_scalers`` scales the GUI-open mouse deltas by their
+    recorder version's scaler, as vpt_tpu's ``trajectory_steps`` (off: as
+    they are)."""
+    steps = [{k: v for k, v in s.items() if v is not None} for s in VERSIONED]
+    vp, jp = _write_fixture(tmp_path, "versions", steps)
+    assert loader.MINEREC_VERSION_SPECIFIC_SCALERS == jax_loader.MINEREC_VERSION_SPECIFIC_SCALERS
+    ours = list(loader.trajectory_steps(vp, jp, apply_version_scalers=apply))
+    theirs = list(jax_loader.trajectory_steps(vp, jp, apply_version_scalers=apply))
+    assert len(ours) == len(theirs) == len(steps)
+    for (f, a), (jf, ja) in zip(ours, theirs):
+        np.testing.assert_array_equal(f, jf)
+        _same_action(a, ja)
+    plain = list(loader.trajectory_steps(vp, jp))
+    moved = [not np.array_equal(a["camera"], b["camera"]) for (_, a), (_, b) in zip(ours, plain)]
+    assert moved == ([True, False, True, False, True, False] if apply else [False] * len(steps))
+
+
 def test_video_binding_matches_vpt_tpu(native, tmp_path):
     rng = np.random.default_rng(1)
     path = str(tmp_path / "v.mp4")
@@ -188,6 +214,32 @@ def test_sequence_loader_batches_match_vpt_tpu(native, tmp_path):
         for key in ("frames", "buttons", "camera", "firsts", "mask", "episode_ids"):
             np.testing.assert_array_equal(b[key], jb[key], err_msg=key)
     assert any(not b["mask"].all() for b in ours)  # a padded tail was exercised
+
+
+@pytest.mark.parametrize("start_trajectory", [0, 3])
+def test_cursor_of_another_geometry_falls_back_as_vpt_tpu(native, tmp_path, capsys, start_trajectory):
+    """A resume cursor written at another stream geometry (shard 1 of 2 of
+    two streams) given to an unsharded two-stream loader: both packages drop
+    it for the coarse ``start_trajectory`` cursor and yield the same batches."""
+    _dataset(tmp_path)
+    kw = dict(chunk_len=4, n_epochs=2, seed=5, resolution=(32, 32))
+    sharded = loader.SequenceDataLoader(str(tmp_path), batch_size=1, shard_id=1, num_shards=2, **kw)
+    try:
+        next(iter(sharded))
+        state = sharded.state()
+    finally:
+        sharded.close()
+    assert state["shard"] == [1, 2] and state["streams"][0][0] >= 0
+    ours = _collect(loader.SequenceDataLoader(str(tmp_path), batch_size=2, resume_state=state,
+                                              start_trajectory=start_trajectory, **kw))
+    assert "coarse trajectory cursor" in capsys.readouterr().out
+    theirs = _collect(jax_loader.SequenceDataLoader(str(tmp_path), batch_size=2, resume_state=state,
+                                                    start_trajectory=start_trajectory, **kw))
+    assert len(ours) == len(theirs) > 0
+    for b, jb in zip(ours, theirs):
+        for key in ("frames", "buttons", "camera", "firsts", "mask", "episode_ids"):
+            np.testing.assert_array_equal(b[key], jb[key], err_msg=key)
+    assert min(ours[0]["episode_ids"]) >= start_trajectory
 
 
 def test_bc_train_losses_match_vpt_tpu(native, tmp_path):

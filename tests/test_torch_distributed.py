@@ -452,9 +452,11 @@ def test_two_rank_bc_train_checkpoints_and_resume(run):
     _weights_close(whole, single, 3 * LR * ours["steps"])
 
 
-def test_loader_shards_serve_the_global_streams(tmp_path):
+def test_loader_shards_serve_the_global_streams(tmp_path, capsys):
     """Two shards of one stream each yield, together, what one loader of both
-    streams yields; the cursor records the shard and a resume checks it."""
+    streams yields; the cursor records the shard, and a resume from another
+    shard's cursor drops it for the coarse trajectory cursor, as vpt_tpu's
+    loader does."""
     if not _native_video():
         pytest.skip("the port's native video library cannot be built (libav)")
     from vpt_tpu_torch.data.loader import SequenceDataLoader
@@ -472,8 +474,16 @@ def test_loader_shards_serve_the_global_streams(tmp_path):
             n += 1
         assert n >= 2
         assert shards[1].state()["shard"] == [1, 2]
-        with pytest.raises(ValueError, match="shard"):
-            SequenceDataLoader(data, batch_size=1, shard_id=0, num_shards=2, resume_state=shards[1].state(), **kw)
+        other = SequenceDataLoader(data, batch_size=1, shard_id=0, num_shards=2, resume_state=shards[1].state(), **kw)
+        shards.append(other)
+        assert "coarse trajectory cursor" in capsys.readouterr().out
+        fresh = SequenceDataLoader(data, batch_size=1, shard_id=0, num_shards=2, **kw)
+        shards.append(fresh)
+        got, expect = list(other), list(fresh)
+        assert len(got) == len(expect) >= 2
+        for a, b in zip(got, expect):
+            for key in ("frames", "buttons", "camera", "firsts", "mask", "episode_ids"):
+                np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     finally:
         for loader in [whole] + shards:
             loader.close()

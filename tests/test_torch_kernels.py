@@ -125,8 +125,8 @@ def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
     elsewhere; a band table of any length is taken
     (test_kernels_take_the_wide_shapes)."""
     q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 8, 8, 64, torch.float32, 1)
-    if bad == "head_dim":
-        q = k = v = torch.zeros((1, 1, 4, 96), device=cuda)
+    if bad == "head_dim":  # past the widest the kernels take (512)
+        q = k = v = torch.zeros((1, 1, 4, 576), device=cuda)
         mask = R = b_nd = None
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
@@ -140,18 +140,19 @@ def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
 
 # the shapes past the published models' that vpt_tpu's Pallas kernel takes
 # too: hidsize 4096 at 16 heads' d = 256, a band table of 640 offsets
-# (attention_memory_size - timesteps > 512, read from device memory), both;
-# and the tiny test configs' d = 16, which only the CPU runs
+# (attention_memory_size - timesteps > 512, read from device memory), both
 WIDE = [(256, 8), (64, 640), (256, 640)]
 
 
-@pytest.mark.parametrize("d,bandsize", [(16, 8), (96, 8), (384, 8), (64, 8), (128, 512), (192, 1)] + WIDE)
+@pytest.mark.parametrize("d,bandsize", [(16, 8), (96, 8), (384, 8), (512, 8), (576, 8), (64, 8), (128, 512),
+                                        (192, 1)] + WIDE)
 def test_kernels_take_the_supported_head_dims_and_any_band(d, bandsize):
-    """The check the wrappers make before a launch: a head dim in
-    SUPPORTED_D and a band table of any length; anything else raises."""
+    """The check the wrappers make before a launch: any head dim up to
+    MAX_D (multiples of 64 whole, the rest zero-padded to the next) and a
+    band table of any length; a wider head dim raises."""
     q, k, v = torch.zeros((1, 2, 4, d)), torch.zeros((1, 2, 12, d)), torch.zeros((1, 2, 12, d))
     R, b_nd = torch.zeros((1, 2, 4, 10)), torch.zeros((10, bandsize))
-    if d in wa.SUPPORTED_D:
+    if d <= wa.MAX_D:
         wa._check(q, k, v, None, R, b_nd)
     else:
         with pytest.raises(ValueError, match="head dim"):
@@ -194,6 +195,29 @@ def test_kernels_take_the_wide_shapes(cuda, d, bandsize, t, dtype):
     plain = [x.clone().requires_grad_(True) for x in (q, k, v, R, b_nd)]
     expect_out = wa.windowed_attention_fwd_plain(plain[0], plain[1], plain[2], mask, plain[3], plain[4], True)
     torch.testing.assert_close(out.float(), expect_out.float(), rtol=tol, atol=tol)
+    _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, g.contiguous(), True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 96, 320, 384, 448, 512])
+@pytest.mark.parametrize("t,maxlen", [(128, 128), (37, 64), (512, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_take_padded_and_wide_head_dims(cuda, d, t, maxlen, dtype):
+    """Head dims that are no multiple of 64 (zero-padded to the next) and
+    the multiples past 256 (K and V 64 columns at a time) go through B1 and
+    B2, forward and autograd, with mask and bias, past 512 keys too."""
+    dtype = getattr(torch, dtype)
+    q, k, v, mask, R, b_nd = _inputs(cuda, 2, 2, t, maxlen, d, dtype, d + t)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, R, b_nd)]
+    counts = (wa.launches, wa.bwd_launches)
+    out = wa.windowed_attention_fwd(leaves[0], leaves[1], leaves[2], mask, leaves[3], leaves[4], True)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda).to(dtype)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (wa.launches, wa.bwd_launches) == (counts[0] + 1, counts[1] + 1)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    expect = wa.windowed_attention_fwd_plain(q, k, v, mask, R, b_nd, True)
+    torch.testing.assert_close(out.float(), expect.float(), rtol=tol, atol=tol)
     _b2_close(got, wa.windowed_attention_bwd_plain(q, k, v, mask, R, b_nd, g.contiguous(), True), dtype)
 
 

@@ -103,8 +103,10 @@ class MineRLAgent:
     :param quantize_dense: serve the trunk's dense layers with int8 weights
         (per-output-channel scales) and int8 activations (per-row scales),
         quantized from the weights as ``params_dtype`` stores them
-    :param mesh: a data-parallel ``DeviceMesh`` (dp, fsdp): this rank serves
-        its rows of the ``batch_size`` streams
+    :param mesh: a ``DeviceMesh`` of parallel/mesh.py: this rank serves its
+        rows of the ``batch_size`` streams over (dp, fsdp) with the whole
+        weights; ranks that differ only on pp, sp or tp serve the same rows,
+        as replicas (vpt_tpu replicates over those axes)
     """
 
     def __init__(
@@ -125,8 +127,6 @@ class MineRLAgent:
         if env is not None:
             validate_env(env)
         self.device = resolve_device(device)
-        if any(pmesh.axis_size(mesh, a) > 1 for a in ("pp", "sp", "tp")):
-            raise NotImplementedError("an agent's mesh shards streams only (dp, fsdp); its weights stay whole")
         self.mesh = mesh
         self.global_batch_size = batch_size
         self._rows = pmesh.local_rows(mesh, batch_size)

@@ -65,15 +65,15 @@ class IDMAgent:
     :param mesh: a ``DeviceMesh`` of parallel/mesh.py for batched labeling:
         every rank passes the same windows to ``predict_actions_batched``,
         labels its rows of them (dp, fsdp) and, with an sp axis, embeds its
-        slice of each window's frames; every rank returns all the labels
+        slice of each window's frames; every rank returns all the labels.
+        Ranks that differ only on pp or tp label the same rows, as replicas
+        (vpt_tpu replicates over those axes)
     """
 
     def __init__(self, idm_net_kwargs: Dict[str, Any], pi_head_kwargs: Dict[str, Any], device=None,
                  compute_dtype: str = "float32", seed: int = 0, params_dtype: str = "float32",
                  quantize_dense: bool = False, mesh=None):
         self.device = resolve_device(device)
-        if any(pmesh.axis_size(mesh, a) > 1 for a in ("pp", "tp")):
-            raise NotImplementedError("an IDM agent's mesh shards windows (dp, fsdp) and frames (sp) only")
         self.mesh = mesh
         self.params_dtype = params_dtype
         self.quantize_dense = quantize_dense

@@ -40,6 +40,27 @@ __host__ __device__ constexpr int tile_stride() {
   return D + 16 / (int)sizeof(T);
 }
 
+// Head dims.  A kernel instance for D > 0 takes d = D whole: its K and V
+// tiles hold KEY_TILE rows of all D columns.  The instance for D = WIDE takes
+// any d that is a multiple of WIDE_CHUNK up to MAX_WIDE_D at run time (d =
+// 320 ... 512, hidsize 8192 at 16 heads): a 64-key tile of 512 f32 columns
+// is 129 KB, two of them more than a block's 227 KB of shared memory, so its
+// K and V tiles hold WIDE_CHUNK columns and stream the depth chunk by chunk.
+// Q and dO rows are held whole either way (ROWS x stride).
+constexpr int WIDE = 0;
+constexpr int WIDE_CHUNK = 64;
+constexpr int MAX_WIDE_D = 512;
+
+template <typename T, int D>
+struct Depth {
+  static constexpr int CHUNK = D > 0 ? D : WIDE_CHUNK;  // columns of a K or V tile
+  static constexpr int MAX_CHUNKS = D > 0 ? 1 : MAX_WIDE_D / WIDE_CHUNK;
+  static constexpr int CS = tile_stride<T, CHUNK>();  // row stride of a K or V tile
+  int d, chunks, stride;  // the head dim, its chunks, the row stride of a whole-row tile
+  __host__ __device__ explicit Depth(int d_)
+      : d(D > 0 ? D : d_), chunks(D > 0 ? 1 : d_ / WIDE_CHUNK), stride(D > 0 ? tile_stride<T, D>() : d_ + 16 / (int)sizeof(T)) {}
+};
+
 // floats of shared memory that hold the band table: the whole (nbasis,
 // bandsize) table up to MAX_BAND offsets, none past that.  A longer table
 // (attention_memory_size - timesteps > 512) stays in device memory, where
@@ -230,21 +251,30 @@ __device__ __forceinline__ void mma_nn_tile_bf16(float (&acc)[NC / 8][4], const 
   }
 }
 
-// rows [r0, r0 + nrows) of a row-major (limit, D) tensor into a shared tile
-// of row stride `stride`, 16 bytes a copy with cp.async; rows at or past
-// `limit` are zero.  The caller commits and waits (cp_async_commit, cp_async_wait).
+// D columns of rows [r0, r0 + nrows) of a row-major tensor of row stride
+// src_ld (limit rows) into a shared tile of row stride `stride`, 16 bytes a
+// copy with cp.async; rows at or past `limit` are zero.  The caller commits
+// and waits (cp_async_commit, cp_async_wait).
 template <typename T, int D>
 __device__ __forceinline__ void load_rows_async(T* dst, int stride, const T* src, int r0, int nrows, int limit,
-                                                int tid, int nthreads) {
+                                                int tid, int nthreads, int src_ld = D) {
   constexpr int VEC = 16 / (int)sizeof(T);
   constexpr int CHUNKS = D / VEC;
   for (int idx = tid; idx < nrows * CHUNKS; idx += nthreads) {
     const int r = idx / CHUNKS, col = (idx % CHUNKS) * VEC;
     const bool valid = r0 + r < limit;
-    const T* s = valid ? src + (size_t)(r0 + r) * D + col : src;
+    const T* s = valid ? src + (size_t)(r0 + r) * src_ld + col : src;
     const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst + r * stride + col);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(s), "r"(valid ? 16 : 0));
   }
+}
+
+// whole rows [r0, r0 + nrows) of a row-major (limit, d) tensor into a shared
+// tile of row stride `stride`, W columns a call of load_rows_async (d a multiple of W)
+template <typename T, int W>
+__device__ __forceinline__ void load_row_chunks_async(T* dst, int stride, const T* src, int d, int r0, int nrows,
+                                                      int limit, int tid, int nthreads) {
+  for (int c = 0; c < d; c += W) load_rows_async<T, W>(dst + c, stride, src + c, r0, nrows, limit, tid, nthreads, d);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -255,36 +285,69 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// tile i (KEY_TILE rows from row i * KEY_TILE, zero past T_keys) of a
-// row-major (T_keys, D) tensor into buffer i % 2 of two, committed as one group
+// tile i (KEY_TILE rows from row i * KEY_TILE, zero past T_keys; D columns
+// of rows src_ld apart) of a row-major tensor into buffer i % 2 of two,
+// committed as one group
 template <typename T, int D, int NTHREADS>
-__device__ __forceinline__ void prefetch_tile(T* bufs, const T* src, int T_keys, int i) {
+__device__ __forceinline__ void prefetch_tile(T* bufs, const T* src, int T_keys, int i, int src_ld = D) {
   constexpr int DS = tile_stride<T, D>();
   load_rows_async<T, D>(bufs + (i & 1) * KEY_TILE * DS, DS, src, i * KEY_TILE, KEY_TILE, T_keys, threadIdx.x,
-                        NTHREADS);
+                        NTHREADS, src_ld);
   cp_async_commit();
 }
 
-// Stream the tiles of a row-major (T_keys, D) tensor through two shared
-// buffers: tile i + 1 is in flight while body(first row, tile) works on tile
-// i.  Every thread of the block calls it.  Tile 0 is fetched here unless the
-// caller fetched it (prefetch_tile) to overlap it with earlier work; copies
-// committed before the call complete before the first body.
+// Stream the tiles of D columns of a row-major (T_keys, src_ld) tensor
+// through two shared buffers: tile i + 1 is in flight while body(first row,
+// tile) works on tile i.  Every thread of the block calls it.  Tile 0 is
+// fetched here unless the caller fetched it (prefetch_tile) to overlap it
+// with earlier work; copies committed before the call complete before the
+// first body.
 template <typename T, int D, int NTHREADS, typename Body>
 __device__ __forceinline__ void stream_tiles(T* bufs, const T* src, int T_keys, bool first_prefetched,
-                                             Body&& body) {
+                                             Body&& body, int src_ld = D) {
   constexpr int DS = tile_stride<T, D>();
   const int ntiles = (T_keys + KEY_TILE - 1) / KEY_TILE;
-  if (!first_prefetched) prefetch_tile<T, D, NTHREADS>(bufs, src, T_keys, 0);
+  if (!first_prefetched) prefetch_tile<T, D, NTHREADS>(bufs, src, T_keys, 0, src_ld);
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) {
-      prefetch_tile<T, D, NTHREADS>(bufs, src, T_keys, i + 1);
+      prefetch_tile<T, D, NTHREADS>(bufs, src, T_keys, i + 1, src_ld);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
     body(i * KEY_TILE, bufs + (i & 1) * KEY_TILE * DS);
+    __syncthreads();  // the buffer is refilled next iteration
+  }
+}
+
+// stream_tiles over the depth as well, for the products that sum over d (Q
+// K^T, dO V^T): the (KEY_TILE, CHUNK) tiles of a row-major (T_keys, d)
+// tensor, key tile by key tile and, within one, chunk by chunk of its
+// columns; body(first row, chunk, tile).  Sub-tile s is tile s / chunks,
+// chunk s % chunks, in buffer s % 2; the caller's prefetch of sub-tile 0 is
+// prefetch_tile<T, CHUNK, NTHREADS>(bufs, src, T_keys, 0, d).  At a narrow d
+// (one chunk) this is stream_tiles.
+template <typename T, int D, int NTHREADS, typename Body>
+__device__ __forceinline__ void stream_depth_tiles(T* bufs, const T* src, int T_keys, const Depth<T, D>& dp,
+                                                   bool first_prefetched, Body&& body) {
+  using DT = Depth<T, D>;
+  const int n = (T_keys + KEY_TILE - 1) / KEY_TILE * dp.chunks;
+  auto fetch = [&](int s) {
+    load_rows_async<T, DT::CHUNK>(bufs + (s & 1) * KEY_TILE * DT::CS, DT::CS, src + (s % dp.chunks) * DT::CHUNK,
+                                  (s / dp.chunks) * KEY_TILE, KEY_TILE, T_keys, threadIdx.x, NTHREADS, dp.d);
+    cp_async_commit();
+  };
+  if (!first_prefetched) fetch(0);
+  for (int s = 0; s < n; ++s) {
+    if (s + 1 < n) {
+      fetch(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    body((s / dp.chunks) * KEY_TILE, s % dp.chunks, bufs + (s & 1) * KEY_TILE * DT::CS);
     __syncthreads();  // the buffer is refilled next iteration
   }
 }
@@ -485,27 +548,35 @@ __device__ __forceinline__ void band_bias_mma(float* out, int ldi, int ldj, cons
 }
 
 // The logits of the block's rows: alpha Q K^T over 64-key tiles of K streamed
-// through sKV (two buffers), added to the logit tile that mask_window and
-// band_bias_mma filled.
-// sQ holds the block's query rows; kb is this (b, h)'s K (its tile 0 already
-// fetched where first_prefetched).
+// through sKV (two buffers; at a wide d, each tile chunk by chunk of its
+// columns), added to the logit tile that mask_window and band_bias_mma
+// filled.  sQ holds the block's query rows (row stride dp.stride); kb is this
+// (b, h)'s K (its sub-tile 0 already fetched where first_prefetched).
 template <typename T, int D, int ROWS>
 __device__ __forceinline__ void block_logits(float* sS, int TS, const T* sQ, T* sKV, const T* kb, int T_keys,
-                                             float alpha, bool first_prefetched) {
+                                             const Depth<T, D>& dp, float alpha, bool first_prefetched) {
   using Block = RowBlock<ROWS>;
-  constexpr int DS = tile_stride<T, D>();
+  using DT = Depth<T, D>;
   constexpr int KP = KEY_TILE / Block::SPLIT;  // keys of a tile a warp takes
   const Block rb;
-  stream_tiles<T, D, Block::NTHREADS>(sKV, kb, T_keys, first_prefetched, [&](int kt0, const T* tile) {
-    float acc[KP / 8][4] = {};
-    mma_nt<T, D, KP / 8>(acc, sQ + rb.row0 * DS, DS, tile + rb.part * KP * DS, DS, rb.lane);
+  float acc[KP / 8][4];
+  stream_depth_tiles<T, D, Block::NTHREADS>(sKV, kb, T_keys, dp, first_prefetched, [&](int kt0, int ci,
+                                                                                      const T* tile) {
+    if (ci == 0) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* row = sS + (rb.row0 + rb.g + 8 * h) * TS + kt0 + rb.part * KP + 2 * rb.c;
+      for (int n = 0; n < KP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    }
+    mma_nt<T, DT::CHUNK, KP / 8>(acc, sQ + rb.row0 * dp.stride + ci * DT::CHUNK, dp.stride,
+                                 tile + rb.part * KP * DT::CS, DT::CS, rb.lane);
+    if (ci == dp.chunks - 1) {
 #pragma unroll
-      for (int n = 0; n < KP / 8; ++n) {
-        const float2 x = *reinterpret_cast<const float2*>(row + n * 8);
-        store2(row + n * 8, acc[n][2 * h] * alpha + x.x, acc[n][2 * h + 1] * alpha + x.y);
+      for (int h = 0; h < 2; ++h) {
+        float* row = sS + (rb.row0 + rb.g + 8 * h) * TS + kt0 + rb.part * KP + 2 * rb.c;
+#pragma unroll
+        for (int n = 0; n < KP / 8; ++n) {
+          const float2 x = *reinterpret_cast<const float2*>(row + n * 8);
+          store2(row + n * 8, acc[n][2 * h] * alpha + x.x, acc[n][2 * h + 1] * alpha + x.y);
+        }
       }
     }
   });

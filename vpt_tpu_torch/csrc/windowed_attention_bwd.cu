@@ -69,7 +69,17 @@
 //     through L1 and L2 (the d b_nd partials are in device memory anyway);
 //   * d = 256 (hidsize 4096 at 16 heads) takes 16-row blocks of 4 warps in
 //     pass 1 and 2-warp blocks in pass 2 where larger ones would not fit
-//     the shared memory.
+//     the shared memory;
+//   * every other multiple of 64 up to 512 runs one instance with d set at
+//     run time (Depth<T, WIDE>, as in B1).  Pass 1 holds Q and dO rows whole
+//     and streams K and V tiles 64 columns at a time (Q K^T and dO V^T
+//     accumulate over the chunks of a key tile, dQ takes its columns a
+//     chunk at a time).  Pass 2 (bwd_keys_wide_kernel) holds its keys' K
+//     and V rows whole and takes Q and dO 64 columns at a time: for each 64
+//     of the dK and dV columns it sums K Q^T and V dO^T over the chunks of
+//     a query tile, ending on that column chunk, and adds the tile's W^T dO
+//     and dL^T Q.  Simple, not yet fast: it recomputes W and dL once for
+//     each 64 columns.
 // A fully masked row has uniform W, exactly as in the forward: the row max
 // and sum are stored as they are (not as a log-sum-exp, which would lose the
 // row's offsets next to -1e9 in f32).  No (B, H, t, T) tensor and no (n, t, T)
@@ -92,13 +102,14 @@ __host__ __device__ constexpr int key_pass_cols() {  // dK and dV columns a warp
 
 // past KEY_CHUNK keys: a chunk's logit tile, and each row's running max and sum
 template <typename T, int D>
-size_t rows_smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
-  const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
+size_t rows_smem_bytes(int rows, int T_keys, int d, int nbasis, int bandsize) {
+  const Depth<T, D> dp(d);
   const size_t band = band_smem_floats(nbasis, bandsize);
   const size_t running = T_keys > KEY_CHUNK ? 2 * rows : 0;
   const int keys = T_keys < KEY_CHUNK ? T_keys : KEY_CHUNK;
-  return (rows + 2 * KEY_TILE) * tile + ((size_t)rows * logit_stride(keys) + rows * R_STRIDE +
-                                         RowBlock<64>::SPLIT * rows + band + running) * sizeof(float);
+  return ((size_t)rows * dp.stride + 2 * KEY_TILE * Depth<T, D>::CS) * sizeof(T) +
+         ((size_t)rows * logit_stride(keys) + rows * R_STRIDE + RowBlock<64>::SPLIT * rows + band + running) *
+             sizeof(float);
 }
 
 template <typename T, int D>
@@ -110,6 +121,15 @@ size_t keys_smem_bytes(int nwarps, int nbasis, int bandsize) {
          (keys * BIAS_STRIDE + QUERY_TILE * R_STRIDE + 3 * QUERY_TILE + band) * sizeof(float);
 }
 
+// pass 2 at a wide d: the keys' K and V rows whole, Q and dO tiles of WIDE_CHUNK columns
+template <typename T>
+size_t keys_wide_smem_bytes(int nwarps, int d, int nbasis, int bandsize) {
+  const size_t keys = 16 * nwarps;
+  const size_t band = band_smem_floats(nbasis, bandsize);
+  return (2 * keys * Depth<T, WIDE>(d).stride + 2 * QUERY_TILE * Depth<T, WIDE>::CS) * sizeof(T) +
+         (keys * BIAS_STRIDE + QUERY_TILE * R_STRIDE + 3 * QUERY_TILE + band) * sizeof(float);
+}
+
 // pass 1: one block per (b, h, ROWS query rows)
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
@@ -117,18 +137,20 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
                 const uint8_t* __restrict__ mask, T* __restrict__ dq, float* __restrict__ dR,
                 float* __restrict__ stats, float* __restrict__ partial, int BHt, int H, int t, int T_keys,
-                int nbasis, int bandsize, float alpha) {
+                int d, int nbasis, int bandsize, float alpha) {
   using Block = RowBlock<ROWS>;
+  using DT = Depth<T, D>;
+  const DT dp(d);
   constexpr int NTHREADS = Block::NTHREADS;
   constexpr int SPLIT = Block::SPLIT;
-  constexpr int DS = tile_stride<T, D>();
-  constexpr int DH = D / SPLIT;         // dQ columns of a warp
+  constexpr int CH = DT::CHUNK, CS = DT::CS;
+  constexpr int DH = CH / SPLIT;        // dQ columns of a warp in a chunk of d
   constexpr int KH = KEY_TILE / SPLIT;  // keys of a tile a warp takes
   const int TS = logit_stride(T_keys);
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x DS: Q, then dO
-  T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K, V, V, then K tiles
-  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: logits, then W, then dL
+  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x dp.stride: Q, then dO
+  T* sKV = sQ + ROWS * dp.stride;       // 2 x KEY_TILE x CS: K, V, V, then K tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * CS);  // ROWS x TS: logits, then W, then dL
   float* sR = sS + ROWS * TS;          // ROWS x R_STRIDE
   float* sRd = sR + ROWS * R_STRIDE;   // SPLIT x ROWS: each part's rowdot partial sums
   float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize (up to MAX_BAND)
@@ -139,8 +161,8 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int q0 = blockIdx.y * ROWS;
   const int tid = threadIdx.x;
   const int g = rb.g, c = rb.c, row0 = rb.row0, lane = rb.lane;
-  const T* kb = k + (size_t)bh * T_keys * D;
-  const T* vb = v + (size_t)bh * T_keys * D;
+  const T* kb = k + (size_t)bh * T_keys * dp.d;
+  const T* vb = v + (size_t)bh * T_keys * dp.d;
 
   // R's rows and the band table, then Q, then K's first tile, each a group of
   // copies in flight while the mask terms load; the bias waits for the first only
@@ -148,9 +170,9 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, band_copy(sB, bandsize),
                                      b_nd, bandsize);
   cp_async_commit();
-  load_rows_async<T, D>(sQ, DS, q + (size_t)bh * t * D, q0, ROWS, t, tid, NTHREADS);
+  load_row_chunks_async<T, CH>(sQ, dp.stride, q + (size_t)bh * t * dp.d, dp.d, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
-  prefetch_tile<T, D, NTHREADS>(sKV, kb, T_keys, 0);
+  prefetch_tile<T, CH, NTHREADS>(sKV, kb, T_keys, 0, dp.d);
   mask_window<NTHREADS, true>(sS, TS, mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr, q0, ROWS, t, 0,
                               TS - 8, T_keys);
   cp_async_wait<2>();
@@ -162,19 +184,30 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
     });
   }
-  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, T_keys, alpha, true);
+  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, T_keys, dp, alpha, true);
   softmax_rows<ROWS, false>(sS, TS, q0, t, stats + (size_t)bh * t, stats + BHt + (size_t)bh * t);
 
   // 2. dO replaces Q (every warp is past its last read of Q)
-  load_rows_async<T, D>(sQ, DS, dout + (size_t)bh * t * D, q0, ROWS, t, tid, NTHREADS);
+  load_row_chunks_async<T, CH>(sQ, dp.stride, dout + (size_t)bh * t * dp.d, dp.d, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
+
+  // dO V^T of the warp's part of a key tile, summed over the tile's chunks of d into p, then body(kt0)
+  float p[KH / 8][4];
+  auto dp_tiles = [&](const T* src, int nkeys, auto&& body) {
+    stream_depth_tiles<T, D, NTHREADS>(sKV, src, nkeys, dp, false, [&](int kt0, int ci, const T* tile) {
+      if (ci == 0) {
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+      }
+      mma_nt<T, CH, KH / 8>(p, sQ + row0 * dp.stride + ci * CH, dp.stride, tile + rb.part * KH * CS, CS, lane);
+      if (ci == dp.chunks - 1) body(kt0);
+    });
+  };
 
   // 3. rowdot_i = sum_j (dO V^T)_ij W_ij over the warp's part of each tile, W
   //    read at the fragment's own positions; then the parts' sums, in a fixed order
   float rd[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
-  stream_tiles<T, D, NTHREADS>(sKV, vb, T_keys, false, [&](int kt0, const T* tile) {
-    float p[KH / 8][4] = {};
-    mma_nt<T, D, KH / 8>(p, sQ + row0 * DS, DS, tile + rb.part * KH * DS, DS, lane);
+  dp_tiles(vb, T_keys, [&](int kt0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float* wrow = sS + (row0 + g + 8 * h) * TS + kt0 + rb.part * KH + 2 * c;
@@ -202,9 +235,7 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 
   // 4. dL = W * (dO V^T - rowdot) in place (padding rows have dO = 0, padding keys W = 0: dL = 0)
-  stream_tiles<T, D, NTHREADS>(sKV, vb, T_keys, false, [&](int kt0, const T* tile) {
-    float p[KH / 8][4] = {};
-    mma_nt<T, D, KH / 8>(p, sQ + row0 * DS, DS, tile + rb.part * KH * DS, DS, lane);
+  dp_tiles(vb, T_keys, [&](int kt0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float* wrow = sS + (row0 + g + 8 * h) * TS + kt0 + rb.part * KH + 2 * c;
@@ -216,18 +247,21 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
   });
 
-  // 5. dQ = alpha dL K over tiles of K, the warp's SPLIT-th of the columns
-  float acc[DH / 8][4] = {};
-  stream_tiles<T, D, NTHREADS>(sKV, kb, T_keys, false, [&](int kt0, const T* tile) {
-    mma_nn_tile<T, DH>(acc, sS + row0 * TS + kt0, TS, tile + rb.part * DH, DS, lane);
-  });
+  // 5. dQ = alpha dL K over tiles of K, a chunk of d at a time (all of it at
+  //    a narrow d), the warp's SPLIT-th of the chunk's columns
+  for (int ci = 0; ci < dp.chunks; ++ci) {
+    float acc[DH / 8][4] = {};
+    stream_tiles<T, CH, NTHREADS>(sKV, kb + ci * CH, T_keys, false, [&](int kt0, const T* tile) {
+      mma_nn_tile<T, DH>(acc, sS + row0 * TS + kt0, TS, tile + rb.part * DH, CS, lane);
+    }, dp.d);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int gi = q0 + row0 + g + 8 * h;
-    if (gi < t) {
-      T* row = dq + ((size_t)bh * t + gi) * D + rb.part * DH + 2 * c;
+    for (int h = 0; h < 2; ++h) {
+      const int gi = q0 + row0 + g + 8 * h;
+      if (gi < t) {
+        T* row = dq + ((size_t)bh * t + gi) * dp.d + ci * CH + rb.part * DH + 2 * c;
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) store2(row + n * 8, alpha * acc[n][2 * h], alpha * acc[n][2 * h + 1]);
+        for (int n = 0; n < DH / 8; ++n) store2(row + n * 8, alpha * acc[n][2 * h], alpha * acc[n][2 * h + 1]);
+      }
     }
   }
   if (nbasis == 0) return;
@@ -275,18 +309,20 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
                         const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
                         const uint8_t* __restrict__ mask, T* __restrict__ dq, float* __restrict__ dR,
                         float* __restrict__ stats, float* __restrict__ partial, int BHt, int H, int t, int T_keys,
-                        int nbasis, int bandsize, float alpha) {
+                        int d, int nbasis, int bandsize, float alpha) {
   using Block = RowBlock<ROWS>;
+  using DT = Depth<T, D>;
+  const DT dp(d);
   constexpr int NTHREADS = Block::NTHREADS;
   constexpr int SPLIT = Block::SPLIT;
-  constexpr int DS = tile_stride<T, D>();
-  constexpr int DH = D / SPLIT;         // dQ columns of a warp
+  constexpr int CH = DT::CHUNK, CS = DT::CS;
+  constexpr int DH = CH / SPLIT;        // dQ columns of a warp in a chunk of d
   constexpr int KH = KEY_TILE / SPLIT;  // keys of a tile a warp takes
   const int TS = logit_stride(KEY_CHUNK);
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x DS: Q or dO
-  T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K and V tiles
-  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: a chunk's logits, then W, then dL
+  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x dp.stride: Q or dO
+  T* sKV = sQ + ROWS * dp.stride;       // 2 x KEY_TILE x CS: K and V tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * CS);  // ROWS x TS: a chunk's logits, then W, then dL
   float* sR = sS + ROWS * TS;          // ROWS x R_STRIDE
   float* sRd = sR + ROWS * R_STRIDE;   // SPLIT x ROWS: each part's rowdot partial sums
   float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize (up to MAX_BAND)
@@ -299,10 +335,10 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   const int q0 = blockIdx.y * ROWS;
   const int tid = threadIdx.x;
   const int g = rb.g, c = rb.c, row0 = rb.row0, lane = rb.lane;
-  const T* qb = q + (size_t)bh * t * D;
-  const T* ob = dout + (size_t)bh * t * D;
-  const T* kb = k + (size_t)bh * T_keys * D;
-  const T* vb = v + (size_t)bh * T_keys * D;
+  const T* qb = q + (size_t)bh * t * dp.d;
+  const T* ob = dout + (size_t)bh * t * dp.d;
+  const T* kb = k + (size_t)bh * T_keys * dp.d;
+  const T* vb = v + (size_t)bh * T_keys * dp.d;
   const uint8_t* mask_b = mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr;
 
   // the first chunk's inputs as in bwd_rows_kernel
@@ -310,9 +346,9 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, band_copy(sB, bandsize),
                                      b_nd, bandsize);
   cp_async_commit();
-  load_rows_async<T, D>(sQ, DS, qb, q0, ROWS, t, tid, NTHREADS);
+  load_row_chunks_async<T, CH>(sQ, dp.stride, qb, dp.d, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
-  prefetch_tile<T, D, NTHREADS>(sKV, kb, KEY_CHUNK, 0);
+  prefetch_tile<T, CH, NTHREADS>(sKV, kb, KEY_CHUNK, 0, dp.d);
   mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, 0, KEY_CHUNK, T_keys);
   for (int i = tid; i < ROWS; i += NTHREADS) {
     sM[i] = -CUDART_INF_F;
@@ -327,7 +363,7 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   // in sQ or in flight, committed before this call.
   auto chunk_logits = [&](int c0, int nc, bool ready) {
     if (!ready) {
-      prefetch_tile<T, D, NTHREADS>(sKV, kb + (size_t)c0 * D, nc, 0);
+      prefetch_tile<T, CH, NTHREADS>(sKV, kb + (size_t)c0 * dp.d, nc, 0, dp.d);
       mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, c0, KEY_CHUNK, T_keys);
       __syncthreads();
     }
@@ -336,12 +372,24 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
         band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
       });
     }
-    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * D, nc, alpha, true);
+    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * dp.d, nc, dp, alpha, true);
   };
   // Q or dO into the row tile, once every warp is past its last read of it
   auto load_rows = [&](const T* src) {
-    load_rows_async<T, D>(sQ, DS, src, q0, ROWS, t, tid, NTHREADS);
+    load_row_chunks_async<T, CH>(sQ, dp.stride, src, dp.d, q0, ROWS, t, tid, NTHREADS);
     cp_async_commit();
+  };
+  // dO V^T of the warp's part of a key tile, summed over the tile's chunks of d into p, then body(kt0)
+  float p[KH / 8][4];
+  auto dp_tiles = [&](const T* src, int nkeys, auto&& body) {
+    stream_depth_tiles<T, D, NTHREADS>(sKV, src, nkeys, dp, false, [&](int kt0, int ci, const T* tile) {
+      if (ci == 0) {
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+      }
+      mma_nt<T, CH, KH / 8>(p, sQ + row0 * dp.stride + ci * CH, dp.stride, tile + rb.part * KH * CS, CS, lane);
+      if (ci == dp.chunks - 1) body(kt0);
+    });
   };
 
   // 1. each row's max and sum over all the keys
@@ -367,9 +415,7 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     chunk_logits(c0, nc, false);
     normalize_rows<ROWS>(sS, TS, sM, sL);
     load_rows(ob);  // every warp is past its last read of Q (block_logits ends with a barrier)
-    stream_tiles<T, D, NTHREADS>(sKV, vb + (size_t)c0 * D, nc, false, [&](int kt0, const T* tile) {
-      float p[KH / 8][4] = {};
-      mma_nt<T, D, KH / 8>(p, sQ + row0 * DS, DS, tile + rb.part * KH * DS, DS, lane);
+    dp_tiles(vb + (size_t)c0 * dp.d, nc, [&](int kt0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float* wrow = sS + (row0 + g + 8 * h) * TS + kt0 + rb.part * KH + 2 * c;
@@ -398,7 +444,7 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   }
 
   // 3. chunk by chunk: dL in place, dQ += alpha dL K, dR and the d b_nd partials
-  float acc[DH / 8][4] = {};
+  float acc[DT::MAX_CHUNKS][DH / 8][4] = {};  // dQ of every chunk of d (one at a narrow d), across the key chunks
   const int nb = nbasis * bandsize;
   float* P = partial + ((size_t)bh * gridDim.y + blockIdx.y) * nb;
   const int nrows = min(ROWS, t - q0);
@@ -409,9 +455,7 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     chunk_logits(c0, nc, false);
     normalize_rows<ROWS>(sS, TS, sM, sL);
     load_rows(ob);
-    stream_tiles<T, D, NTHREADS>(sKV, vb + (size_t)c0 * D, nc, false, [&](int kt0, const T* tile) {
-      float p[KH / 8][4] = {};
-      mma_nt<T, D, KH / 8>(p, sQ + row0 * DS, DS, tile + rb.part * KH * DS, DS, lane);
+    dp_tiles(vb + (size_t)c0 * dp.d, nc, [&](int kt0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float* wrow = sS + (row0 + g + 8 * h) * TS + kt0 + rb.part * KH + 2 * c;
@@ -422,9 +466,14 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
         }
       }
     });
-    stream_tiles<T, D, NTHREADS>(sKV, kb + (size_t)c0 * D, nc, false, [&](int kt0, const T* tile) {
-      mma_nn_tile<T, DH>(acc, sS + row0 * TS + kt0, TS, tile + rb.part * DH, DS, lane);
-    });
+#pragma unroll
+    for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
+      if (ci < dp.chunks) {  // uniform
+        stream_tiles<T, CH, NTHREADS>(sKV, kb + (size_t)c0 * dp.d + ci * CH, nc, false, [&](int kt0, const T* tile) {
+          mma_nn_tile<T, DH>(acc[ci], sS + row0 * TS + kt0, TS, tile + rb.part * DH, CS, lane);
+        }, dp.d);
+      }
+    }
     if (nbasis == 0) continue;
 
     // dR[i, n] += sum over the chunk's keys j on the band of dL_ij b_nd[n, (T - t) + i - j]
@@ -463,9 +512,92 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   for (int h = 0; h < 2; ++h) {
     const int gi = q0 + row0 + g + 8 * h;
     if (gi < t) {
-      T* row = dq + ((size_t)bh * t + gi) * D + rb.part * DH + 2 * c;
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) store2(row + n * 8, alpha * acc[n][2 * h], alpha * acc[n][2 * h + 1]);
+      for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
+        if (ci < dp.chunks) {
+          T* row = dq + ((size_t)bh * t + gi) * dp.d + ci * CH + rb.part * DH + 2 * c;
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n)
+            store2(row + n * 8, alpha * acc[ci][n][2 * h], alpha * acc[ci][n][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Pass 2's per-query-tile pieces, shared by bwd_keys_kernel and
+// bwd_keys_wide_kernel.
+
+// pass 1's row statistics of query rows [i0, i0 + QUERY_TILE) into sStat:
+// the row max, the reciprocal of the row sum (as the forward uses it), rowdot
+template <int NTHREADS>
+__device__ __forceinline__ void load_query_stats(float* sStat, const float* stats, int BHt, int bh, int t, int i0) {
+  for (int idx = threadIdx.x; idx < 3 * QUERY_TILE; idx += NTHREADS) {
+    const int which = idx / QUERY_TILE, r = idx % QUERY_TILE;
+    const float x = (i0 + r < t) ? stats[(size_t)which * BHt + (size_t)bh * t + i0 + r] : 1.f;
+    sStat[idx] = which == 1 ? 1.f / x : x;
+  }
+}
+
+// L^T and dP^T (the fragments of K Q^T and V dO^T of the warp's 16 keys,
+// j0 the first) turned into W^T and dL^T in place, with the tile's mask and
+// band bias terms (sBias) and row statistics (sStat)
+template <int NQ>
+__device__ __forceinline__ void keys_weights(float (&s)[NQ][4], float (&p)[NQ][4], const float* sBias,
+                                             const float* sStat, int j0, int k0, int T_keys, int i0, int t,
+                                             float alpha, int g, int c) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int jj = j0 + g + 8 * h;
+    const bool key = k0 + jj < T_keys;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const int li = n * 8 + 2 * c;
+      const float2 x = *reinterpret_cast<const float2*>(sBias + jj * BIAS_STRIDE + li);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float w = 0.f, dl = 0.f;
+        if (key && i0 + li + e < t) {
+          const float l = s[n][2 * h + e] * alpha + (e ? x.y : x.x);
+          w = expf(l - sStat[li + e]) * sStat[QUERY_TILE + li + e];
+          dl = w * (p[n][2 * h + e] - sStat[2 * QUERY_TILE + li + e]);
+        }
+        s[n][2 * h + e] = w;
+        p[n][2 * h + e] = dl;
+      }
+    }
+  }
+}
+
+// dV += W^T dO and dK += dL^T Q over the tile's rows, from the fragments as
+// they stand; dO and Q are the tile's columns of the accumulators (row stride ld)
+template <typename T, int NQ, int DC>
+__device__ __forceinline__ void keys_accumulate(float (&gv)[DC / 8][4], float (&gk)[DC / 8][4],
+                                                float (&s)[NQ][4], float (&p)[NQ][4], const T* dO,
+                                                const T* Q, int ld, int g, int c) {
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) {
+    const float aw[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
+    mma_nn_step<T, DC>(gv, aw, dO + (n * 8 + 2 * c) * ld + g, ld);
+    const float al[4] = {p[n][0], p[n][2], p[n][1], p[n][3]};
+    mma_nn_step<T, DC>(gk, al, Q + (n * 8 + 2 * c) * ld + g, ld);
+  }
+}
+
+// the warp's 16 keys' dK and dV on columns [c0, c0 + DC) of rows d apart
+template <typename T, int DC>
+__device__ __forceinline__ void store_keys(T* dk, T* dv, const float (&gk)[DC / 8][4], const float (&gv)[DC / 8][4],
+                                           int bh, int j0, int T_keys, int d, int c0, float alpha, int g, int c) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + g + 8 * h;
+    if (j < T_keys) {
+      const size_t off = ((size_t)bh * T_keys + j) * d + c0 + 2 * c;
+#pragma unroll
+      for (int n = 0; n < DC / 8; ++n) {
+        store2(dv + off + n * 8, gv[n][2 * h], gv[n][2 * h + 1]);
+        store2(dk + off + n * 8, alpha * gk[n][2 * h], alpha * gk[n][2 * h + 1]);
+      }
     }
   }
 }
@@ -520,11 +652,7 @@ bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       load_rows_async<T, D>(sQ, DS, qb, i0, QUERY_TILE, t, tid, NTHREADS);
       load_rows_async<T, D>(sdO, DS, ob, i0, QUERY_TILE, t, tid, NTHREADS);
       cp_async_commit();
-      for (int idx = tid; idx < 3 * QUERY_TILE; idx += NTHREADS) {
-        const int which = idx / QUERY_TILE, r = idx % QUERY_TILE;
-        const float x = (i0 + r < t) ? stats[(size_t)which * BHt + (size_t)bh * t + i0 + r] : 1.f;
-        sStat[idx] = which == 1 ? 1.f / x : x;  // the row sum as its reciprocal, as the forward uses it
-      }
+      load_query_stats<NTHREADS>(sStat, stats, BHt, bh, t, i0);
       mask_window<NTHREADS, false>(sBias, BIAS_STRIDE, mask_b, i0, QUERY_TILE, t, k0, KEYS, T_keys);
       cp_async_wait<1>();
       __syncthreads();
@@ -541,50 +669,92 @@ bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       float s[NQ][4] = {}, p[NQ][4] = {};
       mma_nt<T, D, NQ>(s, sK + warp * 16 * DS, DS, sQ, DS, lane);
       mma_nt<T, D, NQ>(p, sV + warp * 16 * DS, DS, sdO, DS, lane);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int jj = warp * 16 + g + 8 * h;
-        const bool key = k0 + jj < T_keys;
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          const int li = n * 8 + 2 * c;
-          const float2 x = *reinterpret_cast<const float2*>(sBias + jj * BIAS_STRIDE + li);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float w = 0.f, dl = 0.f;
-            if (key && i0 + li + e < t) {
-              const float l = s[n][2 * h + e] * alpha + (e ? x.y : x.x);
-              w = expf(l - sStat[li + e]) * sStat[QUERY_TILE + li + e];
-              dl = w * (p[n][2 * h + e] - sStat[2 * QUERY_TILE + li + e]);
-            }
-            s[n][2 * h + e] = w;
-            p[n][2 * h + e] = dl;
-          }
-        }
-      }
-
-      // dV += W^T dO and dK += dL^T Q over the tile's rows, from the fragments as they stand
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        const float aw[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
-        mma_nn_step<T, DC>(gv, aw, sdO + (n * 8 + 2 * c) * DS + c0 + g, DS);
-        const float al[4] = {p[n][0], p[n][2], p[n][1], p[n][3]};
-        mma_nn_step<T, DC>(gk, al, sQ + (n * 8 + 2 * c) * DS + c0 + g, DS);
-      }
+      keys_weights<NQ>(s, p, sBias, sStat, warp * 16, k0, T_keys, i0, t, alpha, g, c);
+      keys_accumulate<T, NQ, DC>(gv, gk, s, p, sdO + c0, sQ + c0, DS, g, c);
     }
+    store_keys<T, DC>(dk, dv, gk, gv, bh, k0 + warp * 16, T_keys, D, c0, alpha, g, c);
+  }
+}
 
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = k0 + warp * 16 + g + 8 * h;
-      if (j < T_keys) {
-        const size_t off = ((size_t)bh * T_keys + j) * D + c0 + 2 * c;
-#pragma unroll
-        for (int n = 0; n < DC / 8; ++n) {
-          store2(dv + off + n * 8, gv[n][2 * h], gv[n][2 * h + 1]);
-          store2(dk + off + n * 8, alpha * gk[n][2 * h], alpha * gk[n][2 * h + 1]);
-        }
+// pass 2 at a wide d (a multiple of WIDE_CHUNK up to MAX_WIDE_D, set at run
+// time): as bwd_keys_kernel, with the keys' K and V rows whole in shared
+// memory and the query tiles' Q and dO WIDE_CHUNK columns at a time.  For
+// each WIDE_CHUNK of the dK and dV columns, every query tile sums K Q^T and
+// V dO^T over the chunks of d, taking the column chunk last so that its Q
+// and dO stay for dV += W^T dO and dK += dL^T Q.
+template <typename T, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32)
+bwd_keys_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
+                     const uint8_t* __restrict__ mask, const float* __restrict__ stats, T* __restrict__ dk,
+                     T* __restrict__ dv, int BHt, int H, int t, int T_keys, int d, int nbasis, int bandsize,
+                     float alpha) {
+  using DT = Depth<T, WIDE>;
+  constexpr int KEYS = 16 * NWARPS;
+  constexpr int NTHREADS = NWARPS * 32;
+  constexpr int CH = DT::CHUNK, CS = DT::CS;
+  constexpr int NQ = QUERY_TILE / 8;
+  const DT dp(d);
+  const int KS = dp.stride;  // row stride of the key rows
+  extern __shared__ float4 smem4[];
+  T* sK = reinterpret_cast<T*>(smem4);  // KEYS x KS
+  T* sV = sK + KEYS * KS;               // KEYS x KS
+  T* sQ = sV + KEYS * KS;               // QUERY_TILE x CS
+  T* sdO = sQ + QUERY_TILE * CS;        // QUERY_TILE x CS
+  float* sBias = reinterpret_cast<float*>(sdO + QUERY_TILE * CS);  // KEYS x BIAS_STRIDE
+  float* sR = sBias + KEYS * BIAS_STRIDE;                          // QUERY_TILE x R_STRIDE
+  float* sStat = sR + QUERY_TILE * R_STRIDE;                       // 3 x QUERY_TILE: row max, 1 / row sum, rowdot
+  float* sB = sStat + 3 * QUERY_TILE;                              // nbasis x bandsize (up to MAX_BAND)
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int k0 = blockIdx.y * KEYS;
+  const T* qb = q + (size_t)bh * t * d;
+  const T* ob = dout + (size_t)bh * t * d;
+  const uint8_t* mask_b = mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr;
+
+  load_row_chunks_async<T, CH>(sK, KS, k + (size_t)bh * T_keys * d, d, k0, KEYS, T_keys, tid, NTHREADS);
+  load_row_chunks_async<T, CH>(sV, KS, v + (size_t)bh * T_keys * d, d, k0, KEYS, T_keys, tid, NTHREADS);
+  cp_async_commit();
+
+  for (int c0 = 0; c0 < d; c0 += CH) {
+    float gk[CH / 8][4] = {}, gv[CH / 8][4] = {};
+    for (int i0 = 0; i0 < t; i0 += QUERY_TILE) {
+      __syncthreads();  // the previous query tile is no longer read
+      if (nbasis > 0)
+        load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, i0, QUERY_TILE, t, nbasis,
+                                         c0 == 0 && i0 == 0 ? band_copy(sB, bandsize) : nullptr, b_nd, bandsize);
+      cp_async_commit();
+      load_query_stats<NTHREADS>(sStat, stats, BHt, bh, t, i0);
+      mask_window<NTHREADS, false>(sBias, BIAS_STRIDE, mask_b, i0, QUERY_TILE, t, k0, KEYS, T_keys);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (nbasis > 0)
+        with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+          band_bias_mma<NWARPS>(sBias, 1, BIAS_STRIDE, sR, band, i0, QUERY_TILE, t, T_keys, k0, KEYS, nbasis,
+                                bandsize);
+        });
+
+      // L^T and dP^T of the warp's 16 keys against the tile's rows, over the chunks of d, c0's last
+      float s[NQ][4] = {}, p[NQ][4] = {};
+      for (int j = 1; j <= dp.chunks; ++j) {
+        const int cd = (c0 + j * CH) % d;
+        __syncthreads();  // the band bias is in; the previous chunk of Q and dO is no longer read
+        load_rows_async<T, CH>(sQ, CS, qb + cd, i0, QUERY_TILE, t, tid, NTHREADS, d);
+        load_rows_async<T, CH>(sdO, CS, ob + cd, i0, QUERY_TILE, t, tid, NTHREADS, d);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        mma_nt<T, CH, NQ>(s, sK + warp * 16 * KS + cd, KS, sQ, CS, lane);
+        mma_nt<T, CH, NQ>(p, sV + warp * 16 * KS + cd, KS, sdO, CS, lane);
       }
+      keys_weights<NQ>(s, p, sBias, sStat, warp * 16, k0, T_keys, i0, t, alpha, g, c);
+      keys_accumulate<T, NQ, CH>(gv, gk, s, p, sdO, sQ, CS, g, c);  // the column chunk c0, last in
     }
+    store_keys<T, CH>(dk, dv, gk, gv, bh, k0 + warp * 16, T_keys, d, c0, alpha, g, c);
   }
 }
 
@@ -601,47 +771,68 @@ __global__ void db_reduce_kernel(const float* __restrict__ partial, float* __res
 template <typename T, int D, int ROWS>
 int launch_rows(const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
                 const uint8_t* mask, T* dq, float* dR, float* stats, float* partial, int B, int H, int t,
-                int T_keys, int nbasis, int bandsize, float alpha, cudaStream_t stream, int* nblocks) {
+                int T_keys, int d, int nbasis, int bandsize, float alpha, cudaStream_t stream, int* nblocks) {
   auto kernel = T_keys > KEY_CHUNK ? bwd_rows_chunked_kernel<T, D, ROWS> : bwd_rows_kernel<T, D, ROWS>;
-  const size_t smem = rows_smem_bytes<T, D>(ROWS, T_keys, nbasis, bandsize);
+  const size_t smem = rows_smem_bytes<T, D>(ROWS, T_keys, d, nbasis, bandsize);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (t + ROWS - 1) / ROWS);
   *nblocks = (int)(grid.x * grid.y);
   kernel<<<grid, RowBlock<ROWS>::NTHREADS, smem, stream>>>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial,
-                                                          B * H * t, H, t, T_keys, nbasis, bandsize, alpha);
+                                                          B * H * t, H, t, T_keys, d, nbasis, bandsize, alpha);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D, int NWARPS>
 int launch_keys(const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
-                const uint8_t* mask, const float* stats, T* dk, T* dv, int B, int H, int t, int T_keys,
+                const uint8_t* mask, const float* stats, T* dk, T* dv, int B, int H, int t, int T_keys, int d,
                 int nbasis, int bandsize, float alpha, size_t smem, cudaStream_t stream) {
-  auto kernel = bwd_keys_kernel<T, D, NWARPS>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (T_keys + 16 * NWARPS - 1) / (16 * NWARPS));
-  kernel<<<grid, NWARPS * 32, smem, stream>>>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B * H * t, H, t,
-                                              T_keys, nbasis, bandsize, alpha);
+  if constexpr (D == WIDE) {
+    auto kernel = bwd_keys_wide_kernel<T, NWARPS>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, NWARPS * 32, smem, stream>>>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B * H * t, H, t,
+                                                T_keys, d, nbasis, bandsize, alpha);
+  } else {
+    auto kernel = bwd_keys_kernel<T, D, NWARPS>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, NWARPS * 32, smem, stream>>>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B * H * t, H, t,
+                                                T_keys, nbasis, bandsize, alpha);
+  }
   return (int)cudaGetLastError();
 }
 
-// pass 1's rows a block: 64 where they fit the card's shared memory, else
-// 32, else (d = 256 only) 16
+// pass 1's rows a block: 64 where they fit the card's shared memory (never
+// at a wide d), else 32, else (d >= 256 only) 16
 template <typename T, int D>
-int rows_per_block(int T_keys, int nbasis, int bandsize, int limit) {
-  if (rows_smem_bytes<T, D>(64, T_keys, nbasis, bandsize) <= (size_t)limit) return 64;
-  if (D <= 192 || rows_smem_bytes<T, D>(32, T_keys, nbasis, bandsize) <= (size_t)limit) return 32;
+int rows_per_block(int T_keys, int d, int nbasis, int bandsize, int limit) {
+  if (D != WIDE && rows_smem_bytes<T, D>(64, T_keys, d, nbasis, bandsize) <= (size_t)limit) return 64;
+  if ((D != WIDE && D <= 192) || rows_smem_bytes<T, D>(32, T_keys, d, nbasis, bandsize) <= (size_t)limit) return 32;
   return 16;
 }
 
-// pass 2's warps a block: 8 where they fit the card's shared memory, else
-// 4, else (d = 256 only) 2
+// pass 2's warps a block: 8 where they fit the card's shared memory (never
+// at a wide d), else 4, else (d >= 256 only) 2
 template <typename T, int D>
-int key_warps(int nbasis, int bandsize, int limit) {
-  if (keys_smem_bytes<T, D>(8, nbasis, bandsize) <= (size_t)limit) return 8;
-  if (D <= 192 || keys_smem_bytes<T, D>(4, nbasis, bandsize) <= (size_t)limit) return 4;
-  return 2;
+int key_warps(int d, int nbasis, int bandsize, int limit) {
+  if constexpr (D == WIDE) {
+    return keys_wide_smem_bytes<T>(4, d, nbasis, bandsize) <= (size_t)limit ? 4 : 2;
+  } else {
+    if (keys_smem_bytes<T, D>(8, nbasis, bandsize) <= (size_t)limit) return 8;
+    if (D <= 192 || keys_smem_bytes<T, D>(4, nbasis, bandsize) <= (size_t)limit) return 4;
+    return 2;
+  }
+}
+
+template <typename T, int D>
+size_t keys_smem(int nwarps, int d, int nbasis, int bandsize) {
+  if constexpr (D == WIDE) {
+    return keys_wide_smem_bytes<T>(nwarps, d, nbasis, bandsize);
+  } else {
+    return keys_smem_bytes<T, D>(nwarps, nbasis, bandsize);
+  }
 }
 
 int smem_limit(int* limit) {
@@ -653,7 +844,7 @@ int smem_limit(int* limit) {
 template <typename T, int D>
 int launch(const void* q_, const void* k_, const void* v_, const void* dout_, const float* R, const float* b_nd,
            const uint8_t* mask, void* dq_, void* dk_, void* dv_, float* dR, float* db, float* stats,
-           float* partial, int B, int H, int t, int T_keys, int nbasis, int bandsize, float alpha,
+           float* partial, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha,
            cudaStream_t stream) {
   const auto* q = static_cast<const T*>(q_);
   const auto* k = static_cast<const T*>(k_);
@@ -665,37 +856,41 @@ int launch(const void* q_, const void* k_, const void* v_, const void* dout_, co
   int limit = 0, nblocks = 0;
   int rc = smem_limit(&limit);
   if (rc != 0) return rc;
-  switch (rows_per_block<T, D>(T_keys, nbasis, bandsize, limit)) {
+  switch (rows_per_block<T, D>(T_keys, d, nbasis, bandsize, limit)) {
     case 64:
-      rc = launch_rows<T, D, 64>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, nbasis,
-                                 bandsize, alpha, stream, &nblocks);
+      if constexpr (D != WIDE) {
+        rc = launch_rows<T, D, 64>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, d,
+                                   nbasis, bandsize, alpha, stream, &nblocks);
+      }
       break;
     case 32:
-      rc = launch_rows<T, D, 32>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, nbasis,
+      rc = launch_rows<T, D, 32>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, d, nbasis,
                                  bandsize, alpha, stream, &nblocks);
       break;
     default:
-      if constexpr (D > 192) {
-        rc = launch_rows<T, D, 16>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, nbasis,
-                                   bandsize, alpha, stream, &nblocks);
+      if constexpr (D > 192 || D == WIDE) {
+        rc = launch_rows<T, D, 16>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, d,
+                                   nbasis, bandsize, alpha, stream, &nblocks);
       }
   }
   if (rc != 0) return rc;
-  const int warps = key_warps<T, D>(nbasis, bandsize, limit);
-  const size_t keys_smem = keys_smem_bytes<T, D>(warps, nbasis, bandsize);
+  const int warps = key_warps<T, D>(d, nbasis, bandsize, limit);
+  const size_t smem = keys_smem<T, D>(warps, d, nbasis, bandsize);
   switch (warps) {
     case 8:
-      rc = launch_keys<T, D, 8>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
-                                alpha, keys_smem, stream);
+      if constexpr (D != WIDE) {
+        rc = launch_keys<T, D, 8>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, d, nbasis,
+                                  bandsize, alpha, smem, stream);
+      }
       break;
     case 4:
-      rc = launch_keys<T, D, 4>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
-                                alpha, keys_smem, stream);
+      rc = launch_keys<T, D, 4>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, d, nbasis, bandsize,
+                                alpha, smem, stream);
       break;
     default:
-      if constexpr (D > 192) {
-        rc = launch_keys<T, D, 2>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, nbasis, bandsize,
-                                  alpha, keys_smem, stream);
+      if constexpr (D > 192 || D == WIDE) {
+        rc = launch_keys<T, D, 2>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, d, nbasis,
+                                  bandsize, alpha, smem, stream);
       }
   }
   if (rc != 0 || R == nullptr) return rc;
@@ -712,18 +907,21 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* dout, co
                cudaStream_t s) {
   switch (d) {
     case 64:
-      return launch<T, 64>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+      return launch<T, 64>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys, d,
                            nbasis, bandsize, alpha, s);
     case 128:
-      return launch<T, 128>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+      return launch<T, 128>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys, d,
                             nbasis, bandsize, alpha, s);
     case 192:
-      return launch<T, 192>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+      return launch<T, 192>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys, d,
                             nbasis, bandsize, alpha, s);
     case 256:
-      return launch<T, 256>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+      return launch<T, 256>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys, d,
                             nbasis, bandsize, alpha, s);
     default:
+      if (d > 256 && d <= MAX_WIDE_D && d % WIDE_CHUNK == 0)
+        return launch<T, WIDE>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
+                               d, nbasis, bandsize, alpha, s);
       return (int)cudaErrorInvalidValue;
   }
 }
@@ -732,14 +930,16 @@ template <typename T>
 int rows_d(int T_keys, int d, int nbasis, int bandsize, int limit) {
   switch (d) {
     case 64:
-      return rows_per_block<T, 64>(T_keys, nbasis, bandsize, limit);
+      return rows_per_block<T, 64>(T_keys, d, nbasis, bandsize, limit);
     case 128:
-      return rows_per_block<T, 128>(T_keys, nbasis, bandsize, limit);
+      return rows_per_block<T, 128>(T_keys, d, nbasis, bandsize, limit);
     case 192:
-      return rows_per_block<T, 192>(T_keys, nbasis, bandsize, limit);
+      return rows_per_block<T, 192>(T_keys, d, nbasis, bandsize, limit);
     case 256:
-      return rows_per_block<T, 256>(T_keys, nbasis, bandsize, limit);
+      return rows_per_block<T, 256>(T_keys, d, nbasis, bandsize, limit);
     default:
+      if (d > 256 && d <= MAX_WIDE_D && d % WIDE_CHUNK == 0)
+        return rows_per_block<T, WIDE>(T_keys, d, nbasis, bandsize, limit);
       return -(int)cudaErrorInvalidValue;
   }
 }
@@ -755,7 +955,7 @@ extern "C" int vpt_windowed_attention_bwd_rows(int T, int d, int nbasis, int ban
   return is_bf16 ? rows_d<__nv_bfloat16>(T, d, nbasis, bandsize, limit) : rows_d<float>(T, d, nbasis, bandsize, limit);
 }
 
-// q and dout (B, H, t, d), k and v (B, H, T, d), d in {64, 128, 192, 256},
+// q and dout (B, H, t, d), k and v (B, H, T, d), d a multiple of 64 up to 512,
 // any T: contiguous and 16-byte aligned, all f32 (is_bf16 = 0) or all bf16
 // (is_bf16 = 1).  R (B, H, t, nbasis) f32 and b_nd (nbasis, bandsize) f32,
 // any bandsize, both null for no relative bias.  mask (B, t, T) bool bytes,

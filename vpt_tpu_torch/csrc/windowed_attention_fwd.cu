@@ -54,7 +54,13 @@
 //     stays in device memory, and the band bias reads it there, through L1
 //     and L2;
 //   * d = 256 (hidsize 4096 at 16 heads) takes 16-row blocks of 4 warps
-//     where 32 rows would not fit the shared memory (f32, or long bands).
+//     where 32 rows would not fit the shared memory (f32, or long bands);
+//   * every other multiple of 64 up to 512 (hidsize 8192 at 16 heads) runs
+//     one instance with d set at run time (Depth<T, WIDE>): its K and V tiles
+//     hold 64 of the d columns, Q K^T streams each key tile chunk by chunk
+//     into the same accumulators, and W V takes the output's columns a chunk
+//     at a time.  Simple, not yet fast: the wrapper pads any other d with
+//     zero columns to the next d taken here.
 
 #include "attention_mma.cuh"
 
@@ -64,12 +70,12 @@ using namespace wattn;
 
 // past KEY_CHUNK keys: a chunk's logit tile, and each row's running max, sum and rescale factor
 template <typename T, int D>
-size_t smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
-  const size_t tile = (size_t)tile_stride<T, D>() * sizeof(T);
+size_t smem_bytes(int rows, int T_keys, int d, int nbasis, int bandsize) {
+  const Depth<T, D> dp(d);
   const size_t band = band_smem_floats(nbasis, bandsize);
   const size_t running = T_keys > KEY_CHUNK ? 3 * rows : 0;
   const int keys = T_keys < KEY_CHUNK ? T_keys : KEY_CHUNK;
-  return (rows + 2 * KEY_TILE) * tile +
+  return ((size_t)rows * dp.stride + 2 * KEY_TILE * Depth<T, D>::CS) * sizeof(T) +
          ((size_t)rows * logit_stride(keys) + rows * R_STRIDE + band + running) * sizeof(float);
 }
 
@@ -78,16 +84,18 @@ __global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
 windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                               const float* __restrict__ R, const float* __restrict__ b_nd,
                               const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int t, int T_keys,
-                              int nbasis, int bandsize, float alpha) {
+                              int d, int nbasis, int bandsize, float alpha) {
   using Block = RowBlock<ROWS>;
-  constexpr int DS = tile_stride<T, D>();
-  constexpr int DH = D / Block::SPLIT;  // output columns of a warp
+  using DT = Depth<T, D>;
+  const DT dp(d);
+  constexpr int CS = DT::CS;
+  constexpr int DH = DT::CHUNK / Block::SPLIT;  // output columns of a warp in a chunk of d
   constexpr bool BF16 = exact_in_tf32<T>::value;
   const int TS = logit_stride(T_keys);
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x DS
-  T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K tiles, then V tiles
-  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: logits, then W
+  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x dp.stride
+  T* sKV = sQ + ROWS * dp.stride;       // 2 x KEY_TILE x CS: K tiles, then V tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * CS);  // ROWS x TS: logits, then W
   float* sR = sS + ROWS * TS;                                      // ROWS x R_STRIDE
   float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize (up to MAX_BAND)
 
@@ -104,9 +112,11 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
                                             band_copy(sB, bandsize), b_nd, bandsize);
   }
   cp_async_commit();
-  load_rows_async<T, D>(sQ, DS, q + (size_t)bh * t * D, q0, ROWS, t, tid, Block::NTHREADS);
+  const T* kb = k + (size_t)bh * T_keys * dp.d;
+  load_row_chunks_async<T, DT::CHUNK>(sQ, dp.stride, q + (size_t)bh * t * dp.d, dp.d, q0, ROWS, t, tid,
+                                      Block::NTHREADS);
   cp_async_commit();
-  prefetch_tile<T, D, Block::NTHREADS>(sKV, k + (size_t)bh * T_keys * D, T_keys, 0);
+  prefetch_tile<T, DT::CHUNK, Block::NTHREADS>(sKV, kb, T_keys, 0, dp.d);
   mask_window<Block::NTHREADS, true>(sS, TS, mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr, q0, ROWS,
                                      t, 0, TS - 8, T_keys);
   cp_async_wait<2>();
@@ -118,28 +128,31 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
       band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
     });
   }
-  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, k + (size_t)bh * T_keys * D, T_keys, alpha, true);
+  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, T_keys, dp, alpha, true);
   softmax_rows<ROWS, BF16>(sS, TS, q0, t, nullptr, nullptr);
 
-  // pass 2: O = W V over tiles of V, the warp's SPLIT-th of the columns
-  float o[DH / 8][4] = {};
+  // pass 2: O = W V over tiles of V, a chunk of d at a time (all of it at a
+  // narrow d), the warp's SPLIT-th of the chunk's columns
   const float* wrows = sS + rb.row0 * TS;
-  const T* vb = v + (size_t)bh * T_keys * D;
-  stream_tiles<T, D, Block::NTHREADS>(sKV, vb, T_keys, false, [&](int kt0, const T* tile) {
-    if constexpr (BF16) {
-      mma_nn_tile_bf16<DH>(o, wrows + kt0, TS, tile + rb.part * DH, DS, rb.lane);
-    } else {
-      mma_nn_tile<T, DH>(o, wrows + kt0, TS, tile + rb.part * DH, DS, rb.lane);
-    }
-  });
+  const T* vb = v + (size_t)bh * T_keys * dp.d;
+  for (int ci = 0; ci < dp.chunks; ++ci) {
+    float o[DH / 8][4] = {};
+    stream_tiles<T, DT::CHUNK, Block::NTHREADS>(sKV, vb + ci * DT::CHUNK, T_keys, false, [&](int kt0, const T* tile) {
+      if constexpr (BF16) {
+        mma_nn_tile_bf16<DH>(o, wrows + kt0, TS, tile + rb.part * DH, CS, rb.lane);
+      } else {
+        mma_nn_tile<T, DH>(o, wrows + kt0, TS, tile + rb.part * DH, CS, rb.lane);
+      }
+    }, dp.d);
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int gi = q0 + rb.row0 + rb.g + 8 * h;
-    if (gi < t) {
-      T* orow = out + ((size_t)bh * t + gi) * D + rb.part * DH + 2 * rb.c;
+    for (int h = 0; h < 2; ++h) {
+      const int gi = q0 + rb.row0 + rb.g + 8 * h;
+      if (gi < t) {
+        T* orow = out + ((size_t)bh * t + gi) * dp.d + ci * DT::CHUNK + rb.part * DH + 2 * rb.c;
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) store2(orow + n * 8, o[n][2 * h], o[n][2 * h + 1]);
+        for (int n = 0; n < DH / 8; ++n) store2(orow + n * 8, o[n][2 * h], o[n][2 * h + 1]);
+      }
     }
   }
 }
@@ -151,17 +164,19 @@ __global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
 windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                       const float* __restrict__ R, const float* __restrict__ b_nd,
                                       const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int t,
-                                      int T_keys, int nbasis, int bandsize, float alpha) {
+                                      int T_keys, int d, int nbasis, int bandsize, float alpha) {
   using Block = RowBlock<ROWS>;
+  using DT = Depth<T, D>;
+  const DT dp(d);
   constexpr int NTHREADS = Block::NTHREADS;
-  constexpr int DS = tile_stride<T, D>();
-  constexpr int DH = D / Block::SPLIT;  // output columns of a warp
+  constexpr int CS = DT::CS;
+  constexpr int DH = DT::CHUNK / Block::SPLIT;  // output columns of a warp in a chunk of d
   constexpr bool BF16 = exact_in_tf32<T>::value;
   const int TS = logit_stride(KEY_CHUNK);
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x DS
-  T* sKV = sQ + ROWS * DS;              // 2 x KEY_TILE x DS: K tiles, then V tiles
-  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * DS);  // ROWS x TS: a chunk's logits, then exp
+  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x dp.stride
+  T* sKV = sQ + ROWS * dp.stride;       // 2 x KEY_TILE x CS: K tiles, then V tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * CS);  // ROWS x TS: a chunk's logits, then exp
   float* sR = sS + ROWS * TS;                                      // ROWS x R_STRIDE
   float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize (up to MAX_BAND)
   float* sM = sB + band_smem_floats(nbasis, bandsize);             // ROWS: running max
@@ -173,8 +188,8 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
   const int b = bh / H;
   const int q0 = blockIdx.y * ROWS;
   const int tid = threadIdx.x;
-  const T* kb = k + (size_t)bh * T_keys * D;
-  const T* vb = v + (size_t)bh * T_keys * D;
+  const T* kb = k + (size_t)bh * T_keys * dp.d;
+  const T* vb = v + (size_t)bh * T_keys * dp.d;
   const uint8_t* mask_b = mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr;
 
   // as the kernel above, for the first chunk
@@ -183,9 +198,9 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
                                      b_nd, bandsize);
   }
   cp_async_commit();
-  load_rows_async<T, D>(sQ, DS, q + (size_t)bh * t * D, q0, ROWS, t, tid, NTHREADS);
+  load_row_chunks_async<T, DT::CHUNK>(sQ, dp.stride, q + (size_t)bh * t * dp.d, dp.d, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
-  prefetch_tile<T, D, NTHREADS>(sKV, kb, KEY_CHUNK, 0);
+  prefetch_tile<T, DT::CHUNK, NTHREADS>(sKV, kb, KEY_CHUNK, 0, dp.d);
   mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, 0, KEY_CHUNK, T_keys);
   for (int i = tid; i < ROWS; i += NTHREADS) {
     sM[i] = -CUDART_INF_F;
@@ -194,11 +209,12 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
   cp_async_wait<2>();
   __syncthreads();
 
-  float o[DH / 8][4] = {};
+  // the output accumulators of every chunk of d (one at a narrow d), across the key chunks
+  float o[DT::MAX_CHUNKS][DH / 8][4] = {};
   for (int c0 = 0; c0 < T_keys; c0 += KEY_CHUNK) {
     const int nc = min(KEY_CHUNK, T_keys - c0);
     if (c0 > 0) {  // every warp is past the previous chunk (stream_tiles ends with a barrier)
-      prefetch_tile<T, D, NTHREADS>(sKV, kb + (size_t)c0 * D, nc, 0);
+      prefetch_tile<T, DT::CHUNK, NTHREADS>(sKV, kb + (size_t)c0 * dp.d, nc, 0, dp.d);
       mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, c0, KEY_CHUNK, T_keys);
       __syncthreads();
     }
@@ -207,26 +223,35 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
         band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
       });
     }
-    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * D, nc, alpha, true);
+    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * dp.d, nc, dp, alpha, true);
     softmax_rows_online<ROWS, true>(sS, TS, sM, sL, sC);
     __syncthreads();
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float scale = sC[rb.row0 + rb.g + 8 * h];
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
-        o[n][2 * h] *= scale;
-        o[n][2 * h + 1] *= scale;
+      for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {
+          o[ci][n][2 * h] *= scale;
+          o[ci][n][2 * h + 1] *= scale;
+        }
       }
     }
     const float* wrows = sS + rb.row0 * TS;
-    stream_tiles<T, D, NTHREADS>(sKV, vb + (size_t)c0 * D, nc, false, [&](int kt0, const T* tile) {
-      if constexpr (BF16) {
-        mma_nn_tile_bf16<DH>(o, wrows + kt0, TS, tile + rb.part * DH, DS, rb.lane);
-      } else {
-        mma_nn_tile<T, DH>(o, wrows + kt0, TS, tile + rb.part * DH, DS, rb.lane);
+#pragma unroll
+    for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
+      if (ci < dp.chunks) {  // uniform
+        stream_tiles<T, DT::CHUNK, NTHREADS>(sKV, vb + (size_t)c0 * dp.d + ci * DT::CHUNK, nc, false,
+                                             [&](int kt0, const T* tile) {
+          if constexpr (BF16) {
+            mma_nn_tile_bf16<DH>(o[ci], wrows + kt0, TS, tile + rb.part * DH, CS, rb.lane);
+          } else {
+            mma_nn_tile<T, DH>(o[ci], wrows + kt0, TS, tile + rb.part * DH, CS, rb.lane);
+          }
+        }, dp.d);
       }
-    });
+    }
   }
 
 #pragma unroll
@@ -235,46 +260,54 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
     const int gi = q0 + i;
     if (gi < t) {
       const float inv = 1.f / sL[i];
-      T* orow = out + ((size_t)bh * t + gi) * D + rb.part * DH + 2 * rb.c;
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) store2(orow + n * 8, o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+      for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
+        if (ci < dp.chunks) {
+          T* orow = out + ((size_t)bh * t + gi) * dp.d + ci * DT::CHUNK + rb.part * DH + 2 * rb.c;
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n) store2(orow + n * 8, o[ci][n][2 * h] * inv, o[ci][n][2 * h + 1] * inv);
+        }
+      }
     }
   }
 }
 
 template <typename T, int D, int ROWS>
 int launch(const void* q, const void* k, const void* v, const float* R, const float* b_nd, const uint8_t* mask,
-           void* out, int B, int H, int t, int T_keys, int nbasis, int bandsize, float alpha, cudaStream_t stream) {
+           void* out, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha,
+           cudaStream_t stream) {
   auto kernel = T_keys > KEY_CHUNK ? windowed_attention_fwd_chunked_kernel<T, D, ROWS>
                                    : windowed_attention_fwd_kernel<T, D, ROWS>;
-  const size_t smem = smem_bytes<T, D>(ROWS, T_keys, nbasis, bandsize);
+  const size_t smem = smem_bytes<T, D>(ROWS, T_keys, d, nbasis, bandsize);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (t + ROWS - 1) / ROWS);
   kernel<<<grid, RowBlock<ROWS>::NTHREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                                           static_cast<const T*>(v), R, b_nd, mask,
-                                                          static_cast<T*>(out), H, t, T_keys, nbasis, bandsize,
-                                                          alpha);
+                                                          static_cast<T*>(out), H, t, T_keys, d, nbasis,
+                                                          bandsize, alpha);
   return (int)cudaGetLastError();
 }
 
-// 64-row blocks where they fit the card's shared memory, else 32-row blocks,
-// else (d = 256 only) 16-row blocks
+// 64-row blocks where they fit the card's shared memory (never at a wide d),
+// else 32-row blocks, else (d >= 256 only) 16-row blocks
 template <typename T, int D>
 int launch_rows(const void* q, const void* k, const void* v, const float* R, const float* b_nd,
-                const uint8_t* mask, void* out, int B, int H, int t, int T_keys, int nbasis, int bandsize,
+                const uint8_t* mask, void* out, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize,
                 float alpha, cudaStream_t stream) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  if (smem_bytes<T, D>(64, T_keys, nbasis, bandsize) <= (size_t)limit)
-    return launch<T, D, 64>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
-  if constexpr (D > 192) {
-    if (smem_bytes<T, D>(32, T_keys, nbasis, bandsize) > (size_t)limit)
-      return launch<T, D, 16>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+  if constexpr (D != WIDE) {
+    if (smem_bytes<T, D>(64, T_keys, d, nbasis, bandsize) <= (size_t)limit)
+      return launch<T, D, 64>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
   }
-  return launch<T, D, 32>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+  if constexpr (D > 192 || D == WIDE) {
+    if (smem_bytes<T, D>(32, T_keys, d, nbasis, bandsize) > (size_t)limit)
+      return launch<T, D, 16>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
+  }
+  return launch<T, D, 32>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
 }
 
 template <typename T>
@@ -283,21 +316,24 @@ int dispatch_d(const void* q, const void* k, const void* v, const float* R, cons
                float alpha, cudaStream_t stream) {
   switch (d) {
     case 64:
-      return launch_rows<T, 64>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+      return launch_rows<T, 64>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
     case 128:
-      return launch_rows<T, 128>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+      return launch_rows<T, 128>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
     case 192:
-      return launch_rows<T, 192>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+      return launch_rows<T, 192>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
     case 256:
-      return launch_rows<T, 256>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, nbasis, bandsize, alpha, stream);
+      return launch_rows<T, 256>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
     default:
+      if (d > 256 && d <= MAX_WIDE_D && d % WIDE_CHUNK == 0)
+        return launch_rows<T, WIDE>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha,
+                                    stream);
       return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q (B, H, t, d), k and v (B, H, T, d), d in {64, 128, 192, 256}, any T:
+// q (B, H, t, d), k and v (B, H, T, d), d a multiple of 64 up to 512, any T:
 // contiguous and 16-byte aligned, all f32 (is_bf16 = 0) or all bf16
 // (is_bf16 = 1).  R (B, H, t, nbasis) f32 and b_nd (nbasis, bandsize) f32,
 // any bandsize, both null for no relative bias.  mask

@@ -70,8 +70,16 @@ QUEUE_TIMEOUT = float(os.environ.get("VPT_QUEUE_TIMEOUT", 10))
 MINEREC_ORIGINAL_HEIGHT_PX = 720  # reference: data_loader.py:21
 DECODE_BATCH = 64  # frames per native decode/composite/resize call
 
-# The reference defines GUI-open mouse-delta scalers per recorder version
-# (data_loader.py:25-31) but its worker never applies them; neither does this.
+# GUI-open mouse-delta scalers per recorder version (reference:
+# data_loader.py:25-31).  The reference defines them but its worker never
+# applies them; trajectory_steps applies them only with apply_version_scalers.
+MINEREC_VERSION_SPECIFIC_SCALERS = {
+    "5.7": 0.5,
+    "5.8": 0.5,
+    "6.7": 2.0,
+    "6.8": 2.0,
+    "6.9": 2.0,
+}
 
 
 def _load_jsonl(json_path: str):
@@ -85,13 +93,16 @@ def trajectory_steps(
     json_path: str,
     resolution: Tuple[int, int] = AGENT_RESOLUTION,
     cursor=None,
+    apply_version_scalers: bool = False,
     quit_event=None,
     skip_steps: int = 0,
     batch_frames: int = DECODE_BATCH,
 ):
     """Generator of (frame uint8 RGB at ``resolution`` (w, h), env_action)
     for one recording, with all reference fixups applied and null actions
-    skipped.
+    skipped.  ``apply_version_scalers`` scales the mouse deltas of GUI-open
+    steps by ``MINEREC_VERSION_SPECIFIC_SCALERS`` of their ``dataVersion``
+    (off by default, as in the reference's worker).
 
     The sequential action fixups run over the whole jsonl first; then the
     pixels (decode, cursor composite, resize) go through the native library
@@ -120,6 +131,11 @@ def trajectory_steps(
                 attack_is_stuck = False
             if attack_is_stuck:
                 step_data["mouse"]["buttons"] = [b for b in step_data["mouse"]["buttons"] if b != 0]
+            if apply_version_scalers and step_data.get("isGuiOpen", False):
+                scaler = MINEREC_VERSION_SPECIFIC_SCALERS.get(str(step_data.get("dataVersion", "1")), 1.0)
+                if scaler != 1.0:
+                    step_data["mouse"]["dx"] *= scaler
+                    step_data["mouse"]["dy"] *= scaler
 
             action, is_null_action = json_action_to_env_action(step_data)
 
@@ -437,16 +453,20 @@ class SequenceDataLoader:
     ``labels_dir`` reads each video's jsonl from there (pseudo-labels kept
     apart from the videos); each jsonl's format is detected either way.
     ``resume_state`` is a :meth:`state` of a loader over the same data,
-    seed, epochs, batch size and shard: each stream goes on from its first
-    unconsumed chunk.  ``shard_id``/``num_shards``: this loader serves the
-    ``batch_size`` streams of shard ``shard_id`` of a global batch of
+    seed and epochs: each stream goes on from its first unconsumed chunk.
+    A state written at another batch size or shard has stream cursors that
+    mean other global streams: the loader drops them (with a notice) and
+    starts from ``start_trajectory``, the coarse whole-trajectory cursor
+    (each stream at its first owned position at or past it).
+    ``shard_id``/``num_shards``: this loader serves the ``batch_size``
+    streams of shard ``shard_id`` of a global batch of
     ``batch_size·num_shards`` streams (the same ``seed`` on every shard).
     """
 
     def __init__(self, dataset_dir, batch_size=8, chunk_len=128, n_epochs=1, max_queue_size=8,
                  resolution: Tuple[int, int] = AGENT_RESOLUTION, seed: Optional[int] = None,
-                 labels_dir: Optional[str] = None, resume_state: Optional[Dict] = None,
-                 shard_id: int = 0, num_shards: int = 1):
+                 labels_dir: Optional[str] = None, start_trajectory: int = 0,
+                 resume_state: Optional[Dict] = None, shard_id: int = 0, num_shards: int = 1):
         from vpt_tpu_torch.data.video import build
 
         if not 0 <= shard_id < num_shards:
@@ -468,19 +488,26 @@ class SequenceDataLoader:
         self.shard_id, self.num_shards = shard_id, num_shards
         # global stream g owns list positions g, g + G, ...; its cursor is (position, chunks consumed)
         streams = [(-1, 0)] * batch_size
-        if resume_state is not None:
-            streams = [(int(p), int(c)) for p, c in resume_state["streams"]]
-            if len(streams) != batch_size:
-                raise ValueError(f"resume_state has {len(streams)} streams, the loader {batch_size}")
+        self.n_trajectories_dispatched = start_trajectory
+        if resume_state is not None and resume_state.get("streams"):
             shard = list(resume_state.get("shard", [0, 1]))
-            if shard != [shard_id, num_shards]:
-                raise ValueError(f"resume_state is shard {shard}, the loader [{shard_id}, {num_shards}]")
+            if len(resume_state["streams"]) == batch_size and shard == [shard_id, num_shards]:
+                streams = [(int(p), int(c)) for p, c in resume_state["streams"]]
+                self.n_trajectories_dispatched = int(resume_state.get("n_trajectories_dispatched", start_trajectory))
+            else:
+                print(f"[vpt_tpu_torch] resume: stream cursor ({len(resume_state['streams'])} streams, shard {shard}) "
+                      f"does not match batch_size={batch_size} shard=[{shard_id}, {num_shards}]; using the coarse "
+                      f"trajectory cursor {start_trajectory}")
         self._stream_cursor = list(streams)
-        self.n_trajectories_dispatched = int((resume_state or {}).get("n_trajectories_dispatched", 0))
 
         self.task_queues = [_mp.Queue() for _ in range(batch_size)]
         for i in range(batch_size):
-            first_pos, skip_chunks = streams[i] if streams[i][0] >= 0 else (shard_id * batch_size + i, 0)
+            g = shard_id * batch_size + i
+            # without a stream cursor: the first owned position at or past start_trajectory
+            first_pos = g + (max(start_trajectory - g, 0) + global_streams - 1) // global_streams * global_streams
+            skip_chunks = 0
+            if streams[i][0] >= 0:
+                first_pos, skip_chunks = streams[i]
             for pos in range(first_pos, len(self.demonstration_tuples), global_streams):
                 self.task_queues[i].put((pos, *self.demonstration_tuples[pos], skip_chunks if pos == first_pos else 0))
             self.task_queues[i].put(None)

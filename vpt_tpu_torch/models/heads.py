@@ -328,15 +328,21 @@ class EwmaNormalizer(nn.Module):
 
 class ScaledMSEHead(nn.Module):
     """Linear value head in EWMA-normalised target space (reference:
-    lib/scaled_mse_head.py).  Serving reads ``denormalize``; BC leaves the
-    statistics as they are, and PPO (training/rl.py) folds each collected
-    batch's returns into them with ``ewma_updated_stats``."""
+    lib/scaled_mse_head.py, lib/normalize_ewma.py).  Serving reads
+    ``denormalize``; BC leaves the statistics as they are, and PPO
+    (training/rl.py) folds each collected batch's returns into them with
+    ``ewma_updated_stats``.  ``loss`` and ``updated_stats`` are the
+    reference's own API on the head's statistics, which they do not change
+    (``updated_stats`` returns the new ones)."""
 
-    def __init__(self, insize: int, output_size: int = 1, norm_axes: int = 2,
-                 epsilon: float = 1e-5, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, insize: int, output_size: int = 1, norm_axes: int = 2, beta: float = 0.99999,
+                 epsilon: float = 1e-5, per_element_update: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         self.norm_axes = norm_axes
+        self.beta = beta
         self.epsilon = epsilon
+        self.per_element_update = per_element_update
         self.dtype = dtype
         self.linear = nn.Module()
         self.linear.weight = nn.Parameter(torch.empty(output_size, insize, device=device))
@@ -353,5 +359,20 @@ class ScaledMSEHead(nn.Module):
         dt = self.dtype
         return F.linear(x.to(dt), self.linear.weight.to(dt), self.linear.bias.to(dt))
 
+    def normalize(self, x):
+        return ewma_normalize(self.normalizer.stats(), x, self.norm_axes, self.epsilon)
+
     def denormalize(self, x):
         return ewma_denormalize(self.normalizer.stats(), x, self.norm_axes, self.epsilon)
+
+    def loss(self, prediction, target):
+        """MSE in normalised space (reference: scaled_mse_head.py:37-43)."""
+        return ((prediction.float() - self.normalize(target)) ** 2).mean()
+
+    def updated_stats(self, target) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(running_mean, running_mean_sq, debiasing_term) after folding in a
+        batch of targets (reference: normalize_ewma.py:33-55, as a function
+        of the head's statistics)."""
+        new = ewma_updated_stats(self.normalizer.stats(), target, self.beta, self.norm_axes,
+                                 self.per_element_update)
+        return new["running_mean"], new["running_mean_sq"], new["debiasing_term"]

@@ -32,7 +32,9 @@ from __future__ import annotations
 from typing import Dict, Iterable, Mapping
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
 INT_MM_ROW_PAD = 32   # rows a smaller product is padded to
@@ -132,12 +134,37 @@ def fake_quant_kernel(w: torch.Tensor) -> torch.Tensor:
     """Quantization-aware view of a dense weight: its value is exactly
     ``quantize_kernel``'s codes times their scales (per output row), its
     gradient the identity (straight-through), so the float master weights
-    go on training on the weights int8 serving will use."""
+    go on training on the weights int8 serving will use.  A tp-sharded
+    weight (a DTensor) gets the scales of the whole weight: see
+    :func:`_fake_quant_sharded`."""
+    if isinstance(w, DTensor):
+        return _fake_quant_sharded(w)
     w32 = w.float()
     with torch.no_grad():
         w_q, scale = quantize_kernel(w32)
         fq = w_q.float() * scale.view(-1, *([1] * (w32.dim() - 1)))
     return (w32 + (fq - w32).detach()).to(w.dtype)
+
+
+def _fake_quant_sharded(w: DTensor) -> torch.Tensor:
+    """``fake_quant_kernel`` of a sharded weight, rank by rank: a shard of
+    whole output rows (colwise, ``Shard(0)``: q, k, v, the first MLP layer,
+    the heads) has its rows' scales locally; a shard of a slice of every row
+    (rowwise, ``Shard(1)``: the attention projection, the second MLP layer)
+    takes each row's max |w| over its group before the scale, so the codes
+    are those of the whole weight (vpt_tpu's max over the whole input axis)."""
+    local = w.to_local().float()
+    with torch.no_grad():
+        amax = local.abs().amax(dim=tuple(range(1, local.dim())))
+        for dim, placement in enumerate(w.placements):
+            if placement.is_partial():
+                raise ValueError(f"fake_quant_kernel of a partial weight ({w.placements})")
+            if isinstance(placement, Shard) and placement.dim != 0:
+                dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=w.device_mesh.get_group(dim))
+        scale = _scale(amax).view(-1, *([1] * (local.dim() - 1)))
+        fq = torch.clamp(torch.round(local / scale), -127, 127) * scale
+        delta = DTensor.from_local(fq - local, w.device_mesh, w.placements, run_check=False)
+    return (w.float() + delta).to(w.dtype)
 
 
 def quantized_kernel_mask(float_params: Iterable[str], quant_template: Iterable[str]) -> Dict[str, bool]:

@@ -16,10 +16,15 @@ the keys in chunks of that many through shared memory (an online softmax in
 B1, three sweeps over the chunks in B2's first pass).  They take a band
 table b_nd of any length: up to 512 offsets it is held in shared memory,
 past that (attention_memory_size - timesteps > 512) the kernels read it
-from device memory.  They take the head dims in ``SUPPORTED_D``: those of
-the published models (64, 128, 192) and hidsize 4096 at 16 heads' 256,
-which vpt_tpu's ``dispatch`` sends to its Pallas kernel too (it takes any
-d % 128 = 0).
+from device memory.  They take every head dim that is a multiple of 64 up
+to ``MAX_D`` = 512: those of the published models (64, 128, 192) and 256
+whole, the wider ones 64 columns of K and V at a time.  A call of any other
+head dim up to 512 (the tiny test configs' 16, hidsize 512 at 16 heads'
+32, 96) runs at ``kernel_d(d)``, the next multiple of 64: its q, k and v
+are zero-padded to it, which changes neither Q·Kᵀ nor the real columns of
+the output, and the output and gradients are sliced back.  The softmax
+scale is the unpadded d's, and the operators' FLOP formulas see the
+unpadded shapes.  A head dim past 512 raises, naming itself.
 
 Both kernels run their products on tensor cores (mma.sync), at the accuracy
 of the input type: f32 operands are split into TF32 hi and lo parts and
@@ -31,7 +36,7 @@ On a CPU tensor each wrapper runs its plain PyTorch version
 (``windowed_attention_fwd_plain``, differentiated by autograd, and
 ``windowed_attention_bwd_plain``).  On a CUDA tensor it launches its kernel
 or raises: there is no shape or dtype it routes elsewhere (the tiny test
-configs' d = 16, which vpt_tpu runs on XLA, raises on CUDA).  ``launches``
+configs' d = 16 runs padded, as above).  ``launches``
 counts B1's launches and ``bwd_launches`` B2's, so a run can show that its
 path went through both.
 
@@ -48,6 +53,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from vpt_tpu_torch.ops import cuda_build
@@ -56,7 +62,8 @@ from vpt_tpu_torch.ops.rel_bias import banded_bias_matrix, relattn_bias
 
 KERNEL = "windowed_attention_fwd"
 BWD_KERNEL = "windowed_attention_bwd"
-SUPPORTED_D = (64, 128, 192, 256)
+D_STEP = 64  # the kernels take every head dim that is a multiple of this ...
+MAX_D = 512  # ... up to this (csrc/attention_mma.cuh MAX_WIDE_D)
 KEY_CHUNK = 512  # keys whose logits a block of the kernels holds at once (csrc/attention_mma.cuh)
 MAX_NBASIS = 16
 ALIGN = 16  # bytes: the kernels copy q, k, v and dO 16 bytes at a time
@@ -150,13 +157,48 @@ def attention_flops(q, k, R, b_nd) -> Tuple[int, int]:
     return 4 * pairs * d + bias, 8 * pairs * d + 2 * bias
 
 
+def kernel_d(d: int) -> int:
+    """The head dim the kernels run a call of head dim ``d`` at: the
+    multiple of 64 at or above it; past ``MAX_D`` a ValueError."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"head dim {d} not supported by the kernels (they take 1 to {MAX_D}, "
+                         f"multiples of {D_STEP} whole and the rest zero-padded)")
+    return -(-d // D_STEP) * D_STEP
+
+
+def _padded(x: torch.Tensor, d: int) -> torch.Tensor:
+    return x if x.shape[-1] == d else F.pad(x, (0, d - x.shape[-1]))
+
+
+def padded_fwd(q, k, v, mask, R, b_nd, use_muP_factor: bool, launch) -> torch.Tensor:
+    """B1's call at the kernels' head dim: ``launch(q, k, v, mask, R, b_nd,
+    alpha)`` on q, k, v zero-padded to ``kernel_d(d)``, with the softmax
+    scale of the unpadded d, and the output sliced back to d."""
+    d = q.shape[-1]
+    dk = kernel_d(d)
+    out = launch(*(_padded(x, dk) for x in (q, k, v)), mask, R, b_nd, attention_alpha(d, use_muP_factor))
+    return out if dk == d else out[..., :d].contiguous()
+
+
+def padded_bwd(q, k, v, mask, R, b_nd, dO, use_muP_factor: bool, launch):
+    """B2's call at the kernels' head dim, as ``padded_fwd``: ``launch(q,
+    k, v, mask, R, b_nd, dO, alpha)`` on padded q, k, v and dO, and dq, dk,
+    dv sliced back (dR and d b_nd do not depend on d)."""
+    d = q.shape[-1]
+    dk = kernel_d(d)
+    dq, dk_, dv, dR, db = launch(*(_padded(x, dk) for x in (q, k, v)), mask, R, b_nd, _padded(dO, dk),
+                                 attention_alpha(d, use_muP_factor))
+    if dk != d:
+        dq, dk_, dv = (x[..., :d].contiguous() for x in (dq, dk_, dv))
+    return dq, dk_, dv, dR, db
+
+
 def _check(q, k, v, mask, R, b_nd) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, t, d), (B, H, T, d), (B, H, T, d)")
     B, H, t, d = q.shape
     T = k.shape[2]
-    if d not in SUPPORTED_D:
-        raise ValueError(f"head dim {d} not supported by the kernel (supports {SUPPORTED_D})")
+    kernel_d(d)
     if k.shape != (B, H, T, d) or v.shape != (B, H, T, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     if T < 1:
@@ -195,7 +237,7 @@ def _raise_on(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {lib.vpt_cuda_error_string(err).decode()} ({err})")
 
 
-def _launch_fwd(q, k, v, mask, R, b_nd, use_muP_factor: bool) -> torch.Tensor:
+def _run_fwd(q, k, v, mask, R, b_nd, alpha: float) -> torch.Tensor:
     B, H, t, d = q.shape
     T = k.shape[2]
     lib = _library()
@@ -207,7 +249,7 @@ def _launch_fwd(q, k, v, mask, R, b_nd, use_muP_factor: bool) -> torch.Tensor:
             out.data_ptr(), B, H, t, T, d,
             R.shape[-1] if R is not None else 0,
             b_nd.shape[1] if b_nd is not None else 0,
-            int(q.dtype == torch.bfloat16), attention_alpha(d, use_muP_factor), stream,
+            int(q.dtype == torch.bfloat16), alpha, stream,
         )
     _raise_on(lib, err, KERNEL)
     global launches
@@ -215,7 +257,11 @@ def _launch_fwd(q, k, v, mask, R, b_nd, use_muP_factor: bool) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(q, k, v, mask, R, b_nd, dO, use_muP_factor: bool):
+def _launch_fwd(q, k, v, mask, R, b_nd, use_muP_factor: bool) -> torch.Tensor:
+    return padded_fwd(q, k, v, mask, R, b_nd, use_muP_factor, _run_fwd)
+
+
+def _run_bwd(q, k, v, mask, R, b_nd, dO, alpha: float):
     B, H, t, d = q.shape
     T = k.shape[2]
     nbasis, bandsize = (R.shape[-1], b_nd.shape[1]) if R is not None else (0, 0)
@@ -236,7 +282,7 @@ def _launch_bwd(q, k, v, mask, R, b_nd, dO, use_muP_factor: bool):
         err = lib.vpt_windowed_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(), _ptr(R), _ptr(b_nd), _ptr(mask),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dR), _ptr(db), stats.data_ptr(), _ptr(partial),
-            B, H, t, T, d, nbasis, bandsize, is_bf16, attention_alpha(d, use_muP_factor), stream,
+            B, H, t, T, d, nbasis, bandsize, is_bf16, alpha, stream,
         )
     _raise_on(lib, err, BWD_KERNEL)
     global bwd_launches
@@ -246,8 +292,13 @@ def _launch_bwd(q, k, v, mask, R, b_nd, dO, use_muP_factor: bool):
     return dq, dk, dv, dR, db
 
 
+def _launch_bwd(q, k, v, mask, R, b_nd, dO, use_muP_factor: bool):
+    return padded_bwd(q, k, v, mask, R, b_nd, dO, use_muP_factor, _run_bwd)
+
+
 # B1 and B2 as operators, so that torch.utils.flop_counter sees their launches
-# (a ctypes call is no aten op).  B2's dR and d b_nd are empty without R.
+# (a ctypes call is no aten op) at the caller's unpadded shapes.  B2's dR and
+# d b_nd are empty without R.
 _ops = torch.library.Library("vpt_torch", "DEF")
 _ops.define("windowed_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, Tensor? R, Tensor? b_nd, "
             "bool use_muP_factor) -> Tensor")

@@ -80,14 +80,15 @@ class _GatherTime(torch.autograd.Function):
 class SequenceParallelForward(nn.Module):
     """``model(frames, firsts, state)`` with the time axis split over the
     mesh's sp ranks; returns (the heads' outputs on this rank's time slice,
-    the state after the whole chunk).  At sp = 1 it is the model's own
-    forward, over the whole chunk."""
+    the state after the whole chunk).  At sp = 1, or without ``split`` (the
+    sp ranks then replicas), it is the model's own forward, over the whole
+    chunk."""
 
-    def __init__(self, model: nn.Module, mesh: Optional[DeviceMesh]):
+    def __init__(self, model: nn.Module, mesh: Optional[DeviceMesh], split: bool = True):
         super().__init__()
         self.model = model
         self.mesh = mesh
-        self.sp = axis_size(mesh, "sp")
+        self.sp = axis_size(mesh, "sp") if split else 1
         self.group = group(mesh, ("sp",)) if self.sp > 1 else None
 
     def time_slice(self, steps: int) -> slice:
@@ -119,16 +120,19 @@ class ParallelModel:
     device, every rank holding the same weights) wrapped for training on
     ``mesh``; the wrappers change ``model`` in place, so its parameters
     (DTensors where sharded) are what the optimizer takes afterwards.
-    Calling it runs the forward of :class:`SequenceParallelForward`."""
+    Calling it runs the forward of :class:`SequenceParallelForward`; without
+    ``sequence_parallel`` the sp ranks run the whole chunk as replicas (their
+    gradients, equal, still averaged over sp, which keeps them equal)."""
 
-    def __init__(self, model: nn.Module, mesh: DeviceMesh, unused: Sequence[str] = ()):
+    def __init__(self, model: nn.Module, mesh: DeviceMesh, unused: Sequence[str] = (),
+                 sequence_parallel: bool = True):
         self.mesh = mesh
         self.model = model
         sp, tp, fsdp = axis_size(mesh, "sp"), axis_size(mesh, "tp"), axis_size(mesh, "fsdp")
         if axis_size(mesh, "pp") > 1:
             raise NotImplementedError("a pp mesh trains through training/pp_bc.py's PPBCTrainer")
-        self.forward_module = SequenceParallelForward(model, mesh)
-        shard_model(model, mesh, root=self.forward_module if sp > 1 else None)
+        self.forward_module = SequenceParallelForward(model, mesh, split=sequence_parallel)
+        shard_model(model, mesh, root=self.forward_module if self.forward_module.sp > 1 else None)
         self._sync_group = None
         self._call = self.forward_module
         if fsdp > 1:  # FSDP2 reduces over (dp, fsdp); sp is left

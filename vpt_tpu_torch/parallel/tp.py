@@ -26,7 +26,10 @@ rowwise), where the JAX package replicates a colwise bias: the same numbers.
 Under tp each attention layer's ``heads`` is its local count, and the
 recurrent state a trainer carries holds the rank's heads only
 (:func:`local_state`).  Mixed plain and DTensor gradients take the mesh's
-``clip_grad_norm_`` (parallel/mesh.py).  int8 layers and QAT do not shard.
+``clip_grad_norm_`` (parallel/mesh.py).  QAT's fake-quantized layers shard
+as the float ones, their per-row scales those of the whole weight
+(ops/int8.py ``fake_quant_kernel``); int8 serving layers do not shard (the
+agents replicate over tp).
 """
 
 from __future__ import annotations
@@ -153,8 +156,8 @@ def tp_plan(model: nn.Module, tp: int) -> Dict[str, object]:
             continue
         if weight.shape[dim] % tp:
             continue
-        if getattr(module, "quantize", False) or getattr(module, "fake_quant", False):
-            raise NotImplementedError(f"{name}: int8 layers and QAT do not shard over tp")
+        if getattr(module, "quantize", False):  # int8 serving: the agents replicate over tp instead
+            raise NotImplementedError(f"{name}: int8 serving layers do not shard over tp")
         if style == ROWWISE:
             plan[name] = DenseRowwise()
         elif style == GATHERED:

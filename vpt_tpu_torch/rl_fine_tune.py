@@ -14,7 +14,8 @@ SIGINT); ``--resume`` goes on from the newest one there.  Runs on CUDA unless
 ``--device cpu`` is given.  Under ``torchrun`` every rank steps its own
 ``--streams`` env streams and the update runs over all the ranks' streams
 (``--fsdp`` and ``--tp`` shard the policy and its anchor; the evaluation is
-single-process, so ``--eval-every`` takes no process group).
+single-process, so under torchrun ``--eval-every`` is ignored, with a
+notice, as the root CLI ignores it on multi-host launches).
 """
 
 from argparse import ArgumentParser
@@ -54,8 +55,6 @@ def main(in_model, in_weights, out_weights, mock_env=False, streams=8, updates=5
         beta_clone=beta_clone,
     )
     mesh = cli_mesh(device, fsdp=fsdp, tp=tp)
-    if mesh is not None and eval_every > 0:
-        raise ValueError("--eval-every is single-process: evaluate the written weights without torchrun")
     trainer = PPOTrainer.from_files(in_model, in_weights, hp=hp, compute_dtype=compute_dtype, device=device,
                                     mesh=mesh)
     first_env = rank() * streams  # each rank's streams are envs of their own
@@ -75,6 +74,11 @@ def main(in_model, in_weights, out_weights, mock_env=False, streams=8, updates=5
         reward_fn = None  # the env's own reward
         if eval_every > 0:
             eval_envs = [gym.make("MineRLBasaltFindCave-v0") for _ in range(eval_streams)]
+    if eval_envs is not None and mesh is not None:
+        # evaluate() is single-process (episode lengths are data-dependent, so
+        # the ranks' step counts diverge): skip it under torchrun
+        print("---eval-every ignored on multi-host launches---")
+        eval_envs = None
 
     print(f"---Running PPO: {streams} streams × {rollout_len} steps/update "
           f"({hp.n_collect_groups} collection group(s)), {updates} updates, KL anchor ρ₀={kl_coef}---")

@@ -58,6 +58,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten
 
 from vpt_tpu_torch.actions.mapping import CameraHierarchicalMapping
 from vpt_tpu_torch.checkpoint import load_model_parameters, load_weights
@@ -568,20 +569,22 @@ class BCTrainer(CheckpointMixin):
         shard = self._loader_shard(hp.batch_size)
         state = self.initial_state(hp.batch_size)
         last_episode = np.full(shard["batch_size"], -1, np.int64)
-        resume_state = None
+        resume_state, start_trajectory = None, 0
         restored = self.restore_checkpoint(resume_dir) if resume_dir else None
         if restored is not None:
-            data_state, extra = restored
+            resume_state, extra = restored
             if self._shard_writer():  # this rank's own cursor and streams, of the step rank 0 restored
-                payload, data_state = native_ckpt.restore_checkpoint(self._shard_dir(resume_dir),
-                                                                     data_state["step_count"])
-                extra = payload["extra"]
-            resume_state = data_state
-            last_episode = np.asarray(data_state["last_episode"], np.int64)
-            state = map_state(lambda v: v.to(self.device), extra["recurrent_state"])
+                resume_state, extra = _shard_resume(self._shard_dir(resume_dir), resume_state)
+            start_trajectory = int(resume_state.get("n_trajectories_dispatched", 0))
+            saved = extra["recurrent_state"] if extra is not None else None
+            if _same_streams(resume_state, shard) and _same_shapes(saved, state):
+                last_episode = np.asarray(resume_state["last_episode"], np.int64)
+                state = map_state(lambda v: v.to(self.device), saved)
+            # else the streams were another run's (another batch size or world size): they start
+            # afresh, and the loader from the coarse trajectory cursor
         loader = SequenceDataLoader(data_dir, chunk_len=hp.chunk_len, n_epochs=hp.epochs, seed=self._seed,
                                     resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]), labels_dir=labels_dir,
-                                    resume_state=resume_state, **shard)
+                                    start_trajectory=start_trajectory, resume_state=resume_state, **shard)
 
         def with_episode_firsts(batches):
             # in the prefetch thread: the cursor is read per batch, so a
@@ -626,6 +629,35 @@ class BCTrainer(CheckpointMixin):
             loader.close()
         self.save_weights(out_weights)
         return self.step_count
+
+
+def _shard_resume(shard_dir: str, data_state: Dict) -> Tuple[Dict, Optional[Dict]]:
+    """A rank's (data_state, extra) of the step rank 0 restored, from its
+    own ``shard<rank>`` directory; where a run at another world size wrote
+    none there, rank 0's trajectory and step counts and no extra (as
+    vpt_tpu's trainers fall back)."""
+    step = data_state["step_count"]
+    if native_ckpt.restore_data_state(shard_dir, step) is None:
+        return {k: data_state[k] for k in ("n_trajectories_dispatched", "step_count") if k in data_state}, None
+    payload, own = native_ckpt.restore_checkpoint(shard_dir, step)
+    return own, payload.get("extra")
+
+
+def _same_streams(data_state: Dict, shard: Dict[str, int]) -> bool:
+    """Whether a saved loader cursor is of this run's streams: as many, of
+    the same shard."""
+    return (len(data_state.get("streams") or []) == shard["batch_size"]
+            and list(data_state.get("shard", [0, 1])) == [shard["shard_id"], shard["num_shards"]])
+
+
+def _same_shapes(saved, fresh) -> bool:
+    """Whether a saved recurrent state has the structure and shapes of this
+    run's fresh one (tp keeps a rank's heads of it)."""
+    if saved is None:
+        return fresh is None
+    (a, sa), (b, sb) = tree_flatten(saved), tree_flatten(fresh)
+    shape = lambda x: tuple(x.shape) if isinstance(x, torch.Tensor) else type(x)  # noqa: E731
+    return sa == sb and [shape(x) for x in a] == [shape(y) for y in b]
 
 
 def _in_step(batches, device, mesh):

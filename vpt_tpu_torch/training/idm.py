@@ -289,9 +289,13 @@ class IDMTrainer(CheckpointMixin):
         restored = self.restore_checkpoint(resume_dir) if resume_dir else None
         resume_state = None if restored is None else restored[0]
         if restored is not None and self._shard_writer():  # this rank's own cursor, of the step rank 0 restored
-            resume_state = native_ckpt.restore_data_state(self._shard_dir(resume_dir), self.step_count)
+            # where a run at another world size wrote none: rank 0's trajectory and step counts
+            resume_state = (native_ckpt.restore_data_state(self._shard_dir(resume_dir), self.step_count)
+                            or {k: resume_state[k] for k in ("n_trajectories_dispatched", "step_count")
+                                if k in resume_state})
         loader = SequenceDataLoader(data_dir, chunk_len=hp.window, n_epochs=hp.epochs, seed=self._seed,
                                     resolution=(self.cfg.img_shape[1], self.cfg.img_shape[0]),
+                                    start_trajectory=int((resume_state or {}).get("n_trajectories_dispatched", 0)),
                                     resume_state=resume_state, **self._loader_shard(hp.batch_size))
 
         def with_targets(batches):  # in the prefetch thread: the conversion overlaps the step

@@ -225,8 +225,9 @@ class PPOTrainer:
         device starts from the same weights), the action sampling and the
         epochs' stream permutations (one generator each, on ``device``)
     :param remat: recompute the blocks and the CNN in the backward (config.py)
-    :param mesh: a ``DeviceMesh`` of parallel/mesh.py (dp, fsdp, tp); None
-        trains on one device
+    :param mesh: a ``DeviceMesh`` of parallel/mesh.py (dp, fsdp, tp; ranks
+        that differ only on sp train as replicas, since a PPO window is
+        short and vpt_tpu does not split it); None trains on one device
     """
 
     def __init__(
@@ -243,8 +244,6 @@ class PPOTrainer:
         self.hp = hp or PPOHyperparams()
         self.device = resolve_device(device)
         self.mesh = mesh
-        if pmesh.axis_size(mesh, "sp") > 1:
-            raise NotImplementedError("PPO takes dp, fsdp and tp meshes (its windows are short)")
         self.model = None
         self.cfg = PolicyConfig.from_kwargs(dict(policy_kwargs)).replace(compute_dtype=compute_dtype, remat=remat)
         assert self.hp.rollout_len <= self.cfg.timesteps, (
@@ -278,7 +277,7 @@ class PPOTrainer:
         if self.mesh is not None:
             from vpt_tpu_torch.parallel.model import ParallelModel, shard_model
 
-            self.model = ParallelModel(self.policy, self.mesh)
+            self.model = ParallelModel(self.policy, self.mesh, sequence_parallel=False)
             shard_model(self.anchor, self.mesh)
         self.optimizer = ClippedAdam(self.policy.parameters(), self.hp)
 
