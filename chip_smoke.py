@@ -199,16 +199,19 @@ Phases, each of which fails the run if it fails:
      and the phase's seconds.
  16. head dims past the four the kernels take whole (64, 128, 192, 256):
      (a) B1 and B2 at d = 16, 32 and 96 (zero-padded by the wrappers to the
-     next multiple of 64) and 384 (K and V 64 columns at a time), f32 and
-     bf16, mask and bias, at the 2x chunk's geometry at 8 heads and at d =
-     384 past 512 keys, against their plain versions at phase 3's and 6's
-     limits; their times beside the plain versions', SDPA's and the bound of
-     the unpadded work;
-     (b) one-block policies at d = 32 (hidsize 256, 8 heads) and d = 96
-     (hidsize 384, 4 heads), the 2x policy's CNN at width 1: a (2, 16)
-     chunked forward on the card against the CPU (logits and value at
-     phase 5's limit) and one BC step at phase 7(a)'s limits, then a step
-     whose launches are counted, B1 and B2 once each;
+     next multiple of 64) and 384, 512, 640, 1024 and 2048 (the streamed
+     instance, 64 columns at a time), f32 and bf16, mask and bias, at the 2x
+     chunk's geometry at 8 heads, at d = 384 and 1024 past 512 keys, and at
+     d = 4096 (B=1, H=2), against their plain versions at phase 3's and 6's
+     limits; the streamed instance's dynamic shared memory at d = 320 and
+     4096, which must be the same; the times at the 2x chunk's geometry
+     beside the plain versions', SDPA's and the bound of the unpadded work;
+     (b) one-block policies at d = 32 (hidsize 256, 8 heads), d = 96
+     (hidsize 384, 4 heads) and d = 1024 (hidsize 1024, 1 head), the 2x
+     policy's CNN at width 1: a (2, 16) chunked forward on the card against
+     the CPU (logits and value at phase 5's limit) and one BC step at phase
+     7(a)'s limits, then a step whose launches are counted, B1 and B2 once
+     each;
      and the phase's seconds.
 Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
 time them at the IDM's long-call shape and at the PPO minibatch's.  The CPU
@@ -2253,25 +2256,49 @@ def check_wide_shapes(dev):
 
 # ------------------------------------------------------------------ phase 16
 
-# head dims past the four the kernels took whole before: zero-padded to the next multiple of 64 (16: the tiny
-# test configs; 32: hidsize 512 at 16 heads; 96) and taken 64 columns of K and V at a time (384: hidsize 6144)
-HEAD_DIMS = (16, 32, 96, 384)
+# head dims past the four the kernels take whole: zero-padded to the next multiple of 64 (16: the tiny test
+# configs; 32: hidsize 512 at 16 heads; 96) and the streamed instance, 64 columns at a time (384: hidsize 6144
+# at 16 heads; 512; 640; 1024: hidsize 1024 at 1 head; 2048: hidsize 2048 at 1 head), checked and timed
+HEAD_DIMS = (16, 32, 96, 384, 512, 640, 1024, 2048)
 HEAD_DIM_SHAPE = (4, 8, 128, 128)  # (B, H, t, maxlen) of 16(a): the 2x chunk's geometry at 8 heads
-# 16(b)'s one-block policies: (hidsize, heads), d = 32 and 96, the 2x policy's CNN at width 1
-HEAD_DIM_POLICIES = ((256, 8), (384, 4))
+# 16(a)'s checks besides HEAD_DIMS at HEAD_DIM_SHAPE, (d, B, H, t, maxlen): the streamed instance past 512 keys
+# (its accumulators carried in the scratch), and d = 4096 (hidsize 4096 at 1 head), checked, not timed
+HEAD_DIM_CHECKS = ((384, 1, 4, 128, 512), (1024, 1, 2, 128, 512), (4096, 1, 2, 128, 128))
+# the streamed instance's shared memory, the same at every d: read at these two, at HEAD_DIM_SHAPE's keys and band
+STREAMED_SMEM_DIMS = (320, 4096)
+# 16(b)'s one-block policies: (hidsize, heads), d = 32, 96 and 1024, the 2x policy's CNN at width 1
+HEAD_DIM_POLICIES = ((256, 8), (384, 4), (1024, 1))
+
+
+def streamed_smem(T, bandsize, nbasis=10):
+    """The dynamic shared memory of B1's and B2's launches at the streamed
+    instance's two STREAMED_SMEM_DIMS, in both types; fails unless they
+    are the same at both."""
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        at = {d: wa.launch_smem_bytes(T, d, nbasis, bandsize, dtype) for d in STREAMED_SMEM_DIMS}
+        log(f"streamed instance, {str(dtype)[6:]}, T={T}, band {bandsize}: dynamic shared memory (bytes) "
+            + "; ".join(f"d={d}: {b}" for d, b in at.items()))
+        if len({tuple(b.items()) for b in at.values()}) != 1:
+            raise AssertionError(f"the streamed instance's shared memory depends on d: {at}")
+        out[str(dtype)[6:]] = at[STREAMED_SMEM_DIMS[0]]
+    return out
 
 
 def head_dim_kernels(dev):
-    """Phase 16(a): B1 and B2 at every d of HEAD_DIMS, f32 and bf16, mask
-    and relative bias, against their plain versions at phase 3's and 6's
-    limits, and past 512 keys at d = 384 (the chunked kernels); then their
-    times at the 2x chunk's geometry (a bound of the unpadded work).
-    Returns {"d=<d> <dtype>": {"B1": timing keys, "B2": ...}}."""
+    """Phase 16(a): B1 and B2 at every d of HEAD_DIMS and HEAD_DIM_CHECKS,
+    f32 and bf16, mask and relative bias, against their plain versions at
+    phase 3's and 6's limits; the streamed instance's shared memory; then
+    the times of HEAD_DIMS at the 2x chunk's geometry (a bound of the
+    unpadded work).  Returns {"d=<d> <dtype>": {"B1": timing keys, "B2":
+    ...}} and the shared memory."""
     from vpt_tpu_torch.ops import windowed_attention as wa
 
     t0 = time.perf_counter()
     B, H, t, maxlen = HEAD_DIM_SHAPE
-    cases = [(d, B, H, t, maxlen) for d in HEAD_DIMS] + [(384, 1, 4, 128, 512)]
+    cases = [(d, B, H, t, maxlen) for d in HEAD_DIMS] + list(HEAD_DIM_CHECKS)
     for d, b, h, tq, ml in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask, R, b_nd = attention_inputs(dev, b, h, tq, ml, d, dtype, d + ml)
@@ -2286,7 +2313,7 @@ def head_dim_kernels(dev):
             if not all(e <= b for e, b in errs.values()):
                 raise AssertionError(f"B2 disagrees with its plain version ({label}): {errs}")
     log(f"  16(a) checks: {time.perf_counter() - t0:.1f} s")
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    smem = streamed_smem(t + maxlen, maxlen)
     times = {}
     for d in HEAD_DIMS:
         q, k, v, mask, R, b_nd = attention_inputs(dev, B, H, t, maxlen, d, torch.float32, d)
@@ -2294,10 +2321,10 @@ def head_dim_kernels(dev):
         for dtype in (torch.float32, torch.bfloat16):
             qd, kd, vd, gd = (x.to(dtype) for x in (q, k, v, dO))
             times[f"d={d} {str(dtype)[6:]}"] = {
-                "B1": dict(zip(keys, time_b1(qd, kd, vd, mask, R, b_nd, label=f"d={d} (B={B}, H={H})"))),
-                "B2": dict(zip(keys, time_b2(qd, kd, vd, mask, R, b_nd, gd, label=f"d={d} (B={B}, H={H})"))),
+                "B1": dict(zip(TIME_KEYS, time_b1(qd, kd, vd, mask, R, b_nd, label=f"d={d} (B={B}, H={H})"))),
+                "B2": dict(zip(TIME_KEYS, time_b2(qd, kd, vd, mask, R, b_nd, gd, label=f"d={d} (B={B}, H={H})"))),
             }
-    return times
+    return times, smem
 
 
 def head_dim_policy(dev, hidsize, heads):
@@ -2345,18 +2372,20 @@ def head_dim_policy(dev, hidsize, heads):
 
 
 def check_head_dims(dev):
-    """Phase 16: every head dim a PolicyConfig admits up to 512 goes through
-    B1 and B2 (16(a)), and policies at d = 32 and 96 run on them (16(b))."""
+    """Phase 16: head dims past the four the kernels take whole go through B1
+    and B2 (16(a)), and one-block policies at d = 32, 96 and 1024 run on
+    them (16(b))."""
     t0 = time.perf_counter()
-    times = head_dim_kernels(dev)
+    times, smem = head_dim_kernels(dev)
     seconds = {"(a)": time.perf_counter() - t0}
     launches = {}
     for h, n in HEAD_DIM_POLICIES:
         t = time.perf_counter()
         launches[f"d={h // n}"] = head_dim_policy(dev, h, n)
         seconds[f"(b) d={h // n}"] = time.perf_counter() - t
+        release_memory()
     log(f"phase 16: {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
-    return times, launches
+    return times, launches, smem
 
 
 # ------------------------------------------------------------------ phase 11
@@ -3892,7 +3921,9 @@ def main():
                           "device": smi.splitlines()[0]}), flush=True)
         return 0
     if args.head_dims:
-        print(json.dumps({"head_dims": check_head_dims(dev), "device": smi.splitlines()[0]}), flush=True)
+        times, launches, smem = check_head_dims(dev)
+        print(json.dumps({"head_dims": times, "launches": launches, "streamed_smem_bytes": smem,
+                          "device": smi.splitlines()[0]}), flush=True)
         return 0
     check_tensor_cores(KERNELS)
 
@@ -3953,11 +3984,13 @@ def main():
     b1.update(b1_entry)
     b2.update(b2_entry)
     phase_done("15")
-    head_dim_times, head_dim_launches = check_head_dims(dev)
+    head_dim_times, head_dim_launches, streamed_smem_bytes = check_head_dims(dev)
     for b, name in ((b1, "B1"), (b2, "B2")):
         b["head_dim_shapes"] = {k: v[name] for k, v in head_dim_times.items()}
         b["head_dim_launches"] = {k: v["forward"] if name == "B1" else v["bc_step"][1]
                                   for k, v in head_dim_launches.items()}
+        b["streamed_smem_bytes"] = {k: {p: n for p, n in v.items() if p.startswith(name)}
+                                    for k, v in streamed_smem_bytes.items()}
     phase_done("16")
 
     log(smi.splitlines()[0])  # again beside the results, for a reader of the log's tail

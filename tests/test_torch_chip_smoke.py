@@ -386,3 +386,18 @@ def test_phase_13_helpers():
     policy.normalizer = torch.nn.Module()
     policy.normalizer.register_buffer("running_mean", torch.zeros(1))  # the value head's EWMA, not batch norm
     assert sorted(cs.batch_norm_stats(policy)) == ["conv.norm.running_mean", "conv.norm.running_var"]
+
+
+def test_streamed_smem_holds_the_launches_to_one_size(monkeypatch):
+    """Phase 16's read of the streamed instance's shared memory passes where
+    the launches take the same bytes at d = 320 and 4096, in both types, and
+    fails where any depends on d (a stand-in for the card's query)."""
+    from vpt_tpu_torch.ops import windowed_attention as wa
+
+    same = {"B1": 90000, "B2 pass 1": 91000, "B2 pass 2": 120000}
+    monkeypatch.setattr(wa, "launch_smem_bytes", lambda T, d, nbasis, bandsize, dtype: dict(same))
+    assert cs.streamed_smem(256, 128) == {"float32": same, "bfloat16": same}
+    monkeypatch.setattr(wa, "launch_smem_bytes",
+                        lambda T, d, nbasis, bandsize, dtype: dict(same, **{"B2 pass 2": 120000 + d}))
+    with pytest.raises(AssertionError, match="depends on d"):
+        cs.streamed_smem(256, 128)

@@ -125,9 +125,8 @@ def test_b1_kernel_rejects_what_it_does_not_cover(cuda, bad):
     elsewhere; a band table of any length is taken
     (test_kernels_take_the_wide_shapes)."""
     q, k, v, mask, R, b_nd = _inputs(cuda, 1, 2, 8, 8, 64, torch.float32, 1)
-    if bad == "head_dim":  # past the widest the kernels take (512)
-        q = k = v = torch.zeros((1, 1, 4, 576), device=cuda)
-        mask = R = b_nd = None
+    if bad == "head_dim":  # every d is taken, but k's head dim must be q's
+        k = torch.zeros(k.shape[:-1] + (128,), device=cuda)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "alignment":  # contiguous, but one float past a 16-byte boundary
@@ -145,18 +144,14 @@ WIDE = [(256, 8), (64, 640), (256, 640)]
 
 
 @pytest.mark.parametrize("d,bandsize", [(16, 8), (96, 8), (384, 8), (512, 8), (576, 8), (64, 8), (128, 512),
-                                        (192, 1)] + WIDE)
+                                        (192, 1), (1024, 8), (4096, 8)] + WIDE)
 def test_kernels_take_the_supported_head_dims_and_any_band(d, bandsize):
-    """The check the wrappers make before a launch: any head dim up to
-    MAX_D (multiples of 64 whole, the rest zero-padded to the next) and a
-    band table of any length; a wider head dim raises."""
+    """The check the wrappers make before a launch: any head dim (multiples
+    of 64 whole, the rest zero-padded to the next; past 512 too, as
+    vpt_tpu's attention takes them) and a band table of any length."""
     q, k, v = torch.zeros((1, 2, 4, d)), torch.zeros((1, 2, 12, d)), torch.zeros((1, 2, 12, d))
     R, b_nd = torch.zeros((1, 2, 4, 10)), torch.zeros((10, bandsize))
-    if d <= wa.MAX_D:
-        wa._check(q, k, v, None, R, b_nd)
-    else:
-        with pytest.raises(ValueError, match="head dim"):
-            wa._check(q, k, v, None, R, b_nd)
+    wa._check(q, k, v, None, R, b_nd)
 
 
 @pytest.mark.parametrize("d,bandsize", [(16, 8)] + WIDE)
@@ -199,13 +194,16 @@ def test_kernels_take_the_wide_shapes(cuda, d, bandsize, t, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 96, 320, 384, 448, 512])
+@pytest.mark.parametrize("d", [16, 32, 96, 320, 384, 448, 512, 576, 640, 1024, 2048, 4096])
 @pytest.mark.parametrize("t,maxlen", [(128, 128), (37, 64), (512, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_take_padded_and_wide_head_dims(cuda, d, t, maxlen, dtype):
     """Head dims that are no multiple of 64 (zero-padded to the next) and
-    the multiples past 256 (K and V 64 columns at a time) go through B1 and
-    B2, forward and autograd, with mask and bias, past 512 keys too."""
+    the multiples past 256 (the streamed instance: Q, K, V and dO 64
+    columns at a time, shared memory the same at every d, accumulators past
+    512 keys and past one query tile of B2's key pass in an f32 scratch) go
+    through B1 and B2, forward and autograd, with mask and bias, past 512
+    keys too."""
     dtype = getattr(torch, dtype)
     q, k, v, mask, R, b_nd = _inputs(cuda, 2, 2, t, maxlen, d, dtype, d + t)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v, R, b_nd)]
@@ -407,3 +405,15 @@ def test_b2_kernel_rejects_bad_output_grad(cuda, bad):
         dO = dO.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError):
         wa.windowed_attention_bwd(q, k, v, mask, R, b_nd, dO, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [256, 640])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streamed_instance_shared_memory_does_not_depend_on_d(cuda, T, dtype):
+    """Every head dim past 256 runs the one streamed instance: its launches
+    (B1, B2's two passes) take the same shared memory at d = 320 and 4096."""
+    dtype = getattr(torch, dtype)
+    at_320 = wa.launch_smem_bytes(T, 320, 10, 128, dtype)
+    assert at_320 == wa.launch_smem_bytes(T, 4096, 10, 128, dtype)
+    assert all(0 < n <= 232448 for n in at_320.values()), at_320

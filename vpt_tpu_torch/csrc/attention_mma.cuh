@@ -25,6 +25,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace wattn {
 
 constexpr int MAX_NBASIS = 16;
@@ -40,26 +42,53 @@ __host__ __device__ constexpr int tile_stride() {
   return D + 16 / (int)sizeof(T);
 }
 
-// Head dims.  A kernel instance for D > 0 takes d = D whole: its K and V
-// tiles hold KEY_TILE rows of all D columns.  The instance for D = WIDE takes
-// any d that is a multiple of WIDE_CHUNK up to MAX_WIDE_D at run time (d =
-// 320 ... 512, hidsize 8192 at 16 heads): a 64-key tile of 512 f32 columns
-// is 129 KB, two of them more than a block's 227 KB of shared memory, so its
-// K and V tiles hold WIDE_CHUNK columns and stream the depth chunk by chunk.
-// Q and dO rows are held whole either way (ROWS x stride).
-constexpr int WIDE = 0;
-constexpr int WIDE_CHUNK = 64;
-constexpr int MAX_WIDE_D = 512;
+// Head dims.  A kernel instance for D > 0 takes d = D whole: its tiles of Q,
+// K, V and dO hold all D columns.  The instance for D = STREAMED takes every
+// multiple of D_CHUNK above 256 at run time (hidsize 6144 at 16 heads, 1024
+// at 1 head, any wider), with shared memory that does not depend on d: every
+// tile holds D_CHUNK columns of its rows.  The products that sum over d (Q
+// K^T, dO V^T, K Q^T, V dO^T) stream both operands chunk by chunk into the
+// same accumulators; those whose result is d wide (W V, dL K, W^T dO, dL^T Q)
+// take the result's columns a chunk at a time.
+constexpr int STREAMED = 0;
+constexpr int D_CHUNK = 64;
 
 template <typename T, int D>
 struct Depth {
-  static constexpr int CHUNK = D > 0 ? D : WIDE_CHUNK;  // columns of a K or V tile
-  static constexpr int MAX_CHUNKS = D > 0 ? 1 : MAX_WIDE_D / WIDE_CHUNK;
-  static constexpr int CS = tile_stride<T, CHUNK>();  // row stride of a K or V tile
-  int d, chunks, stride;  // the head dim, its chunks, the row stride of a whole-row tile
-  __host__ __device__ explicit Depth(int d_)
-      : d(D > 0 ? D : d_), chunks(D > 0 ? 1 : d_ / WIDE_CHUNK), stride(D > 0 ? tile_stride<T, D>() : d_ + 16 / (int)sizeof(T)) {}
+  static constexpr bool STREAM = D == STREAMED;
+  static constexpr int CHUNK = STREAM ? D_CHUNK : D;  // columns of a shared tile
+  static constexpr int CS = tile_stride<T, CHUNK>();  // its row stride
+  int d, chunks;  // the head dim and its chunks
+  __host__ __device__ explicit Depth(int d_) : d(STREAM ? d_ : D), chunks(STREAM ? d_ / D_CHUNK : 1) {}
+  // elements of a row block's row tile: its Q (or dO) rows whole, none when streamed
+  __host__ __device__ static constexpr int row_tile(int rows) { return STREAM ? 0 : rows * CS; }
+  // elements of each of a row block's two key-tile buffers: a tile of K or V
+  // and, when streamed, the same chunk of the block's Q (or dO) rows beside it
+  __host__ __device__ static constexpr int kv_buffer(int rows) { return (KEY_TILE + (STREAM ? rows : 0)) * CS; }
 };
+
+// the head dims the kernels take: every multiple of D_CHUNK
+inline bool kernel_d(int d) { return d > 0 && d % D_CHUNK == 0; }
+// those that run the streamed instance: every multiple of D_CHUNK above 256
+inline bool streamed_d(int d) { return kernel_d(d) && d > 256; }
+
+// f(std::integral_constant<int, D>()) for the instance that takes head dim d
+// (kernel_d(d) holds): D = d at 64, 128, 192 and 256, else D = STREAMED
+template <typename F>
+auto with_depth(int d, F&& f) {
+  switch (d) {
+    case 64:
+      return f(std::integral_constant<int, 64>());
+    case 128:
+      return f(std::integral_constant<int, 128>());
+    case 192:
+      return f(std::integral_constant<int, 192>());
+    case 256:
+      return f(std::integral_constant<int, 256>());
+    default:
+      return f(std::integral_constant<int, STREAMED>());
+  }
+}
 
 // floats of shared memory that hold the band table: the whole (nbasis,
 // bandsize) table up to MAX_BAND offsets, none past that.  A longer table
@@ -269,14 +298,6 @@ __device__ __forceinline__ void load_rows_async(T* dst, int stride, const T* src
   }
 }
 
-// whole rows [r0, r0 + nrows) of a row-major (limit, d) tensor into a shared
-// tile of row stride `stride`, W columns a call of load_rows_async (d a multiple of W)
-template <typename T, int W>
-__device__ __forceinline__ void load_row_chunks_async(T* dst, int stride, const T* src, int d, int r0, int nrows,
-                                                      int limit, int tid, int nthreads) {
-  for (int c = 0; c < d; c += W) load_rows_async<T, W>(dst + c, stride, src + c, r0, nrows, limit, tid, nthreads, d);
-}
-
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // wait until at most N of the committed groups of copies are in flight
@@ -321,33 +342,50 @@ __device__ __forceinline__ void stream_tiles(T* bufs, const T* src, int T_keys, 
   }
 }
 
+// Sub-tile s of a product over d into buffer s % 2 of two (Depth::kv_buffer
+// elements each), committed as one group: chunk s % chunks of key tile s /
+// chunks (KEY_TILE rows, zero past T_keys) of a row-major (T_keys, d) tensor
+// and, at the streamed D, the same chunk of rows [r0, r0 + ROWS) of the row
+// operand rows_src (a row-major (limit, d) tensor) beside it.
+template <typename T, int D, int ROWS, int NTHREADS>
+__device__ __forceinline__ void fetch_depth_tile(T* bufs, int s, const T* src, int T_keys, const Depth<T, D>& dp,
+                                                 const T* rows_src, int r0, int limit) {
+  using DT = Depth<T, D>;
+  T* buf = bufs + (s & 1) * DT::kv_buffer(ROWS);
+  const int ci = s % dp.chunks;
+  load_rows_async<T, DT::CHUNK>(buf, DT::CS, src + ci * DT::CHUNK, (s / dp.chunks) * KEY_TILE, KEY_TILE, T_keys,
+                                threadIdx.x, NTHREADS, dp.d);
+  if constexpr (DT::STREAM) {
+    load_rows_async<T, DT::CHUNK>(buf + KEY_TILE * DT::CS, DT::CS, rows_src + ci * DT::CHUNK, r0, ROWS, limit,
+                                  threadIdx.x, NTHREADS, dp.d);
+  }
+  cp_async_commit();
+}
+
 // stream_tiles over the depth as well, for the products that sum over d (Q
-// K^T, dO V^T): the (KEY_TILE, CHUNK) tiles of a row-major (T_keys, d)
-// tensor, key tile by key tile and, within one, chunk by chunk of its
-// columns; body(first row, chunk, tile).  Sub-tile s is tile s / chunks,
-// chunk s % chunks, in buffer s % 2; the caller's prefetch of sub-tile 0 is
-// prefetch_tile<T, CHUNK, NTHREADS>(bufs, src, T_keys, 0, d).  At a narrow d
-// (one chunk) this is stream_tiles.
-template <typename T, int D, int NTHREADS, typename Body>
+// K^T, dO V^T): the sub-tiles of fetch_depth_tile, key tile by key tile and,
+// within one, chunk by chunk; body(first key, chunk, key tile, rows) with
+// rows the row operand's block rows at the chunk's column 0 (row stride
+// Depth::CS): sRows, which holds them whole, at a whole D, the streamed
+// chunk at the streamed D.  The caller's prefetch of sub-tile 0 is
+// fetch_depth_tile(bufs, 0, ...).  At a whole D this is stream_tiles.
+template <typename T, int D, int ROWS, int NTHREADS, typename Body>
 __device__ __forceinline__ void stream_depth_tiles(T* bufs, const T* src, int T_keys, const Depth<T, D>& dp,
+                                                   const T* sRows, const T* rows_src, int r0, int limit,
                                                    bool first_prefetched, Body&& body) {
   using DT = Depth<T, D>;
   const int n = (T_keys + KEY_TILE - 1) / KEY_TILE * dp.chunks;
-  auto fetch = [&](int s) {
-    load_rows_async<T, DT::CHUNK>(bufs + (s & 1) * KEY_TILE * DT::CS, DT::CS, src + (s % dp.chunks) * DT::CHUNK,
-                                  (s / dp.chunks) * KEY_TILE, KEY_TILE, T_keys, threadIdx.x, NTHREADS, dp.d);
-    cp_async_commit();
-  };
-  if (!first_prefetched) fetch(0);
+  if (!first_prefetched) fetch_depth_tile<T, D, ROWS, NTHREADS>(bufs, 0, src, T_keys, dp, rows_src, r0, limit);
   for (int s = 0; s < n; ++s) {
     if (s + 1 < n) {
-      fetch(s + 1);
+      fetch_depth_tile<T, D, ROWS, NTHREADS>(bufs, s + 1, src, T_keys, dp, rows_src, r0, limit);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    body((s / dp.chunks) * KEY_TILE, s % dp.chunks, bufs + (s & 1) * KEY_TILE * DT::CS);
+    const T* tile = bufs + (s & 1) * DT::kv_buffer(ROWS);
+    body((s / dp.chunks) * KEY_TILE, s % dp.chunks, tile, DT::STREAM ? tile + KEY_TILE * DT::CS : sRows);
     __syncthreads();  // the buffer is refilled next iteration
   }
 }
@@ -420,8 +458,45 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
+// The f32 accumulator fragments of a (16, NC) tile to or from rows r0 + g,
+// r0 + g + 8 (row h of the fragment) and columns c0 + 8n + 2c, + 1 of a
+// row-major matrix of row stride ld, each row times scale[h]; rows at or
+// past `limit` are skipped.  A thread reads back what it wrote: the streamed
+// D's accumulators that wait in device memory between passes over keys or
+// query rows, owned by one thread each.
+template <int NC>
+__device__ __forceinline__ void load_frags(float (&acc)[NC / 8][4], const float* m, size_t ld, int r0, int limit,
+                                           int c0, const float (&scale)[2], int g, int c) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    const float* row = m + (size_t)min(r, limit - 1) * ld + c0 + 2 * c;
+#pragma unroll
+    for (int n = 0; n < NC / 8; ++n) {
+      const float2 x = r < limit ? *reinterpret_cast<const float2*>(row + n * 8) : make_float2(0.f, 0.f);
+      acc[n][2 * h] = x.x * scale[h];
+      acc[n][2 * h + 1] = x.y * scale[h];
+    }
+  }
+}
+
+template <typename T, int NC>
+__device__ __forceinline__ void store_frags(T* m, size_t ld, int r0, int limit, int c0,
+                                            const float (&acc)[NC / 8][4], const float (&scale)[2], int g, int c) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r < limit) {
+      T* row = m + (size_t)r * ld + c0 + 2 * c;
+#pragma unroll
+      for (int n = 0; n < NC / 8; ++n) store2(row + n * 8, acc[n][2 * h] * scale[h], acc[n][2 * h + 1] * scale[h]);
+    }
+  }
+}
+
 // Row blocks (B1 and B2's first pass): ROWS query rows (64, or 32 or, at
-// d = 256, 16 where shared memory demands), 16 to each group of SPLIT warps.  In the products
+// d = 256, 16 where shared memory demands; 32 at the streamed d), 16 to each
+// group of SPLIT warps.  In the products
 // over keys a group's warps take a SPLIT-th of every 64-key tile each; in
 // the products over the depth d, a SPLIT-th of d each.  Four warps a group
 // keep four warps on each of an SM's schedulers to hide each other's
@@ -548,26 +623,27 @@ __device__ __forceinline__ void band_bias_mma(float* out, int ldi, int ldj, cons
 }
 
 // The logits of the block's rows: alpha Q K^T over 64-key tiles of K streamed
-// through sKV (two buffers; at a wide d, each tile chunk by chunk of its
-// columns), added to the logit tile that mask_window and band_bias_mma
-// filled.  sQ holds the block's query rows (row stride dp.stride); kb is this
-// (b, h)'s K (its sub-tile 0 already fetched where first_prefetched).
+// through sKV (two buffers; at the streamed D, each tile chunk by chunk of
+// its columns, with the same chunk of the block's Q rows), added to the logit
+// tile that mask_window and band_bias_mma filled.  sQ holds the block's query
+// rows whole at a whole D; qb is this (b, h)'s Q (t rows, the block's from
+// q0) and kb its K (sub-tile 0 already fetched where first_prefetched).
 template <typename T, int D, int ROWS>
-__device__ __forceinline__ void block_logits(float* sS, int TS, const T* sQ, T* sKV, const T* kb, int T_keys,
-                                             const Depth<T, D>& dp, float alpha, bool first_prefetched) {
+__device__ __forceinline__ void block_logits(float* sS, int TS, const T* sQ, T* sKV, const T* kb, const T* qb,
+                                             int q0, int t, int T_keys, const Depth<T, D>& dp, float alpha,
+                                             bool first_prefetched) {
   using Block = RowBlock<ROWS>;
   using DT = Depth<T, D>;
   constexpr int KP = KEY_TILE / Block::SPLIT;  // keys of a tile a warp takes
   const Block rb;
   float acc[KP / 8][4];
-  stream_depth_tiles<T, D, Block::NTHREADS>(sKV, kb, T_keys, dp, first_prefetched, [&](int kt0, int ci,
-                                                                                      const T* tile) {
+  stream_depth_tiles<T, D, ROWS, Block::NTHREADS>(sKV, kb, T_keys, dp, sQ, qb, q0, t, first_prefetched,
+                                                  [&](int kt0, int ci, const T* tile, const T* rows) {
     if (ci == 0) {
 #pragma unroll
       for (int n = 0; n < KP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
     }
-    mma_nt<T, DT::CHUNK, KP / 8>(acc, sQ + rb.row0 * dp.stride + ci * DT::CHUNK, dp.stride,
-                                 tile + rb.part * KP * DT::CS, DT::CS, rb.lane);
+    mma_nt<T, DT::CHUNK, KP / 8>(acc, rows + rb.row0 * DT::CS, DT::CS, tile + rb.part * KP * DT::CS, DT::CS, rb.lane);
     if (ci == dp.chunks - 1) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {

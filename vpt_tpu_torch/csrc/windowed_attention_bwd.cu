@@ -59,9 +59,10 @@
 //   * past 512 keys, pass 1 walks the keys in chunks of 512 through the same
 //     logit tile, recomputing each chunk's logits in three sweeps: the rows'
 //     max and sum (an online softmax, as B1's), then rowdot, then dL with dQ
-//     (accumulated across chunks in registers), dR and the d b_nd partials
-//     (accumulated in place, each entry by the one thread that owns it).
-//     Q and dO take turns in the one row tile.  Pass 2 already streams the
+//     (accumulated across chunks in registers at a whole d), dR and the d
+//     b_nd partials (accumulated in place, each entry by the one thread that
+//     owns it).  At a whole d, Q and dO take turns in the one row tile.
+//     Pass 2 already streams the
 //     query rows over tiles of keys and reads pass 1's row statistics;
 //   * the band table sits in shared memory whole up to 512 offsets; a longer
 //     one (attention_memory_size - timesteps > 512, no published model)
@@ -70,16 +71,20 @@
 //   * d = 256 (hidsize 4096 at 16 heads) takes 16-row blocks of 4 warps in
 //     pass 1 and 2-warp blocks in pass 2 where larger ones would not fit
 //     the shared memory;
-//   * every other multiple of 64 up to 512 runs one instance with d set at
-//     run time (Depth<T, WIDE>, as in B1).  Pass 1 holds Q and dO rows whole
-//     and streams K and V tiles 64 columns at a time (Q K^T and dO V^T
-//     accumulate over the chunks of a key tile, dQ takes its columns a
-//     chunk at a time).  Pass 2 (bwd_keys_wide_kernel) holds its keys' K
-//     and V rows whole and takes Q and dO 64 columns at a time: for each 64
-//     of the dK and dV columns it sums K Q^T and V dO^T over the chunks of
-//     a query tile, ending on that column chunk, and adds the tile's W^T dO
-//     and dL^T Q.  Simple, not yet fast: it recomputes W and dL once for
-//     each 64 columns.
+//   * every multiple of 64 above 256 runs one instance with d set at run
+//     time (Depth<T, STREAMED>, as in B1), whose shared memory does not
+//     depend on d.  Pass 1 (32-row blocks, as B1's) streams K and V tiles 64
+//     columns at a time, each with the same chunk of the block's Q or dO
+//     rows (Q K^T and dO V^T accumulate over the chunks of a key tile), and
+//     dQ takes its columns a chunk at a time.  Pass 2
+//     (bwd_keys_streamed_kernel) sums K Q^T and V dO^T of a query tile over
+//     the chunks of d, turns them into W^T and dL^T once, keeps those in
+//     registers and walks the chunks again, adding W^T dO to dV and dL^T Q
+//     to dK a chunk at a time: its work grows linearly in d.  Accumulators
+//     that outlive a pass over keys (pass 1's dQ past 512 keys) or over
+//     query tiles (pass 2's dK and dV) wait in an f32 scratch in device
+//     memory, each entry owned by the one thread that adds to it: no
+//     atomics, the same sums in the same order every run.
 // A fully masked row has uniform W, exactly as in the forward: the row max
 // and sum are stored as they are (not as a log-sum-exp, which would lose the
 // row's offsets next to -1e9 in f32).  No (B, H, t, T) tensor and no (n, t, T)
@@ -102,12 +107,12 @@ __host__ __device__ constexpr int key_pass_cols() {  // dK and dV columns a warp
 
 // past KEY_CHUNK keys: a chunk's logit tile, and each row's running max and sum
 template <typename T, int D>
-size_t rows_smem_bytes(int rows, int T_keys, int d, int nbasis, int bandsize) {
-  const Depth<T, D> dp(d);
+size_t rows_smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
+  using DT = Depth<T, D>;
   const size_t band = band_smem_floats(nbasis, bandsize);
   const size_t running = T_keys > KEY_CHUNK ? 2 * rows : 0;
   const int keys = T_keys < KEY_CHUNK ? T_keys : KEY_CHUNK;
-  return ((size_t)rows * dp.stride + 2 * KEY_TILE * Depth<T, D>::CS) * sizeof(T) +
+  return ((size_t)DT::row_tile(rows) + 2 * DT::kv_buffer(rows)) * sizeof(T) +
          ((size_t)rows * logit_stride(keys) + rows * R_STRIDE + RowBlock<64>::SPLIT * rows + band + running) *
              sizeof(float);
 }
@@ -121,23 +126,25 @@ size_t keys_smem_bytes(int nwarps, int nbasis, int bandsize) {
          (keys * BIAS_STRIDE + QUERY_TILE * R_STRIDE + 3 * QUERY_TILE + band) * sizeof(float);
 }
 
-// pass 2 at a wide d: the keys' K and V rows whole, Q and dO tiles of WIDE_CHUNK columns
+// pass 2 at the streamed D: two buffers, each a D_CHUNK-column chunk of the
+// block's K and V rows and of a query tile's Q and dO rows
 template <typename T>
-size_t keys_wide_smem_bytes(int nwarps, int d, int nbasis, int bandsize) {
+size_t keys_streamed_smem_bytes(int nwarps, int nbasis, int bandsize) {
   const size_t keys = 16 * nwarps;
   const size_t band = band_smem_floats(nbasis, bandsize);
-  return (2 * keys * Depth<T, WIDE>(d).stride + 2 * QUERY_TILE * Depth<T, WIDE>::CS) * sizeof(T) +
+  return 2 * (2 * keys + 2 * QUERY_TILE) * (size_t)Depth<T, STREAMED>::CS * sizeof(T) +
          (keys * BIAS_STRIDE + QUERY_TILE * R_STRIDE + 3 * QUERY_TILE + band) * sizeof(float);
 }
 
-// pass 1: one block per (b, h, ROWS query rows)
+// pass 1: one block per (b, h, ROWS query rows); dq_acc is unused here (the
+// parameters are those of bwd_rows_chunked_kernel, which the launch may pick instead)
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
 bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
                 const uint8_t* __restrict__ mask, T* __restrict__ dq, float* __restrict__ dR,
-                float* __restrict__ stats, float* __restrict__ partial, int BHt, int H, int t, int T_keys,
-                int d, int nbasis, int bandsize, float alpha) {
+                float* __restrict__ stats, float* __restrict__ partial, float* __restrict__ dq_acc, int BHt,
+                int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha) {
   using Block = RowBlock<ROWS>;
   using DT = Depth<T, D>;
   const DT dp(d);
@@ -148,9 +155,9 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   constexpr int KH = KEY_TILE / SPLIT;  // keys of a tile a warp takes
   const int TS = logit_stride(T_keys);
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x dp.stride: Q, then dO
-  T* sKV = sQ + ROWS * dp.stride;       // 2 x KEY_TILE x CS: K, V, V, then K tiles
-  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * CS);  // ROWS x TS: logits, then W, then dL
+  T* sQ = reinterpret_cast<T*>(smem4);  // DT::row_tile(ROWS): Q, then dO rows whole (none when streamed)
+  T* sKV = sQ + DT::row_tile(ROWS);     // 2 x DT::kv_buffer(ROWS): K, V, V, then K tiles (with Q's or dO's chunks)
+  float* sS = reinterpret_cast<float*>(sKV + 2 * DT::kv_buffer(ROWS));  // ROWS x TS: logits, then W, then dL
   float* sR = sS + ROWS * TS;          // ROWS x R_STRIDE
   float* sRd = sR + ROWS * R_STRIDE;   // SPLIT x ROWS: each part's rowdot partial sums
   float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize (up to MAX_BAND)
@@ -161,6 +168,8 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int q0 = blockIdx.y * ROWS;
   const int tid = threadIdx.x;
   const int g = rb.g, c = rb.c, row0 = rb.row0, lane = rb.lane;
+  const T* qb = q + (size_t)bh * t * dp.d;
+  const T* ob = dout + (size_t)bh * t * dp.d;
   const T* kb = k + (size_t)bh * T_keys * dp.d;
   const T* vb = v + (size_t)bh * T_keys * dp.d;
 
@@ -170,9 +179,9 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, band_copy(sB, bandsize),
                                      b_nd, bandsize);
   cp_async_commit();
-  load_row_chunks_async<T, CH>(sQ, dp.stride, q + (size_t)bh * t * dp.d, dp.d, q0, ROWS, t, tid, NTHREADS);
+  if constexpr (!DT::STREAM) load_rows_async<T, D>(sQ, CS, qb, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
-  prefetch_tile<T, CH, NTHREADS>(sKV, kb, T_keys, 0, dp.d);
+  fetch_depth_tile<T, D, ROWS, NTHREADS>(sKV, 0, kb, T_keys, dp, qb, q0, t);
   mask_window<NTHREADS, true>(sS, TS, mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr, q0, ROWS, t, 0,
                               TS - 8, T_keys);
   cp_async_wait<2>();
@@ -184,22 +193,25 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
     });
   }
-  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, T_keys, dp, alpha, true);
+  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, qb, q0, t, T_keys, dp, alpha, true);
   softmax_rows<ROWS, false>(sS, TS, q0, t, stats + (size_t)bh * t, stats + BHt + (size_t)bh * t);
 
   // 2. dO replaces Q (every warp is past its last read of Q)
-  load_row_chunks_async<T, CH>(sQ, dp.stride, dout + (size_t)bh * t * dp.d, dp.d, q0, ROWS, t, tid, NTHREADS);
-  cp_async_commit();
+  if constexpr (!DT::STREAM) {
+    load_rows_async<T, D>(sQ, CS, ob, q0, ROWS, t, tid, NTHREADS);
+    cp_async_commit();
+  }
 
   // dO V^T of the warp's part of a key tile, summed over the tile's chunks of d into p, then body(kt0)
   float p[KH / 8][4];
   auto dp_tiles = [&](const T* src, int nkeys, auto&& body) {
-    stream_depth_tiles<T, D, NTHREADS>(sKV, src, nkeys, dp, false, [&](int kt0, int ci, const T* tile) {
+    stream_depth_tiles<T, D, ROWS, NTHREADS>(sKV, src, nkeys, dp, sQ, ob, q0, t, false,
+                                             [&](int kt0, int ci, const T* tile, const T* rows) {
       if (ci == 0) {
 #pragma unroll
         for (int n = 0; n < KH / 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
       }
-      mma_nt<T, CH, KH / 8>(p, sQ + row0 * dp.stride + ci * CH, dp.stride, tile + rb.part * KH * CS, CS, lane);
+      mma_nt<T, CH, KH / 8>(p, rows + row0 * CS, CS, tile + rb.part * KH * CS, CS, lane);
       if (ci == dp.chunks - 1) body(kt0);
     });
   };
@@ -248,7 +260,7 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   });
 
   // 5. dQ = alpha dL K over tiles of K, a chunk of d at a time (all of it at
-  //    a narrow d), the warp's SPLIT-th of the chunk's columns
+  //    a whole d), the warp's SPLIT-th of the chunk's columns
   for (int ci = 0; ci < dp.chunks; ++ci) {
     float acc[DH / 8][4] = {};
     stream_tiles<T, CH, NTHREADS>(sKV, kb + ci * CH, T_keys, false, [&](int kt0, const T* tile) {
@@ -302,14 +314,16 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 // pass 1 for T > KEY_CHUNK keys: three sweeps over chunks of KEY_CHUNK keys,
-// each chunk's logits recomputed in every sweep
+// each chunk's logits recomputed in every sweep.  dQ carries from key chunk
+// to key chunk in registers at a whole D, in the f32 scratch dq_acc (B, H,
+// t, d) at the streamed D.
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
 bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
                         const uint8_t* __restrict__ mask, T* __restrict__ dq, float* __restrict__ dR,
-                        float* __restrict__ stats, float* __restrict__ partial, int BHt, int H, int t, int T_keys,
-                        int d, int nbasis, int bandsize, float alpha) {
+                                float* __restrict__ stats, float* __restrict__ partial, float* __restrict__ dq_acc,
+                        int BHt, int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha) {
   using Block = RowBlock<ROWS>;
   using DT = Depth<T, D>;
   const DT dp(d);
@@ -320,9 +334,9 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   constexpr int KH = KEY_TILE / SPLIT;  // keys of a tile a warp takes
   const int TS = logit_stride(KEY_CHUNK);
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x dp.stride: Q or dO
-  T* sKV = sQ + ROWS * dp.stride;       // 2 x KEY_TILE x CS: K and V tiles
-  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * CS);  // ROWS x TS: a chunk's logits, then W, then dL
+  T* sQ = reinterpret_cast<T*>(smem4);  // DT::row_tile(ROWS): Q or dO rows whole (none when streamed)
+  T* sKV = sQ + DT::row_tile(ROWS);     // 2 x DT::kv_buffer(ROWS): K and V tiles (with Q's or dO's chunks)
+  float* sS = reinterpret_cast<float*>(sKV + 2 * DT::kv_buffer(ROWS));  // ROWS x TS: a chunk's logits, W, dL
   float* sR = sS + ROWS * TS;          // ROWS x R_STRIDE
   float* sRd = sR + ROWS * R_STRIDE;   // SPLIT x ROWS: each part's rowdot partial sums
   float* sB = sRd + SPLIT * ROWS;      // nbasis x bandsize (up to MAX_BAND)
@@ -346,9 +360,9 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, q0, ROWS, t, nbasis, band_copy(sB, bandsize),
                                      b_nd, bandsize);
   cp_async_commit();
-  load_row_chunks_async<T, CH>(sQ, dp.stride, qb, dp.d, q0, ROWS, t, tid, NTHREADS);
+  if constexpr (!DT::STREAM) load_rows_async<T, D>(sQ, CS, qb, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
-  prefetch_tile<T, CH, NTHREADS>(sKV, kb, KEY_CHUNK, 0, dp.d);
+  fetch_depth_tile<T, D, ROWS, NTHREADS>(sKV, 0, kb, KEY_CHUNK, dp, qb, q0, t);
   mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, 0, KEY_CHUNK, T_keys);
   for (int i = tid; i < ROWS; i += NTHREADS) {
     sM[i] = -CUDART_INF_F;
@@ -359,11 +373,11 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 
   // The logits of chunk [c0, c0 + nc) into sS.  Unless `ready` (the first
   // chunk, whose inputs are in), every warp must be past its last read of sS
-  // and the chunk's mask terms and first K tile are fetched here; Q must be
-  // in sQ or in flight, committed before this call.
+  // and the chunk's mask terms and first K tile are fetched here; at a whole
+  // D, Q must be in sQ or in flight, committed before this call.
   auto chunk_logits = [&](int c0, int nc, bool ready) {
     if (!ready) {
-      prefetch_tile<T, CH, NTHREADS>(sKV, kb + (size_t)c0 * dp.d, nc, 0, dp.d);
+      fetch_depth_tile<T, D, ROWS, NTHREADS>(sKV, 0, kb + (size_t)c0 * dp.d, nc, dp, qb, q0, t);
       mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, c0, KEY_CHUNK, T_keys);
       __syncthreads();
     }
@@ -372,22 +386,26 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
         band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
       });
     }
-    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * dp.d, nc, dp, alpha, true);
+    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * dp.d, qb, q0, t, nc, dp, alpha, true);
   };
-  // Q or dO into the row tile, once every warp is past its last read of it
+  // Q or dO into the row tile at a whole D, once every warp is past its last
+  // read of it (at the streamed D they stream with the key tiles)
   auto load_rows = [&](const T* src) {
-    load_row_chunks_async<T, CH>(sQ, dp.stride, src, dp.d, q0, ROWS, t, tid, NTHREADS);
-    cp_async_commit();
+    if constexpr (!DT::STREAM) {
+      load_rows_async<T, D>(sQ, CS, src, q0, ROWS, t, tid, NTHREADS);
+      cp_async_commit();
+    }
   };
   // dO V^T of the warp's part of a key tile, summed over the tile's chunks of d into p, then body(kt0)
   float p[KH / 8][4];
   auto dp_tiles = [&](const T* src, int nkeys, auto&& body) {
-    stream_depth_tiles<T, D, NTHREADS>(sKV, src, nkeys, dp, false, [&](int kt0, int ci, const T* tile) {
+    stream_depth_tiles<T, D, ROWS, NTHREADS>(sKV, src, nkeys, dp, sQ, ob, q0, t, false,
+                                             [&](int kt0, int ci, const T* tile, const T* rows) {
       if (ci == 0) {
 #pragma unroll
         for (int n = 0; n < KH / 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
       }
-      mma_nt<T, CH, KH / 8>(p, sQ + row0 * dp.stride + ci * CH, dp.stride, tile + rb.part * KH * CS, CS, lane);
+      mma_nt<T, CH, KH / 8>(p, rows + row0 * CS, CS, tile + rb.part * KH * CS, CS, lane);
       if (ci == dp.chunks - 1) body(kt0);
     });
   };
@@ -444,7 +462,7 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   }
 
   // 3. chunk by chunk: dL in place, dQ += alpha dL K, dR and the d b_nd partials
-  float acc[DT::MAX_CHUNKS][DH / 8][4] = {};  // dQ of every chunk of d (one at a narrow d), across the key chunks
+  float acc[DH / 8][4] = {};  // dQ across the key chunks at a whole D; of one chunk of d at the streamed D
   const int nb = nbasis * bandsize;
   float* P = partial + ((size_t)bh * gridDim.y + blockIdx.y) * nb;
   const int nrows = min(ROWS, t - q0);
@@ -466,12 +484,28 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
         }
       }
     });
+    const bool last = c0 + KEY_CHUNK >= T_keys;
+    for (int ci = 0; ci < dp.chunks; ++ci) {
+      const int col = ci * CH + rb.part * DH;  // the warp's first dQ column
+      const float one[2] = {1.f, 1.f};
+      if constexpr (DT::STREAM) {
+        if (c0 == 0) {
 #pragma unroll
-    for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
-      if (ci < dp.chunks) {  // uniform
-        stream_tiles<T, CH, NTHREADS>(sKV, kb + (size_t)c0 * dp.d + ci * CH, nc, false, [&](int kt0, const T* tile) {
-          mma_nn_tile<T, DH>(acc[ci], sS + row0 * TS + kt0, TS, tile + rb.part * DH, CS, lane);
-        }, dp.d);
+          for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+        } else {
+          load_frags<DH>(acc, dq_acc + (size_t)bh * t * dp.d, dp.d, q0 + row0, t, col, one, g, c);
+        }
+      }
+      stream_tiles<T, CH, NTHREADS>(sKV, kb + (size_t)c0 * dp.d + ci * CH, nc, false, [&](int kt0, const T* tile) {
+        mma_nn_tile<T, DH>(acc, sS + row0 * TS + kt0, TS, tile + rb.part * DH, CS, lane);
+      }, dp.d);
+      if constexpr (DT::STREAM) {
+        if (last) {
+          const float a2[2] = {alpha, alpha};
+          store_frags<T, DH>(dq + (size_t)bh * t * dp.d, dp.d, q0 + row0, t, col, acc, a2, g, c);
+        } else {
+          store_frags<float, DH>(dq_acc + (size_t)bh * t * dp.d, dp.d, q0 + row0, t, col, acc, one, g, c);
+        }
       }
     }
     if (nbasis == 0) continue;
@@ -508,25 +542,21 @@ bwd_rows_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
       P[idx] = (c0 == 0 ? 0.f : P[idx]) + ((s[0] + s[1]) + (s[2] + s[3]));
     }
   }
+  if constexpr (!DT::STREAM) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int gi = q0 + row0 + g + 8 * h;
-    if (gi < t) {
+    for (int h = 0; h < 2; ++h) {
+      const int gi = q0 + row0 + g + 8 * h;
+      if (gi < t) {
+        T* row = dq + ((size_t)bh * t + gi) * dp.d + rb.part * DH + 2 * c;
 #pragma unroll
-      for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
-        if (ci < dp.chunks) {
-          T* row = dq + ((size_t)bh * t + gi) * dp.d + ci * CH + rb.part * DH + 2 * c;
-#pragma unroll
-          for (int n = 0; n < DH / 8; ++n)
-            store2(row + n * 8, alpha * acc[ci][n][2 * h], alpha * acc[ci][n][2 * h + 1]);
-        }
+        for (int n = 0; n < DH / 8; ++n) store2(row + n * 8, alpha * acc[n][2 * h], alpha * acc[n][2 * h + 1]);
       }
     }
   }
 }
 
 // Pass 2's per-query-tile pieces, shared by bwd_keys_kernel and
-// bwd_keys_wide_kernel.
+// bwd_keys_streamed_kernel.
 
 // pass 1's row statistics of query rows [i0, i0 + QUERY_TILE) into sStat:
 // the row max, the reciprocal of the row sum (as the forward uses it), rowdot
@@ -676,35 +706,37 @@ bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// pass 2 at a wide d (a multiple of WIDE_CHUNK up to MAX_WIDE_D, set at run
-// time): as bwd_keys_kernel, with the keys' K and V rows whole in shared
-// memory and the query tiles' Q and dO WIDE_CHUNK columns at a time.  For
-// each WIDE_CHUNK of the dK and dV columns, every query tile sums K Q^T and
-// V dO^T over the chunks of d, taking the column chunk last so that its Q
-// and dO stay for dV += W^T dO and dK += dL^T Q.
+// pass 2 at the streamed D (d set at run time): as bwd_keys_kernel, one
+// block per (b, h, 16 * NWARPS keys), with shared memory that does not depend
+// on d.  For each query tile the warps sum K Q^T and V dO^T over the chunks
+// of d (the chunk of K, V, Q and dO rows streamed through two buffers) and
+// turn them into W^T and dL^T once, in registers; then they walk the chunks
+// again, with Q and dO alone, adding W^T dO to dV and dL^T Q to dK a chunk
+// of columns at a time.  Between query tiles a chunk's dK and dV wait in the
+// f32 scratch acc ((2, B, H, T, d): dK, then dV), whose rows belong to this
+// block and each entry to the one thread that adds to it; the last query
+// tile writes dk and dv.
 template <typename T, int NWARPS>
 __global__ void __launch_bounds__(NWARPS * 32)
-bwd_keys_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
-                     const uint8_t* __restrict__ mask, const float* __restrict__ stats, T* __restrict__ dk,
-                     T* __restrict__ dv, int BHt, int H, int t, int T_keys, int d, int nbasis, int bandsize,
-                     float alpha) {
-  using DT = Depth<T, WIDE>;
+bwd_keys_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         const T* __restrict__ dout, const float* __restrict__ R, const float* __restrict__ b_nd,
+                         const uint8_t* __restrict__ mask, const float* __restrict__ stats, T* __restrict__ dk,
+                         T* __restrict__ dv, float* __restrict__ acc, int BHt, int H, int t, int T_keys, int d,
+                         int nbasis, int bandsize, float alpha) {
+  using DT = Depth<T, STREAMED>;
   constexpr int KEYS = 16 * NWARPS;
   constexpr int NTHREADS = NWARPS * 32;
   constexpr int CH = DT::CHUNK, CS = DT::CS;
   constexpr int NQ = QUERY_TILE / 8;
+  constexpr int QOFF = 2 * KEYS * CS, OOFF = QOFF + QUERY_TILE * CS;  // Q's and dO's chunks in a buffer
+  constexpr int BUF = OOFF + QUERY_TILE * CS;                         // one buffer: K, V, Q and dO chunks
   const DT dp(d);
-  const int KS = dp.stride;  // row stride of the key rows
   extern __shared__ float4 smem4[];
-  T* sK = reinterpret_cast<T*>(smem4);  // KEYS x KS
-  T* sV = sK + KEYS * KS;               // KEYS x KS
-  T* sQ = sV + KEYS * KS;               // QUERY_TILE x CS
-  T* sdO = sQ + QUERY_TILE * CS;        // QUERY_TILE x CS
-  float* sBias = reinterpret_cast<float*>(sdO + QUERY_TILE * CS);  // KEYS x BIAS_STRIDE
-  float* sR = sBias + KEYS * BIAS_STRIDE;                          // QUERY_TILE x R_STRIDE
-  float* sStat = sR + QUERY_TILE * R_STRIDE;                       // 3 x QUERY_TILE: row max, 1 / row sum, rowdot
-  float* sB = sStat + 3 * QUERY_TILE;                              // nbasis x bandsize (up to MAX_BAND)
+  T* bufs = reinterpret_cast<T*>(smem4);                         // 2 x BUF
+  float* sBias = reinterpret_cast<float*>(bufs + 2 * BUF);       // KEYS x BIAS_STRIDE
+  float* sR = sBias + KEYS * BIAS_STRIDE;                        // QUERY_TILE x R_STRIDE
+  float* sStat = sR + QUERY_TILE * R_STRIDE;                     // 3 x QUERY_TILE: row max, 1 / row sum, rowdot
+  float* sB = sStat + 3 * QUERY_TILE;                            // nbasis x bandsize (up to MAX_BAND)
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -712,49 +744,95 @@ bwd_keys_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, c = lane & 3;
   const int k0 = blockIdx.y * KEYS;
+  const int j0 = k0 + warp * 16;  // the warp's first key
   const T* qb = q + (size_t)bh * t * d;
   const T* ob = dout + (size_t)bh * t * d;
+  const T* kb = k + (size_t)bh * T_keys * d;
+  const T* vb = v + (size_t)bh * T_keys * d;
+  float* acc_k = acc + (size_t)bh * T_keys * d;
+  float* acc_v = acc + ((size_t)gridDim.x + bh) * T_keys * d;
   const uint8_t* mask_b = mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr;
 
-  load_row_chunks_async<T, CH>(sK, KS, k + (size_t)bh * T_keys * d, d, k0, KEYS, T_keys, tid, NTHREADS);
-  load_row_chunks_async<T, CH>(sV, KS, v + (size_t)bh * T_keys * d, d, k0, KEYS, T_keys, tid, NTHREADS);
-  cp_async_commit();
-
-  for (int c0 = 0; c0 < d; c0 += CH) {
-    float gk[CH / 8][4] = {}, gv[CH / 8][4] = {};
-    for (int i0 = 0; i0 < t; i0 += QUERY_TILE) {
-      __syncthreads();  // the previous query tile is no longer read
-      if (nbasis > 0)
-        load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, i0, QUERY_TILE, t, nbasis,
-                                         c0 == 0 && i0 == 0 ? band_copy(sB, bandsize) : nullptr, b_nd, bandsize);
-      cp_async_commit();
-      load_query_stats<NTHREADS>(sStat, stats, BHt, bh, t, i0);
-      mask_window<NTHREADS, false>(sBias, BIAS_STRIDE, mask_b, i0, QUERY_TILE, t, k0, KEYS, T_keys);
-      cp_async_wait<0>();
-      __syncthreads();
-      if (nbasis > 0)
-        with_band_table(sB, b_nd, bandsize, [&](const float* band) {
-          band_bias_mma<NWARPS>(sBias, 1, BIAS_STRIDE, sR, band, i0, QUERY_TILE, t, T_keys, k0, KEYS, nbasis,
-                                bandsize);
-        });
-
-      // L^T and dP^T of the warp's 16 keys against the tile's rows, over the chunks of d, c0's last
-      float s[NQ][4] = {}, p[NQ][4] = {};
-      for (int j = 1; j <= dp.chunks; ++j) {
-        const int cd = (c0 + j * CH) % d;
-        __syncthreads();  // the band bias is in; the previous chunk of Q and dO is no longer read
-        load_rows_async<T, CH>(sQ, CS, qb + cd, i0, QUERY_TILE, t, tid, NTHREADS, d);
-        load_rows_async<T, CH>(sdO, CS, ob + cd, i0, QUERY_TILE, t, tid, NTHREADS, d);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        mma_nt<T, CH, NQ>(s, sK + warp * 16 * KS + cd, KS, sQ, CS, lane);
-        mma_nt<T, CH, NQ>(p, sV + warp * 16 * KS + cd, KS, sdO, CS, lane);
-      }
-      keys_weights<NQ>(s, p, sBias, sStat, warp * 16, k0, T_keys, i0, t, alpha, g, c);
-      keys_accumulate<T, NQ, CH>(gv, gk, s, p, sdO, sQ, CS, g, c);  // the column chunk c0, last in
+  // chunk ci of the query tile's Q and dO rows (from i0), and of the block's
+  // K and V rows where `keys`, into buffer ci % 2, committed as one group
+  auto fetch = [&](int ci, int i0, bool keys) {
+    T* buf = bufs + (ci & 1) * BUF;
+    if (keys) {
+      load_rows_async<T, CH>(buf, CS, kb + ci * CH, k0, KEYS, T_keys, tid, NTHREADS, d);
+      load_rows_async<T, CH>(buf + KEYS * CS, CS, vb + ci * CH, k0, KEYS, T_keys, tid, NTHREADS, d);
     }
-    store_keys<T, CH>(dk, dv, gk, gv, bh, k0 + warp * 16, T_keys, d, c0, alpha, g, c);
+    load_rows_async<T, CH>(buf + QOFF, CS, qb + ci * CH, i0, QUERY_TILE, t, tid, NTHREADS, d);
+    load_rows_async<T, CH>(buf + OOFF, CS, ob + ci * CH, i0, QUERY_TILE, t, tid, NTHREADS, d);
+    cp_async_commit();
+  };
+  // body(chunk, buffer) on every chunk of d in turn, the next one in flight
+  auto walk = [&](int i0, bool keys, auto&& body) {
+    fetch(0, i0, keys);
+    for (int ci = 0; ci < dp.chunks; ++ci) {
+      if (ci + 1 < dp.chunks) {
+        fetch(ci + 1, i0, keys);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      body(ci, bufs + (ci & 1) * BUF);
+      __syncthreads();  // the buffer is refilled next iteration
+    }
+  };
+
+  const int ntiles = (t + QUERY_TILE - 1) / QUERY_TILE;
+  for (int qt = 0; qt < ntiles; ++qt) {
+    const int i0 = qt * QUERY_TILE;
+    // the tile's R rows (and at first the band table), statistics and mask
+    // terms, then its band bias (every read of these by the previous tile is
+    // behind walk's barriers)
+    if (nbasis > 0)
+      load_bias_inputs_async<NTHREADS>(sR, R + (size_t)bh * t * nbasis, i0, QUERY_TILE, t, nbasis,
+                                       qt == 0 ? band_copy(sB, bandsize) : nullptr, b_nd, bandsize);
+    cp_async_commit();
+    load_query_stats<NTHREADS>(sStat, stats, BHt, bh, t, i0);
+    mask_window<NTHREADS, false>(sBias, BIAS_STRIDE, mask_b, i0, QUERY_TILE, t, k0, KEYS, T_keys);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (nbasis > 0)
+      with_band_table(sB, b_nd, bandsize, [&](const float* band) {
+        band_bias_mma<NWARPS>(sBias, 1, BIAS_STRIDE, sR, band, i0, QUERY_TILE, t, T_keys, k0, KEYS, nbasis,
+                              bandsize);
+      });
+
+    // L^T and dP^T of the warp's 16 keys against the tile's rows over every
+    // chunk of d, then W^T and dL^T in place (walk's barriers order the bias first)
+    float s[NQ][4] = {}, p[NQ][4] = {};
+    walk(i0, true, [&](int, const T* buf) {
+      mma_nt<T, CH, NQ>(s, buf + warp * 16 * CS, CS, buf + QOFF, CS, lane);
+      mma_nt<T, CH, NQ>(p, buf + (KEYS + warp * 16) * CS, CS, buf + OOFF, CS, lane);
+    });
+    keys_weights<NQ>(s, p, sBias, sStat, warp * 16, k0, T_keys, i0, t, alpha, g, c);
+
+    // dV += W^T dO and dK += dL^T Q, a chunk of columns at a time
+    const bool first = qt == 0, last = qt == ntiles - 1;
+    walk(i0, false, [&](int ci, const T* buf) {
+      const float one[2] = {1.f, 1.f};
+      float gk[CH / 8][4], gv[CH / 8][4];
+      if (first) {
+#pragma unroll
+        for (int n = 0; n < CH / 8; ++n) {
+          gk[n][0] = gk[n][1] = gk[n][2] = gk[n][3] = 0.f;
+          gv[n][0] = gv[n][1] = gv[n][2] = gv[n][3] = 0.f;
+        }
+      } else {
+        load_frags<CH>(gk, acc_k, d, j0, T_keys, ci * CH, one, g, c);
+        load_frags<CH>(gv, acc_v, d, j0, T_keys, ci * CH, one, g, c);
+      }
+      keys_accumulate<T, NQ, CH>(gv, gk, s, p, buf + OOFF, buf + QOFF, CS, g, c);
+      if (last) {
+        store_keys<T, CH>(dk, dv, gk, gv, bh, j0, T_keys, d, ci * CH, alpha, g, c);
+      } else {
+        store_frags<float, CH>(acc_k, d, j0, T_keys, ci * CH, gk, one, g, c);
+        store_frags<float, CH>(acc_v, d, j0, T_keys, ci * CH, gv, one, g, c);
+      }
+    });
   }
 }
 
@@ -770,30 +848,31 @@ __global__ void db_reduce_kernel(const float* __restrict__ partial, float* __res
 
 template <typename T, int D, int ROWS>
 int launch_rows(const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
-                const uint8_t* mask, T* dq, float* dR, float* stats, float* partial, int B, int H, int t,
-                int T_keys, int d, int nbasis, int bandsize, float alpha, cudaStream_t stream, int* nblocks) {
+                const uint8_t* mask, T* dq, float* dR, float* stats, float* partial, float* dq_acc, int B, int H,
+                int t, int T_keys, int d, int nbasis, int bandsize, float alpha, cudaStream_t stream, int* nblocks) {
   auto kernel = T_keys > KEY_CHUNK ? bwd_rows_chunked_kernel<T, D, ROWS> : bwd_rows_kernel<T, D, ROWS>;
-  const size_t smem = rows_smem_bytes<T, D>(ROWS, T_keys, d, nbasis, bandsize);
+  const size_t smem = rows_smem_bytes<T, D>(ROWS, T_keys, nbasis, bandsize);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (t + ROWS - 1) / ROWS);
   *nblocks = (int)(grid.x * grid.y);
   kernel<<<grid, RowBlock<ROWS>::NTHREADS, smem, stream>>>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial,
-                                                          B * H * t, H, t, T_keys, d, nbasis, bandsize, alpha);
+                                                          dq_acc, B * H * t, H, t, T_keys, d, nbasis, bandsize,
+                                                          alpha);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D, int NWARPS>
 int launch_keys(const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
-                const uint8_t* mask, const float* stats, T* dk, T* dv, int B, int H, int t, int T_keys, int d,
-                int nbasis, int bandsize, float alpha, size_t smem, cudaStream_t stream) {
+                const uint8_t* mask, const float* stats, T* dk, T* dv, float* dkv_acc, int B, int H, int t,
+                int T_keys, int d, int nbasis, int bandsize, float alpha, size_t smem, cudaStream_t stream) {
   dim3 grid(B * H, (T_keys + 16 * NWARPS - 1) / (16 * NWARPS));
-  if constexpr (D == WIDE) {
-    auto kernel = bwd_keys_wide_kernel<T, NWARPS>;
+  if constexpr (D == STREAMED) {
+    auto kernel = bwd_keys_streamed_kernel<T, NWARPS>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, NWARPS * 32, smem, stream>>>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B * H * t, H, t,
-                                                T_keys, d, nbasis, bandsize, alpha);
+    kernel<<<grid, NWARPS * 32, smem, stream>>>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, dkv_acc, B * H * t, H,
+                                                t, T_keys, d, nbasis, bandsize, alpha);
   } else {
     auto kernel = bwd_keys_kernel<T, D, NWARPS>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -804,21 +883,23 @@ int launch_keys(const T* q, const T* k, const T* v, const T* dout, const float* 
   return (int)cudaGetLastError();
 }
 
-// pass 1's rows a block: 64 where they fit the card's shared memory (never
-// at a wide d), else 32, else (d >= 256 only) 16
+// pass 1's rows a block: at a whole D 64 where they fit the card's shared
+// memory, else 32, else (d = 256 only) 16; at the streamed D 32, as in B1
 template <typename T, int D>
-int rows_per_block(int T_keys, int d, int nbasis, int bandsize, int limit) {
-  if (D != WIDE && rows_smem_bytes<T, D>(64, T_keys, d, nbasis, bandsize) <= (size_t)limit) return 64;
-  if ((D != WIDE && D <= 192) || rows_smem_bytes<T, D>(32, T_keys, d, nbasis, bandsize) <= (size_t)limit) return 32;
-  return 16;
+int rows_per_block(int T_keys, int nbasis, int bandsize, int limit) {
+  if (D == STREAMED) return 32;
+  if (rows_smem_bytes<T, D>(64, T_keys, nbasis, bandsize) <= (size_t)limit) return 64;
+  if (D > 192 && rows_smem_bytes<T, D>(32, T_keys, nbasis, bandsize) > (size_t)limit) return 16;
+  return 32;
 }
 
-// pass 2's warps a block: 8 where they fit the card's shared memory (never
-// at a wide d), else 4, else (d >= 256 only) 2
+// pass 2's warps a block: at a whole D 8 where they fit the card's shared
+// memory, else 4, else (d = 256 only) 2; at the streamed D 4, which always
+// fit (its 8 do not with the longest band table held in shared memory)
 template <typename T, int D>
-int key_warps(int d, int nbasis, int bandsize, int limit) {
-  if constexpr (D == WIDE) {
-    return keys_wide_smem_bytes<T>(4, d, nbasis, bandsize) <= (size_t)limit ? 4 : 2;
+int key_warps(int nbasis, int bandsize, int limit) {
+  if constexpr (D == STREAMED) {
+    return 4;
   } else {
     if (keys_smem_bytes<T, D>(8, nbasis, bandsize) <= (size_t)limit) return 8;
     if (D <= 192 || keys_smem_bytes<T, D>(4, nbasis, bandsize) <= (size_t)limit) return 4;
@@ -827,9 +908,9 @@ int key_warps(int d, int nbasis, int bandsize, int limit) {
 }
 
 template <typename T, int D>
-size_t keys_smem(int nwarps, int d, int nbasis, int bandsize) {
-  if constexpr (D == WIDE) {
-    return keys_wide_smem_bytes<T>(nwarps, d, nbasis, bandsize);
+size_t keys_smem(int nwarps, int nbasis, int bandsize) {
+  if constexpr (D == STREAMED) {
+    return keys_streamed_smem_bytes<T>(nwarps, nbasis, bandsize);
   } else {
     return keys_smem_bytes<T, D>(nwarps, nbasis, bandsize);
   }
@@ -841,11 +922,58 @@ int smem_limit(int* limit) {
   return (int)cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
+// f32 scratch floats of the streamed d's accumulators: pass 1's dQ (B, H,
+// t, d) past KEY_CHUNK keys, and pass 2's dK and dV (2, B, H, T, d) past one
+// query tile; none at a whole d
+size_t dq_acc_floats(int B, int H, int t, int T_keys, int d) {
+  return streamed_d(d) && T_keys > KEY_CHUNK ? (size_t)B * H * t * d : 0;
+}
+size_t dkv_acc_floats(int B, int H, int t, int T_keys, int d) {
+  return streamed_d(d) && t > QUERY_TILE ? 2 * (size_t)B * H * T_keys * d : 0;
+}
+
+// pass 1 at `rows` query rows a block (rows_per_block), pass 2 at `warps` warps (key_warps)
+template <typename T, int D>
+int launch_pass1(int rows, const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
+                 const uint8_t* mask, T* dq, float* dR, float* stats, float* partial, float* dq_acc, int B, int H,
+                 int t, int T_keys, int d, int nbasis, int bandsize, float alpha, cudaStream_t stream, int* nblocks) {
+  if constexpr (D != STREAMED) {
+    if (rows == 64)
+      return launch_rows<T, D, 64>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, dq_acc, B, H, t, T_keys, d,
+                                   nbasis, bandsize, alpha, stream, nblocks);
+  }
+  if constexpr (D > 192) {
+    if (rows == 16)
+      return launch_rows<T, D, 16>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, dq_acc, B, H, t, T_keys, d,
+                                   nbasis, bandsize, alpha, stream, nblocks);
+  }
+  return launch_rows<T, D, 32>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, dq_acc, B, H, t, T_keys, d,
+                               nbasis, bandsize, alpha, stream, nblocks);
+}
+
+template <typename T, int D>
+int launch_pass2(int warps, const T* q, const T* k, const T* v, const T* dout, const float* R, const float* b_nd,
+                 const uint8_t* mask, const float* stats, T* dk, T* dv, float* dkv_acc, int B, int H, int t,
+                 int T_keys, int d, int nbasis, int bandsize, float alpha, size_t smem, cudaStream_t stream) {
+  if constexpr (D != STREAMED) {
+    if (warps == 8)
+      return launch_keys<T, D, 8>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, dkv_acc, B, H, t, T_keys, d, nbasis,
+                                  bandsize, alpha, smem, stream);
+  }
+  if constexpr (D > 192) {
+    if (warps == 2)
+      return launch_keys<T, D, 2>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, dkv_acc, B, H, t, T_keys, d, nbasis,
+                                  bandsize, alpha, smem, stream);
+  }
+  return launch_keys<T, D, 4>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, dkv_acc, B, H, t, T_keys, d, nbasis,
+                              bandsize, alpha, smem, stream);
+}
+
 template <typename T, int D>
 int launch(const void* q_, const void* k_, const void* v_, const void* dout_, const float* R, const float* b_nd,
            const uint8_t* mask, void* dq_, void* dk_, void* dv_, float* dR, float* db, float* stats,
-           float* partial, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha,
-           cudaStream_t stream) {
+           float* partial, float* scratch, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize,
+           float alpha, cudaStream_t stream) {
   const auto* q = static_cast<const T*>(q_);
   const auto* k = static_cast<const T*>(k_);
   const auto* v = static_cast<const T*>(v_);
@@ -853,95 +981,22 @@ int launch(const void* q_, const void* k_, const void* v_, const void* dout_, co
   auto* dq = static_cast<T*>(dq_);
   auto* dk = static_cast<T*>(dk_);
   auto* dv = static_cast<T*>(dv_);
+  float* dq_acc = scratch;
+  float* dkv_acc = scratch + dq_acc_floats(B, H, t, T_keys, d);
   int limit = 0, nblocks = 0;
   int rc = smem_limit(&limit);
   if (rc != 0) return rc;
-  switch (rows_per_block<T, D>(T_keys, d, nbasis, bandsize, limit)) {
-    case 64:
-      if constexpr (D != WIDE) {
-        rc = launch_rows<T, D, 64>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, d,
-                                   nbasis, bandsize, alpha, stream, &nblocks);
-      }
-      break;
-    case 32:
-      rc = launch_rows<T, D, 32>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, d, nbasis,
-                                 bandsize, alpha, stream, &nblocks);
-      break;
-    default:
-      if constexpr (D > 192 || D == WIDE) {
-        rc = launch_rows<T, D, 16>(q, k, v, dout, R, b_nd, mask, dq, dR, stats, partial, B, H, t, T_keys, d,
-                                   nbasis, bandsize, alpha, stream, &nblocks);
-      }
-  }
+  rc = launch_pass1<T, D>(rows_per_block<T, D>(T_keys, nbasis, bandsize, limit), q, k, v, dout, R, b_nd, mask, dq, dR,
+                          stats, partial, dq_acc, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream, &nblocks);
   if (rc != 0) return rc;
-  const int warps = key_warps<T, D>(d, nbasis, bandsize, limit);
-  const size_t smem = keys_smem<T, D>(warps, d, nbasis, bandsize);
-  switch (warps) {
-    case 8:
-      if constexpr (D != WIDE) {
-        rc = launch_keys<T, D, 8>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, d, nbasis,
-                                  bandsize, alpha, smem, stream);
-      }
-      break;
-    case 4:
-      rc = launch_keys<T, D, 4>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, d, nbasis, bandsize,
-                                alpha, smem, stream);
-      break;
-    default:
-      if constexpr (D > 192 || D == WIDE) {
-        rc = launch_keys<T, D, 2>(q, k, v, dout, R, b_nd, mask, stats, dk, dv, B, H, t, T_keys, d, nbasis,
-                                  bandsize, alpha, smem, stream);
-      }
-  }
+  const int warps = key_warps<T, D>(nbasis, bandsize, limit);
+  rc = launch_pass2<T, D>(warps, q, k, v, dout, R, b_nd, mask, stats, dk, dv, dkv_acc, B, H, t, T_keys, d, nbasis,
+                          bandsize, alpha, keys_smem<T, D>(warps, nbasis, bandsize), stream);
   if (rc != 0 || R == nullptr) return rc;
   const int size = nbasis * bandsize;
   db_reduce_kernel<<<(size + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, stream>>>(partial, db,
                                                                                                 nblocks, size);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, const void* dout, const float* R, const float* b_nd,
-               const uint8_t* mask, void* dq, void* dk, void* dv, float* dR, float* db, float* stats,
-               float* partial, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha,
-               cudaStream_t s) {
-  switch (d) {
-    case 64:
-      return launch<T, 64>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys, d,
-                           nbasis, bandsize, alpha, s);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys, d,
-                            nbasis, bandsize, alpha, s);
-    case 192:
-      return launch<T, 192>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys, d,
-                            nbasis, bandsize, alpha, s);
-    case 256:
-      return launch<T, 256>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys, d,
-                            nbasis, bandsize, alpha, s);
-    default:
-      if (d > 256 && d <= MAX_WIDE_D && d % WIDE_CHUNK == 0)
-        return launch<T, WIDE>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db, stats, partial, B, H, t, T_keys,
-                               d, nbasis, bandsize, alpha, s);
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int rows_d(int T_keys, int d, int nbasis, int bandsize, int limit) {
-  switch (d) {
-    case 64:
-      return rows_per_block<T, 64>(T_keys, d, nbasis, bandsize, limit);
-    case 128:
-      return rows_per_block<T, 128>(T_keys, d, nbasis, bandsize, limit);
-    case 192:
-      return rows_per_block<T, 192>(T_keys, d, nbasis, bandsize, limit);
-    case 256:
-      return rows_per_block<T, 256>(T_keys, d, nbasis, bandsize, limit);
-    default:
-      if (d > 256 && d <= MAX_WIDE_D && d % WIDE_CHUNK == 0)
-        return rows_per_block<T, WIDE>(T_keys, d, nbasis, bandsize, limit);
-      return -(int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -952,35 +1007,71 @@ extern "C" int vpt_windowed_attention_bwd_rows(int T, int d, int nbasis, int ban
   int limit = 0;
   const int err = smem_limit(&limit);
   if (err != 0) return -err;
-  return is_bf16 ? rows_d<__nv_bfloat16>(T, d, nbasis, bandsize, limit) : rows_d<float>(T, d, nbasis, bandsize, limit);
+  if (T < 1 || !kernel_d(d)) return -(int)cudaErrorInvalidValue;
+  return with_depth(d, [&](auto depth) {
+    constexpr int D = decltype(depth)::value;
+    return is_bf16 ? rows_per_block<__nv_bfloat16, D>(T, nbasis, bandsize, limit)
+                   : rows_per_block<float, D>(T, nbasis, bandsize, limit);
+  });
 }
 
-// q and dout (B, H, t, d), k and v (B, H, T, d), d a multiple of 64 up to 512,
-// any T: contiguous and 16-byte aligned, all f32 (is_bf16 = 0) or all bf16
+// The f32 scratch, in floats, that vpt_windowed_attention_bwd needs at this
+// shape for its accumulators (0 at a whole d).
+extern "C" long long vpt_windowed_attention_bwd_scratch(int B, int H, int t, int T, int d) {
+  return (long long)(dq_acc_floats(B, H, t, T, d) + dkv_acc_floats(B, H, t, T, d));
+}
+
+// The dynamic shared memory, in bytes, of the backward's pass 1 (pass = 1)
+// or pass 2 (pass = 2) at this shape; a negative cudaError_t on failure.
+extern "C" int vpt_windowed_attention_bwd_smem(int T, int d, int nbasis, int bandsize, int is_bf16, int pass) {
+  int limit = 0;
+  const int err = smem_limit(&limit);
+  if (err != 0) return -err;
+  if (T < 1 || !kernel_d(d) || (pass != 1 && pass != 2)) return -(int)cudaErrorInvalidValue;
+  auto bytes = [&](auto type, auto depth) {
+    using T_ = decltype(type);
+    constexpr int D = decltype(depth)::value;
+    if (pass == 1) return (int)rows_smem_bytes<T_, D>(rows_per_block<T_, D>(T, nbasis, bandsize, limit), T, nbasis,
+                                                      bandsize);
+    return (int)keys_smem<T_, D>(key_warps<T_, D>(nbasis, bandsize, limit), nbasis, bandsize);
+  };
+  return with_depth(d, [&](auto depth) {
+    return is_bf16 ? bytes(__nv_bfloat16(), depth) : bytes(float(), depth);
+  });
+}
+
+// q and dout (B, H, t, d), k and v (B, H, T, d), d any multiple of 64, any
+// T: contiguous and 16-byte aligned, all f32 (is_bf16 = 0) or all bf16
 // (is_bf16 = 1).  R (B, H, t, nbasis) f32 and b_nd (nbasis, bandsize) f32,
 // any bandsize, both null for no relative bias.  mask (B, t, T) bool bytes,
 // null for no mask.  Outputs dq (B, H, t, d), dk and dv (B, H, T, d) in the
 // input dtype; dR (B, H, t, nbasis) and db_nd (nbasis, bandsize) f32 (unused
 // without R).  Scratch: stats 3 * B * H * t f32, partial B * H * ceil(t /
 // rows) * nbasis * bandsize f32 with rows from vpt_windowed_attention_bwd_rows
-// (unused without R).  Returns a cudaError_t (0 = launched).
+// (unused without R), and scratch of vpt_windowed_attention_bwd_scratch f32
+// (null where that is 0).  Returns a cudaError_t (0 = launched).
 extern "C" int vpt_windowed_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                           const float* R, const float* b_nd, const uint8_t* mask, void* dq,
                                           void* dk, void* dv, float* dR, float* db_nd, float* stats,
-                                          float* partial, int B, int H, int t, int T, int d, int nbasis,
-                                          int bandsize, int is_bf16, float alpha, void* stream) {
-  if (B < 1 || H < 1 || t < 1 || T < 1) return (int)cudaErrorInvalidValue;
+                                          float* partial, float* scratch, int B, int H, int t, int T, int d,
+                                          int nbasis, int bandsize, int is_bf16, float alpha, void* stream) {
+  if (B < 1 || H < 1 || t < 1 || T < 1 || !kernel_d(d)) return (int)cudaErrorInvalidValue;
   if ((R == nullptr) != (b_nd == nullptr)) return (int)cudaErrorInvalidValue;
   if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1 || dR == nullptr || db_nd == nullptr ||
                        partial == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (scratch == nullptr && dq_acc_floats(B, H, t, T, d) + dkv_acc_floats(B, H, t, T, d) > 0)
+    return (int)cudaErrorInvalidValue;
   if (R == nullptr) nbasis = bandsize = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db_nd, stats, partial, B, H,
-                                     t, T, d, nbasis, bandsize, alpha, s);
-  return dispatch_d<float>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db_nd, stats, partial, B, H, t, T, d,
-                           nbasis, bandsize, alpha, s);
+  return with_depth(d, [&](auto depth) {
+    constexpr int D = decltype(depth)::value;
+    if (is_bf16)
+      return launch<__nv_bfloat16, D>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db_nd, stats, partial, scratch,
+                                      B, H, t, T, d, nbasis, bandsize, alpha, s);
+    return launch<float, D>(q, k, v, dout, R, b_nd, mask, dq, dk, dv, dR, db_nd, stats, partial, scratch, B, H, t,
+                            T, d, nbasis, bandsize, alpha, s);
+  });
 }
 
 extern "C" const char* vpt_cuda_error_string(int err) {

@@ -55,12 +55,18 @@
 //     and L2;
 //   * d = 256 (hidsize 4096 at 16 heads) takes 16-row blocks of 4 warps
 //     where 32 rows would not fit the shared memory (f32, or long bands);
-//   * every other multiple of 64 up to 512 (hidsize 8192 at 16 heads) runs
-//     one instance with d set at run time (Depth<T, WIDE>): its K and V tiles
-//     hold 64 of the d columns, Q K^T streams each key tile chunk by chunk
-//     into the same accumulators, and W V takes the output's columns a chunk
-//     at a time.  Simple, not yet fast: the wrapper pads any other d with
-//     zero columns to the next d taken here.
+//   * every multiple of 64 above 256 runs one instance with d set at run
+//     time (Depth<T, STREAMED>), whose shared memory does not depend on d:
+//     its tiles hold 64 columns, and its blocks 32 rows (twice the blocks of
+//     64 rows: a wide head's call has few (b, h) pairs).  Q K^T streams each
+//     key tile chunk by chunk together with the same chunk of the block's Q
+//     rows, summing into the same accumulators, and W V takes the output's
+//     columns a chunk at a time, reading W from the logit tile again.  Past
+//     512 keys a chunk's output columns wait in an f32 scratch in device
+//     memory (B, H, t, d) between key chunks, each entry owned by the one
+//     thread that rescales and adds to it; the last key chunk writes the
+//     output.  The wrapper pads any other d with zero columns to the next
+//     multiple of 64.
 
 #include "attention_mma.cuh"
 
@@ -70,21 +76,23 @@ using namespace wattn;
 
 // past KEY_CHUNK keys: a chunk's logit tile, and each row's running max, sum and rescale factor
 template <typename T, int D>
-size_t smem_bytes(int rows, int T_keys, int d, int nbasis, int bandsize) {
-  const Depth<T, D> dp(d);
+size_t smem_bytes(int rows, int T_keys, int nbasis, int bandsize) {
+  using DT = Depth<T, D>;
   const size_t band = band_smem_floats(nbasis, bandsize);
   const size_t running = T_keys > KEY_CHUNK ? 3 * rows : 0;
   const int keys = T_keys < KEY_CHUNK ? T_keys : KEY_CHUNK;
-  return ((size_t)rows * dp.stride + 2 * KEY_TILE * Depth<T, D>::CS) * sizeof(T) +
+  return ((size_t)DT::row_tile(rows) + 2 * DT::kv_buffer(rows)) * sizeof(T) +
          ((size_t)rows * logit_stride(keys) + rows * R_STRIDE + band + running) * sizeof(float);
 }
 
+// T <= KEY_CHUNK keys; scratch is unused here (the parameters are those of
+// windowed_attention_fwd_chunked_kernel, which the launch may pick instead)
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
 windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                               const float* __restrict__ R, const float* __restrict__ b_nd,
-                              const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int t, int T_keys,
-                              int d, int nbasis, int bandsize, float alpha) {
+                              const uint8_t* __restrict__ mask, T* __restrict__ out, float* __restrict__ scratch,
+                              int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha) {
   using Block = RowBlock<ROWS>;
   using DT = Depth<T, D>;
   const DT dp(d);
@@ -93,11 +101,11 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
   constexpr bool BF16 = exact_in_tf32<T>::value;
   const int TS = logit_stride(T_keys);
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x dp.stride
-  T* sKV = sQ + ROWS * dp.stride;       // 2 x KEY_TILE x CS: K tiles, then V tiles
-  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * CS);  // ROWS x TS: logits, then W
-  float* sR = sS + ROWS * TS;                                      // ROWS x R_STRIDE
-  float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize (up to MAX_BAND)
+  T* sQ = reinterpret_cast<T*>(smem4);  // DT::row_tile(ROWS): the block's Q rows whole (none when streamed)
+  T* sKV = sQ + DT::row_tile(ROWS);     // 2 x DT::kv_buffer(ROWS): K tiles (and Q's chunks), then V tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * DT::kv_buffer(ROWS));  // ROWS x TS: logits, then W
+  float* sR = sS + ROWS * TS;                                            // ROWS x R_STRIDE
+  float* sB = sR + ROWS * R_STRIDE;                                      // nbasis x bandsize (up to MAX_BAND)
 
   const Block rb;
   const int bh = blockIdx.x;
@@ -113,10 +121,10 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
   }
   cp_async_commit();
   const T* kb = k + (size_t)bh * T_keys * dp.d;
-  load_row_chunks_async<T, DT::CHUNK>(sQ, dp.stride, q + (size_t)bh * t * dp.d, dp.d, q0, ROWS, t, tid,
-                                      Block::NTHREADS);
+  const T* qb = q + (size_t)bh * t * dp.d;
+  if constexpr (!DT::STREAM) load_rows_async<T, D>(sQ, CS, qb, q0, ROWS, t, tid, Block::NTHREADS);
   cp_async_commit();
-  prefetch_tile<T, DT::CHUNK, Block::NTHREADS>(sKV, kb, T_keys, 0, dp.d);
+  fetch_depth_tile<T, D, ROWS, Block::NTHREADS>(sKV, 0, kb, T_keys, dp, qb, q0, t);
   mask_window<Block::NTHREADS, true>(sS, TS, mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr, q0, ROWS,
                                      t, 0, TS - 8, T_keys);
   cp_async_wait<2>();
@@ -128,11 +136,11 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
       band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, 0, T_keys, nbasis, bandsize);
     });
   }
-  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, T_keys, dp, alpha, true);
+  block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb, qb, q0, t, T_keys, dp, alpha, true);
   softmax_rows<ROWS, BF16>(sS, TS, q0, t, nullptr, nullptr);
 
   // pass 2: O = W V over tiles of V, a chunk of d at a time (all of it at a
-  // narrow d), the warp's SPLIT-th of the chunk's columns
+  // whole d), the warp's SPLIT-th of the chunk's columns
   const float* wrows = sS + rb.row0 * TS;
   const T* vb = v + (size_t)bh * T_keys * dp.d;
   for (int ci = 0; ci < dp.chunks; ++ci) {
@@ -158,13 +166,16 @@ windowed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, 
 }
 
 // The kernel above for T > KEY_CHUNK keys: chunks of KEY_CHUNK keys through
-// the one logit tile, with an online softmax across them.
+// the one logit tile, with an online softmax across them.  The output's
+// accumulators carry from key chunk to key chunk in registers at a whole D,
+// in the f32 scratch (B, H, t, d) at the streamed D.
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(RowBlock<ROWS>::NTHREADS)
 windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                       const float* __restrict__ R, const float* __restrict__ b_nd,
-                                      const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int t,
-                                      int T_keys, int d, int nbasis, int bandsize, float alpha) {
+                                      const uint8_t* __restrict__ mask, T* __restrict__ out,
+                                      float* __restrict__ scratch, int H, int t, int T_keys, int d, int nbasis,
+                                      int bandsize, float alpha) {
   using Block = RowBlock<ROWS>;
   using DT = Depth<T, D>;
   const DT dp(d);
@@ -174,20 +185,21 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
   constexpr bool BF16 = exact_in_tf32<T>::value;
   const int TS = logit_stride(KEY_CHUNK);
   extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);  // ROWS x dp.stride
-  T* sKV = sQ + ROWS * dp.stride;       // 2 x KEY_TILE x CS: K tiles, then V tiles
-  float* sS = reinterpret_cast<float*>(sKV + 2 * KEY_TILE * CS);  // ROWS x TS: a chunk's logits, then exp
-  float* sR = sS + ROWS * TS;                                      // ROWS x R_STRIDE
-  float* sB = sR + ROWS * R_STRIDE;                                // nbasis x bandsize (up to MAX_BAND)
-  float* sM = sB + band_smem_floats(nbasis, bandsize);             // ROWS: running max
-  float* sL = sM + ROWS;                                           // ROWS: running sum
-  float* sC = sL + ROWS;                                           // ROWS: this chunk's rescale factor
+  T* sQ = reinterpret_cast<T*>(smem4);  // DT::row_tile(ROWS): the block's Q rows whole (none when streamed)
+  T* sKV = sQ + DT::row_tile(ROWS);     // 2 x DT::kv_buffer(ROWS): K tiles (and Q's chunks), then V tiles
+  float* sS = reinterpret_cast<float*>(sKV + 2 * DT::kv_buffer(ROWS));  // ROWS x TS: a chunk's logits, then exp
+  float* sR = sS + ROWS * TS;                                            // ROWS x R_STRIDE
+  float* sB = sR + ROWS * R_STRIDE;                                      // nbasis x bandsize (up to MAX_BAND)
+  float* sM = sB + band_smem_floats(nbasis, bandsize);                   // ROWS: running max
+  float* sL = sM + ROWS;                                                 // ROWS: running sum
+  float* sC = sL + ROWS;                                                 // ROWS: this chunk's rescale factor
 
   const Block rb;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int q0 = blockIdx.y * ROWS;
   const int tid = threadIdx.x;
+  const T* qb = q + (size_t)bh * t * dp.d;
   const T* kb = k + (size_t)bh * T_keys * dp.d;
   const T* vb = v + (size_t)bh * T_keys * dp.d;
   const uint8_t* mask_b = mask != nullptr ? mask + (size_t)b * t * T_keys : nullptr;
@@ -198,9 +210,9 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
                                      b_nd, bandsize);
   }
   cp_async_commit();
-  load_row_chunks_async<T, DT::CHUNK>(sQ, dp.stride, q + (size_t)bh * t * dp.d, dp.d, q0, ROWS, t, tid, NTHREADS);
+  if constexpr (!DT::STREAM) load_rows_async<T, D>(sQ, CS, qb, q0, ROWS, t, tid, NTHREADS);
   cp_async_commit();
-  prefetch_tile<T, DT::CHUNK, NTHREADS>(sKV, kb, KEY_CHUNK, 0, dp.d);
+  fetch_depth_tile<T, D, ROWS, NTHREADS>(sKV, 0, kb, KEY_CHUNK, dp, qb, q0, t);
   mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, 0, KEY_CHUNK, T_keys);
   for (int i = tid; i < ROWS; i += NTHREADS) {
     sM[i] = -CUDART_INF_F;
@@ -209,12 +221,12 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
   cp_async_wait<2>();
   __syncthreads();
 
-  // the output accumulators of every chunk of d (one at a narrow d), across the key chunks
-  float o[DT::MAX_CHUNKS][DH / 8][4] = {};
+  // the output accumulators across the key chunks (registers at a whole D)
+  float o[DH / 8][4] = {};
   for (int c0 = 0; c0 < T_keys; c0 += KEY_CHUNK) {
     const int nc = min(KEY_CHUNK, T_keys - c0);
     if (c0 > 0) {  // every warp is past the previous chunk (stream_tiles ends with a barrier)
-      prefetch_tile<T, DT::CHUNK, NTHREADS>(sKV, kb + (size_t)c0 * dp.d, nc, 0, dp.d);
+      fetch_depth_tile<T, D, ROWS, NTHREADS>(sKV, 0, kb + (size_t)c0 * dp.d, nc, dp, qb, q0, t);
       mask_window<NTHREADS, true>(sS, TS, mask_b, q0, ROWS, t, c0, KEY_CHUNK, T_keys);
       __syncthreads();
     }
@@ -223,50 +235,49 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
         band_bias_mma<Block::NWARPS>(sS, TS, 1, sR, band, q0, ROWS, t, T_keys, c0, nc, nbasis, bandsize);
       });
     }
-    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * dp.d, nc, dp, alpha, true);
+    block_logits<T, D, ROWS>(sS, TS, sQ, sKV, kb + (size_t)c0 * dp.d, qb, q0, t, nc, dp, alpha, true);
     softmax_rows_online<ROWS, true>(sS, TS, sM, sL, sC);
     __syncthreads();
+    float scale[2], inv[2];  // the rows' rescale factor, and on the last chunk 1 / their sum
+    const bool last = c0 + KEY_CHUNK >= T_keys;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float scale = sC[rb.row0 + rb.g + 8 * h];
-#pragma unroll
-      for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          o[ci][n][2 * h] *= scale;
-          o[ci][n][2 * h + 1] *= scale;
-        }
-      }
+      scale[h] = sC[rb.row0 + rb.g + 8 * h];
+      inv[h] = last ? 1.f / sL[rb.row0 + rb.g + 8 * h] : 1.f;
     }
     const float* wrows = sS + rb.row0 * TS;
+    for (int ci = 0; ci < dp.chunks; ++ci) {
+      const int col = ci * DT::CHUNK + rb.part * DH;  // the warp's first output column
+      if constexpr (DT::STREAM) {
+        if (c0 == 0) {
 #pragma unroll
-    for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
-      if (ci < dp.chunks) {  // uniform
-        stream_tiles<T, DT::CHUNK, NTHREADS>(sKV, vb + (size_t)c0 * dp.d + ci * DT::CHUNK, nc, false,
-                                             [&](int kt0, const T* tile) {
-          if constexpr (BF16) {
-            mma_nn_tile_bf16<DH>(o[ci], wrows + kt0, TS, tile + rb.part * DH, CS, rb.lane);
-          } else {
-            mma_nn_tile<T, DH>(o[ci], wrows + kt0, TS, tile + rb.part * DH, CS, rb.lane);
-          }
-        }, dp.d);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = rb.row0 + rb.g + 8 * h;
-    const int gi = q0 + i;
-    if (gi < t) {
-      const float inv = 1.f / sL[i];
-#pragma unroll
-      for (int ci = 0; ci < DT::MAX_CHUNKS; ++ci) {
-        if (ci < dp.chunks) {
-          T* orow = out + ((size_t)bh * t + gi) * dp.d + ci * DT::CHUNK + rb.part * DH + 2 * rb.c;
-#pragma unroll
-          for (int n = 0; n < DH / 8; ++n) store2(orow + n * 8, o[ci][n][2 * h] * inv, o[ci][n][2 * h + 1] * inv);
+          for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+        } else {
+          load_frags<DH>(o, scratch + (size_t)bh * t * dp.d, dp.d, q0 + rb.row0, t, col, scale, rb.g, rb.c);
         }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n) {
+            o[n][2 * h] *= scale[h];
+            o[n][2 * h + 1] *= scale[h];
+          }
+        }
+      }
+      stream_tiles<T, DT::CHUNK, NTHREADS>(sKV, vb + (size_t)c0 * dp.d + ci * DT::CHUNK, nc, false,
+                                           [&](int kt0, const T* tile) {
+        if constexpr (BF16) {
+          mma_nn_tile_bf16<DH>(o, wrows + kt0, TS, tile + rb.part * DH, CS, rb.lane);
+        } else {
+          mma_nn_tile<T, DH>(o, wrows + kt0, TS, tile + rb.part * DH, CS, rb.lane);
+        }
+      }, dp.d);
+      if (last) {
+        store_frags<T, DH>(out + (size_t)bh * t * dp.d, dp.d, q0 + rb.row0, t, col, o, inv, rb.g, rb.c);
+      } else if constexpr (DT::STREAM) {
+        const float one[2] = {1.f, 1.f};
+        store_frags<float, DH>(scratch + (size_t)bh * t * dp.d, dp.d, q0 + rb.row0, t, col, o, one, rb.g, rb.c);
       }
     }
   }
@@ -274,84 +285,115 @@ windowed_attention_fwd_chunked_kernel(const T* __restrict__ q, const T* __restri
 
 template <typename T, int D, int ROWS>
 int launch(const void* q, const void* k, const void* v, const float* R, const float* b_nd, const uint8_t* mask,
-           void* out, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha,
+           void* out, float* scratch, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize, float alpha,
            cudaStream_t stream) {
   auto kernel = T_keys > KEY_CHUNK ? windowed_attention_fwd_chunked_kernel<T, D, ROWS>
                                    : windowed_attention_fwd_kernel<T, D, ROWS>;
-  const size_t smem = smem_bytes<T, D>(ROWS, T_keys, d, nbasis, bandsize);
+  const size_t smem = smem_bytes<T, D>(ROWS, T_keys, nbasis, bandsize);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (t + ROWS - 1) / ROWS);
   kernel<<<grid, RowBlock<ROWS>::NTHREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                                           static_cast<const T*>(v), R, b_nd, mask,
-                                                          static_cast<T*>(out), H, t, T_keys, d, nbasis,
+                                                          static_cast<T*>(out), scratch, H, t, T_keys, d, nbasis,
                                                           bandsize, alpha);
   return (int)cudaGetLastError();
 }
 
-// 64-row blocks where they fit the card's shared memory (never at a wide d),
-// else 32-row blocks, else (d >= 256 only) 16-row blocks
+// A block's query rows: at a whole D 64 where they fit the card's shared
+// memory, else 32, else (d = 256 only) 16; at the streamed D 32, which
+// always fit and make twice the blocks of 64 (a wide head's call has few
+// (b, h) pairs to spread over the SMs)
 template <typename T, int D>
-int launch_rows(const void* q, const void* k, const void* v, const float* R, const float* b_nd,
-                const uint8_t* mask, void* out, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize,
-                float alpha, cudaStream_t stream) {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if constexpr (D != WIDE) {
-    if (smem_bytes<T, D>(64, T_keys, d, nbasis, bandsize) <= (size_t)limit)
-      return launch<T, D, 64>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
-  }
-  if constexpr (D > 192 || D == WIDE) {
-    if (smem_bytes<T, D>(32, T_keys, d, nbasis, bandsize) > (size_t)limit)
-      return launch<T, D, 16>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
-  }
-  return launch<T, D, 32>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
+int rows_per_block(int T_keys, int nbasis, int bandsize, int limit) {
+  if (D == STREAMED) return 32;
+  if (smem_bytes<T, D>(64, T_keys, nbasis, bandsize) <= (size_t)limit) return 64;
+  if (D > 192 && smem_bytes<T, D>(32, T_keys, nbasis, bandsize) > (size_t)limit) return 16;
+  return 32;
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, const float* R, const float* b_nd,
-               const uint8_t* mask, void* out, int B, int H, int t, int T_keys, int d, int nbasis, int bandsize,
-               float alpha, cudaStream_t stream) {
-  switch (d) {
-    case 64:
-      return launch_rows<T, 64>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
-    case 128:
-      return launch_rows<T, 128>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
-    case 192:
-      return launch_rows<T, 192>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
-    case 256:
-      return launch_rows<T, 256>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
-    default:
-      if (d > 256 && d <= MAX_WIDE_D && d % WIDE_CHUNK == 0)
-        return launch_rows<T, WIDE>(q, k, v, R, b_nd, mask, out, B, H, t, T_keys, d, nbasis, bandsize, alpha,
-                                    stream);
-      return (int)cudaErrorInvalidValue;
+int smem_limit(int* limit) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return (int)cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+template <typename T, int D>
+int launch_rows(const void* q, const void* k, const void* v, const float* R, const float* b_nd,
+                const uint8_t* mask, void* out, float* scratch, int B, int H, int t, int T_keys, int d, int nbasis,
+                int bandsize, float alpha, cudaStream_t stream) {
+  int limit = 0;
+  const int err = smem_limit(&limit);
+  if (err != 0) return err;
+  const int rows = rows_per_block<T, D>(T_keys, nbasis, bandsize, limit);
+  if constexpr (D != STREAMED) {
+    if (rows == 64)
+      return launch<T, D, 64>(q, k, v, R, b_nd, mask, out, scratch, B, H, t, T_keys, d, nbasis, bandsize, alpha,
+                              stream);
   }
+  if constexpr (D > 192) {
+    if (rows == 16)
+      return launch<T, D, 16>(q, k, v, R, b_nd, mask, out, scratch, B, H, t, T_keys, d, nbasis, bandsize, alpha,
+                              stream);
+  }
+  return launch<T, D, 32>(q, k, v, R, b_nd, mask, out, scratch, B, H, t, T_keys, d, nbasis, bandsize, alpha, stream);
+}
+
+// f32 scratch floats a call needs: the output's (B, H, t, d) accumulators at
+// the streamed d past KEY_CHUNK keys, else none
+size_t scratch_floats(int B, int H, int t, int T_keys, int d) {
+  return streamed_d(d) && T_keys > KEY_CHUNK ? (size_t)B * H * t * d : 0;
 }
 
 }  // namespace
 
-// q (B, H, t, d), k and v (B, H, T, d), d a multiple of 64 up to 512, any T:
+// q (B, H, t, d), k and v (B, H, T, d), d any multiple of 64, any T:
 // contiguous and 16-byte aligned, all f32 (is_bf16 = 0) or all bf16
 // (is_bf16 = 1).  R (B, H, t, nbasis) f32 and b_nd (nbasis, bandsize) f32,
-// any bandsize, both null for no relative bias.  mask
-// (B, t, T) bool bytes, null for no mask.  out (B, H, t, d) in q's dtype.
+// any bandsize, both null for no relative bias.  mask (B, t, T) bool bytes,
+// null for no mask.  out (B, H, t, d) in q's dtype.  scratch: f32 of
+// vpt_windowed_attention_fwd_scratch floats (null where that is 0).
 // Returns a cudaError_t (0 = launched).
 extern "C" int vpt_windowed_attention_fwd(const void* q, const void* k, const void* v, const float* R,
-                                          const float* b_nd, const uint8_t* mask, void* out, int B, int H, int t,
-                                          int T, int d, int nbasis, int bandsize, int is_bf16, float alpha,
-                                          void* stream) {
-  if (B < 1 || H < 1 || t < 1 || T < 1) return (int)cudaErrorInvalidValue;
+                                          const float* b_nd, const uint8_t* mask, void* out, float* scratch, int B,
+                                          int H, int t, int T, int d, int nbasis, int bandsize, int is_bf16,
+                                          float alpha, void* stream) {
+  if (B < 1 || H < 1 || t < 1 || T < 1 || !kernel_d(d)) return (int)cudaErrorInvalidValue;
   if ((R == nullptr) != (b_nd == nullptr)) return (int)cudaErrorInvalidValue;
   if (R != nullptr && (nbasis < 1 || nbasis > MAX_NBASIS || bandsize < 1))
     return (int)cudaErrorInvalidValue;
+  if (scratch == nullptr && scratch_floats(B, H, t, T, d) > 0) return (int)cudaErrorInvalidValue;
   if (R == nullptr) nbasis = bandsize = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, R, b_nd, mask, out, B, H, t, T, d, nbasis, bandsize, alpha, s);
-  return dispatch_d<float>(q, k, v, R, b_nd, mask, out, B, H, t, T, d, nbasis, bandsize, alpha, s);
+  return with_depth(d, [&](auto depth) {
+    constexpr int D = decltype(depth)::value;
+    if (is_bf16)
+      return launch_rows<__nv_bfloat16, D>(q, k, v, R, b_nd, mask, out, scratch, B, H, t, T, d, nbasis, bandsize,
+                                           alpha, s);
+    return launch_rows<float, D>(q, k, v, R, b_nd, mask, out, scratch, B, H, t, T, d, nbasis, bandsize, alpha, s);
+  });
+}
+
+// The f32 scratch, in floats, that vpt_windowed_attention_fwd needs at this shape.
+extern "C" long long vpt_windowed_attention_fwd_scratch(int B, int H, int t, int T, int d) {
+  return (long long)scratch_floats(B, H, t, T, d);
+}
+
+// The dynamic shared memory, in bytes, of the forward's launch at this shape
+// (it does not depend on t or B and H); a negative cudaError_t on failure.
+extern "C" int vpt_windowed_attention_fwd_smem(int T, int d, int nbasis, int bandsize, int is_bf16) {
+  int limit = 0;
+  const int err = smem_limit(&limit);
+  if (err != 0) return -err;
+  if (T < 1 || !kernel_d(d)) return -(int)cudaErrorInvalidValue;
+  return with_depth(d, [&](auto depth) {
+    constexpr int D = decltype(depth)::value;
+    if (is_bf16) {
+      return (int)smem_bytes<__nv_bfloat16, D>(rows_per_block<__nv_bfloat16, D>(T, nbasis, bandsize, limit), T,
+                                               nbasis, bandsize);
+    }
+    return (int)smem_bytes<float, D>(rows_per_block<float, D>(T, nbasis, bandsize, limit), T, nbasis, bandsize);
+  });
 }
 
 extern "C" const char* vpt_cuda_error_string(int err) {

@@ -16,15 +16,19 @@ the keys in chunks of that many through shared memory (an online softmax in
 B1, three sweeps over the chunks in B2's first pass).  They take a band
 table b_nd of any length: up to 512 offsets it is held in shared memory,
 past that (attention_memory_size - timesteps > 512) the kernels read it
-from device memory.  They take every head dim that is a multiple of 64 up
-to ``MAX_D`` = 512: those of the published models (64, 128, 192) and 256
-whole, the wider ones 64 columns of K and V at a time.  A call of any other
-head dim up to 512 (the tiny test configs' 16, hidsize 512 at 16 heads'
-32, 96) runs at ``kernel_d(d)``, the next multiple of 64: its q, k and v
-are zero-padded to it, which changes neither Q·Kᵀ nor the real columns of
-the output, and the output and gradients are sliced back.  The softmax
-scale is the unpadded d's, and the operators' FLOP formulas see the
-unpadded shapes.  A head dim past 512 raises, naming itself.
+from device memory.  They take every head dim d ≥ 1, as vpt_tpu's attention
+does: the multiples of 64 run whole, those of the published models (64,
+128, 192) and 256 in instances of their own, every wider one (hidsize 6144
+at 16 heads, 1024 at 1 head, ...) in one instance whose shared memory does
+not depend on d, which streams Q, K, V and dO 64 columns at a time; its
+accumulators that outlive a pass (past 512 keys, or over B2's query tiles)
+wait in an f32 scratch that the wrapper allocates.  A call of any other
+head dim (the tiny test configs' 16, hidsize 512 at 16 heads' 32, 96,
+520) runs at ``kernel_d(d)``, the next multiple of 64: its q, k and v are
+zero-padded to it, which changes neither Q·Kᵀ nor the real columns of the
+output, and the output and gradients are sliced back.  The softmax scale
+is the unpadded d's, and the operators' FLOP formulas see the unpadded
+shapes.
 
 Both kernels run their products on tensor cores (mma.sync), at the accuracy
 of the input type: f32 operands are split into TF32 hi and lo parts and
@@ -62,8 +66,7 @@ from vpt_tpu_torch.ops.rel_bias import banded_bias_matrix, relattn_bias
 
 KERNEL = "windowed_attention_fwd"
 BWD_KERNEL = "windowed_attention_bwd"
-D_STEP = 64  # the kernels take every head dim that is a multiple of this ...
-MAX_D = 512  # ... up to this (csrc/attention_mma.cuh MAX_WIDE_D)
+D_STEP = 64  # the kernels take every head dim that is a multiple of this (csrc/attention_mma.cuh D_CHUNK)
 KEY_CHUNK = 512  # keys whose logits a block of the kernels holds at once (csrc/attention_mma.cuh)
 MAX_NBASIS = 16
 ALIGN = 16  # bytes: the kernels copy q, k, v and dO 16 bytes at a time
@@ -120,9 +123,13 @@ def _library() -> ctypes.CDLL:
     fn = lib.vpt_windowed_attention_fwd
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # q k v R b_nd mask out | B H t T d nbasis bandsize is_bf16 | alpha stream
-        fn.argtypes = [ptr] * 7 + [i32] * 8 + [ctypes.c_float, ptr]
+        # q k v R b_nd mask out scratch | B H t T d nbasis bandsize is_bf16 | alpha stream
+        fn.argtypes = [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
+        lib.vpt_windowed_attention_fwd_scratch.argtypes = [i32] * 5  # B H t T d
+        lib.vpt_windowed_attention_fwd_scratch.restype = ctypes.c_int64
+        lib.vpt_windowed_attention_fwd_smem.argtypes = [i32] * 5  # T d nbasis bandsize is_bf16
+        lib.vpt_windowed_attention_fwd_smem.restype = ctypes.c_int
         lib.vpt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -133,11 +140,16 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.vpt_windowed_attention_bwd
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # q k v dout R b_nd mask dq dk dv dR db stats partial | B H t T d nbasis bandsize is_bf16 | alpha stream
-        fn.argtypes = [ptr] * 14 + [i32] * 8 + [ctypes.c_float, ptr]
+        # q k v dout R b_nd mask dq dk dv dR db stats partial scratch | B H t T d nbasis bandsize is_bf16 |
+        # alpha stream
+        fn.argtypes = [ptr] * 15 + [i32] * 8 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
         lib.vpt_windowed_attention_bwd_rows.argtypes = [i32] * 5  # T d nbasis bandsize is_bf16
         lib.vpt_windowed_attention_bwd_rows.restype = ctypes.c_int
+        lib.vpt_windowed_attention_bwd_scratch.argtypes = [i32] * 5  # B H t T d
+        lib.vpt_windowed_attention_bwd_scratch.restype = ctypes.c_int64
+        lib.vpt_windowed_attention_bwd_smem.argtypes = [i32] * 6  # T d nbasis bandsize is_bf16 pass
+        lib.vpt_windowed_attention_bwd_smem.restype = ctypes.c_int
         lib.vpt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -159,9 +171,9 @@ def attention_flops(q, k, R, b_nd) -> Tuple[int, int]:
 
 def kernel_d(d: int) -> int:
     """The head dim the kernels run a call of head dim ``d`` at: the
-    multiple of 64 at or above it; past ``MAX_D`` a ValueError."""
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"head dim {d} not supported by the kernels (they take 1 to {MAX_D}, "
+    multiple of 64 at or above it; below 1 a ValueError."""
+    if d < 1:
+        raise ValueError(f"head dim {d} not supported by the kernels (they take every d >= 1, "
                          f"multiples of {D_STEP} whole and the rest zero-padded)")
     return -(-d // D_STEP) * D_STEP
 
@@ -237,16 +249,36 @@ def _raise_on(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {lib.vpt_cuda_error_string(err).decode()} ({err})")
 
 
+def _scratch(floats: int, device) -> Optional[torch.Tensor]:
+    """The f32 scratch a kernel asks for at a shape, or None where it needs none."""
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats > 0 else None
+
+
+def launch_smem_bytes(T: int, d: int, nbasis: int, bandsize: int, dtype: torch.dtype) -> dict:
+    """The dynamic shared memory, in bytes, of B1's launch and B2's two
+    passes at this shape on the current card (``d`` a multiple of 64)."""
+    is_bf16 = int(dtype == torch.bfloat16)
+    fwd, bwd = _library(), _bwd_library()
+    out = {"B1": fwd.vpt_windowed_attention_fwd_smem(T, d, nbasis, bandsize, is_bf16),
+           "B2 pass 1": bwd.vpt_windowed_attention_bwd_smem(T, d, nbasis, bandsize, is_bf16, 1),
+           "B2 pass 2": bwd.vpt_windowed_attention_bwd_smem(T, d, nbasis, bandsize, is_bf16, 2)}
+    for name, n in out.items():
+        if n < 0:
+            _raise_on(fwd, -n, name)
+    return out
+
+
 def _run_fwd(q, k, v, mask, R, b_nd, alpha: float) -> torch.Tensor:
     B, H, t, d = q.shape
     T = k.shape[2]
     lib = _library()
     out = torch.empty_like(q)
+    scratch = _scratch(lib.vpt_windowed_attention_fwd_scratch(B, H, t, T, d), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.vpt_windowed_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(R), _ptr(b_nd), _ptr(mask),
-            out.data_ptr(), B, H, t, T, d,
+            out.data_ptr(), _ptr(scratch), B, H, t, T, d,
             R.shape[-1] if R is not None else 0,
             b_nd.shape[1] if b_nd is not None else 0,
             int(q.dtype == torch.bfloat16), alpha, stream,
@@ -270,6 +302,7 @@ def _run_bwd(q, k, v, mask, R, b_nd, dO, alpha: float):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     f32 = dict(dtype=torch.float32, device=q.device)
     stats = torch.empty(3 * B * H * t, **f32)  # per query row: softmax max, sum, rowdot
+    scratch = _scratch(lib.vpt_windowed_attention_bwd_scratch(B, H, t, T, d), q.device)
     dR = db = partial = None
     with torch.cuda.device(q.device):
         if R is not None:
@@ -282,7 +315,7 @@ def _run_bwd(q, k, v, mask, R, b_nd, dO, alpha: float):
         err = lib.vpt_windowed_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(), _ptr(R), _ptr(b_nd), _ptr(mask),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dR), _ptr(db), stats.data_ptr(), _ptr(partial),
-            B, H, t, T, d, nbasis, bandsize, is_bf16, alpha, stream,
+            _ptr(scratch), B, H, t, T, d, nbasis, bandsize, is_bf16, alpha, stream,
         )
     _raise_on(lib, err, BWD_KERNEL)
     global bwd_launches
