@@ -49,6 +49,7 @@ from vpt_tpu_torch.ops.int8 import quantized_model
 from vpt_tpu_torch.ops.resize import resize_bilinear
 from vpt_tpu_torch.parallel import mesh as pmesh
 from vpt_tpu_torch.spaces import DictType
+from vpt_tpu_torch.utils.profiling import count_h2d, span
 
 ENV_KWARGS = dict(  # reference: agent.py:47-54
     fov_range=[70, 70],
@@ -223,32 +224,40 @@ class MineRLAgent:
     def _step(self, img: np.ndarray, first: np.ndarray, stochastic: bool, state):
         """One policy step on ``state``; returns the packed (B, 23) decoded
         action and value, and the state after the step."""
-        img_t = torch.from_numpy(img).to(self.device, non_blocking=True)
+        with span("vpt_torch.agent.upload"):
+            img_t, first_t = torch.from_numpy(img), torch.from_numpy(first)
+            count_h2d(img_t, first_t)
+            img_t = img_t.to(self.device, non_blocking=True)
+            first_t = first_t.to(self.device, non_blocking=True)
         if self.resize_on_device:
-            img_t = resize_bilinear(img_t, self._resolution)  # float32; the policy scales it as it does uint8
-        first_t = torch.from_numpy(first).to(self.device, non_blocking=True)
+            with span("vpt_torch.agent.resize"):
+                img_t = resize_bilinear(img_t, self._resolution)  # float32; the policy scales it as it does uint8
         out, state = self.policy(img_t, first_t, state)
-        logits = {k: v[:, -1] for k, v in out["pi_logits"].items()}
-        noise = None
-        if stochastic and self.mesh is not None:  # the global batch's draw, this rank's rows of it
-            noise = dict_sample_noise(logits, self.head_specs, self._generator, self.global_batch_size, self._rows)
-        action = dict_sample(logits, self.head_specs, deterministic=not stochastic,
-                             generator=self._generator, noise=noise)
-        decoded = self.decoder.decode(action["buttons"][:, 0], action["camera"][:, 0])
-        return torch.cat([decoded, out["vpred"][:, -1].float()], dim=1), state
+        with span("vpt_torch.agent.sample"):
+            logits = {k: v[:, -1] for k, v in out["pi_logits"].items()}
+            noise = None
+            if stochastic and self.mesh is not None:  # the global batch's draw, this rank's rows of it
+                noise = dict_sample_noise(logits, self.head_specs, self._generator, self.global_batch_size,
+                                          self._rows)
+            action = dict_sample(logits, self.head_specs, deterministic=not stochastic,
+                                 generator=self._generator, noise=noise)
+            decoded = self.decoder.decode(action["buttons"][:, 0], action["camera"][:, 0])
+            return torch.cat([decoded, out["vpred"][:, -1].float()], dim=1), state
 
     def _prepare(self, minerl_obs, first):
-        img = self._env_obs_to_agent(minerl_obs)
-        b = img.shape[0]
-        if b != self.batch_size:
-            raise ValueError(f"got {b} obs for batch_size {self.batch_size}")
-        return img, np.zeros((b, 1), bool) if first is None else np.asarray(first, bool).reshape(b, 1)
+        with span("vpt_torch.agent.prep"):
+            img = self._env_obs_to_agent(minerl_obs)
+            b = img.shape[0]
+            if b != self.batch_size:
+                raise ValueError(f"got {b} obs for batch_size {self.batch_size}")
+            return img, np.zeros((b, 1), bool) if first is None else np.asarray(first, bool).reshape(b, 1)
 
     def dispatch_action(self, minerl_obs, first: Optional[np.ndarray] = None, stochastic: bool = True):
         """Enqueue one policy step and return a handle without waiting."""
-        img, first = self._prepare(minerl_obs, first)
-        packed, self.hidden_state = self._step(img, first, stochastic, self.hidden_state)
-        return packed, isinstance(minerl_obs, list)
+        with span("vpt_torch.agent.dispatch"):
+            img, first = self._prepare(minerl_obs, first)
+            packed, self.hidden_state = self._step(img, first, stochastic, self.hidden_state)
+            return packed, isinstance(minerl_obs, list)
 
     def initial_group_state(self):
         """Fresh recurrent state for one ``batch_size``-wide stream group, for
@@ -261,20 +270,24 @@ class MineRLAgent:
         """:meth:`dispatch_action` on the caller's recurrent state instead of
         ``hidden_state``; returns (handle, state after the step).  The ring
         cache's slot is written into ``state`` in place."""
-        img, first = self._prepare(minerl_obs, first)
-        packed, state = self._step(img, first, stochastic, state)
-        return (packed, isinstance(minerl_obs, list)), state
+        with span("vpt_torch.agent.dispatch"):
+            img, first = self._prepare(minerl_obs, first)
+            packed, state = self._step(img, first, stochastic, state)
+            return (packed, isinstance(minerl_obs, list)), state
 
     def collect_action(self, handle):
         """Wait for a dispatched step: one packed device→host copy, then the
         env-format action (a list of dicts iff the obs was a list)."""
-        packed, as_list = handle
-        packed = packed.cpu().numpy()
-        self._last_vpred = packed[:, 22:23]
-        env_action = env_action_from_decoded(packed)
-        if as_list:
-            return [{k: v[i] for k, v in env_action.items()} for i in range(self.batch_size)]
-        return {k: v[0] for k, v in env_action.items()}
+        with span("vpt_torch.agent.collect"):
+            packed, as_list = handle
+            with span("vpt_torch.agent.download"):
+                packed = packed.cpu().numpy()
+            with span("vpt_torch.agent.unpack"):
+                self._last_vpred = packed[:, 22:23]
+                env_action = env_action_from_decoded(packed)
+                if as_list:
+                    return [{k: v[i] for k, v in env_action.items()} for i in range(self.batch_size)]
+                return {k: v[0] for k, v in env_action.items()}
 
     def get_action(self, minerl_obs, first: Optional[np.ndarray] = None, stochastic: bool = True):
         """One policy step; returns a MineRL action dict (a list of dicts when

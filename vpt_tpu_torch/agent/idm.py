@@ -38,6 +38,7 @@ from vpt_tpu_torch.ops.int8 import quantized_model
 from vpt_tpu_torch.ops.resize import resize_image
 from vpt_tpu_torch.parallel import mesh as pmesh
 from vpt_tpu_torch.spaces import DictType
+from vpt_tpu_torch.utils.profiling import count_h2d, span
 
 # Resolution the published IDM expects its source videos at (reference:
 # run_inverse_dynamics_model.py:155 asserts 640x360 before labeling).
@@ -131,9 +132,12 @@ class IDMAgent:
         stack, and the state after it."""
         self._maybe_quantize()  # outside inference mode: the model outlives this call
         with torch.inference_mode():
-            img_t = torch.from_numpy(np.ascontiguousarray(img))
-            if self.device.type == "cuda":  # from pinned memory, the copy waits for nothing queued before it
-                img_t = img_t.pin_memory().to(self.device, non_blocking=True)
+            with span("vpt_torch.idm.upload"):
+                img_t = torch.from_numpy(np.ascontiguousarray(img))
+                if self.device.type == "cuda":  # from pinned memory, the copy waits for nothing queued before it
+                    img_t = img_t.pin_memory()
+                count_h2d(img_t)
+                img_t = img_t.to(self.device, non_blocking=True)
             first = torch.zeros(img.shape[:2], dtype=torch.bool, device=self.device)
             action, state, _ = self.policy.predict(img_t, first, state, deterministic=True)
         return action, state
@@ -199,8 +203,9 @@ class IDMAgent:
         """Wait for a dispatched forward and decode its labels to the MineRL
         action dict."""
         action, done = handle
-        if done is not None:
-            done.synchronize()
+        with span("vpt_torch.labeler.wait"):
+            if done is not None:
+                done.synchronize()
         return self._agent_action_to_env({k: v.numpy() for k, v in action.items()})
 
 
@@ -261,12 +266,13 @@ class StreamingIDMLabeler:
     def _harvest_one(self, out):
         """Wait for the oldest in-flight group and emit its owned labels."""
         group, handle = self._inflight.pop(0)
-        actions = self.agent.collect_actions(handle)
-        for row, (win_start, _) in enumerate(group):
-            begin = max(self._emitted, 0 if win_start == 0 else win_start + self._lo)
-            end = win_start + self._lo + self.stride
-            out.extend((i, {k: v[row, i - win_start] for k, v in actions.items()}) for i in range(begin, end))
-            self._emitted = max(self._emitted, end)
+        with span("vpt_torch.labeler.emit"):  # the wait for the forward (labeler.wait) inside
+            actions = self.agent.collect_actions(handle)
+            for row, (win_start, _) in enumerate(group):
+                begin = max(self._emitted, 0 if win_start == 0 else win_start + self._lo)
+                end = win_start + self._lo + self.stride
+                out.extend((i, {k: v[row, i - win_start] for k, v in actions.items()}) for i in range(begin, end))
+                self._emitted = max(self._emitted, end)
 
     def _label_pending(self, flush: bool = False):
         """Dispatch full window_batch groups (all pending ones when
@@ -278,7 +284,9 @@ class StreamingIDMLabeler:
             del self._pending[: self.window_batch]
             while len(self._inflight) >= self.max_inflight:
                 self._harvest_one(out)
-            handle = self.agent.dispatch_actions_batched(np.stack([w for _, w in group]))
+            with span("vpt_torch.labeler.stack"):
+                windows = np.stack([w for _, w in group])
+            handle = self.agent.dispatch_actions_batched(windows)
             self._inflight.append((group, handle))
         if flush:
             while self._inflight:
@@ -302,8 +310,9 @@ class StreamingIDMLabeler:
         while self._n_fed - self._next_win_start >= self.window:
             # the history holds exactly [n_fed - len(history), n_fed), which covers this window
             offset = self._next_win_start - (self._n_fed - len(self._history))
-            frames = list(self._history)[offset: offset + self.window]
-            self._pending.append((self._next_win_start, np.stack(frames)))
+            with span("vpt_torch.labeler.cut"):
+                frames = list(self._history)[offset: offset + self.window]
+                self._pending.append((self._next_win_start, np.stack(frames)))
             self._next_win_start += self.stride
         return self._label_pending()
 
@@ -312,9 +321,10 @@ class StreamingIDMLabeler:
         with one window of the last ``window`` frames."""
         out = self._label_pending(flush=True)
         if self._emitted < self._n_fed:
-            tail = list(self._history)  # min(window, n_fed) frames
-            tail_start = self._n_fed - len(tail)
-            actions = self.agent.predict_actions_batched(np.stack(tail)[None])
+            with span("vpt_torch.labeler.stack"):
+                tail = np.stack(self._history)[None]  # min(window, n_fed) frames
+            tail_start = self._n_fed - tail.shape[1]
+            actions = self.agent.predict_actions_batched(tail)
             out.extend((i, {k: v[0, i - tail_start] for k, v in actions.items()})
                        for i in range(self._emitted, self._n_fed))
             self._emitted = self._n_fed

@@ -50,6 +50,11 @@ from vpt_tpu_torch.models.transformer import (
     masked_attention_initial_state,
     ring_initial_state,
 )
+from vpt_tpu_torch.utils.profiling import span
+
+# the graphs' three parts, as spans (utils/profiling.py): every path through
+# either policy (forward, and the split API that sp and pp drive) opens them
+CNN_SPAN, BLOCKS_SPAN, HEADS_SPAN = "vpt_torch.policy.cnn", "vpt_torch.policy.blocks", "vpt_torch.policy.heads"
 
 
 class ImgPreprocessing(nn.Module):
@@ -139,21 +144,19 @@ class MinecraftPolicy(nn.Module):
 
     def embed(self, img):
         """Pre-recurrence trunk: preprocess → CNN → [pre_lstm_ln] latents."""
-        x = self.img_process(self.img_preprocess(img))
-        return self.pre_lstm_ln(x) if self.pre_lstm_ln is not None else x
+        with span(CNN_SPAN):
+            x = self.img_process(self.img_preprocess(img))
+            return self.pre_lstm_ln(x) if self.pre_lstm_ln is not None else x
 
     def recurrent(self, x, first, state):
         if self.recurrent_layer is None:
             return x, state
-        return self.recurrent_layer(x, first, state)
+        with span(BLOCKS_SPAN):
+            return self.recurrent_layer(x, first, state)
 
     def latent(self, x):
         """Post-recurrence trunk: relu → lastlayer → final_ln."""
         return self.final_ln(self.lastlayer(F.relu(x)))
-
-    def forward(self, img, first, state):
-        x, state_out = self.recurrent(self.embed(img), first, state)
-        return self.latent(x), state_out
 
 
 class MinecraftAgentPolicy(nn.Module):
@@ -174,16 +177,8 @@ class MinecraftAgentPolicy(nn.Module):
         """:param img: (B, T, H, W, C) uint8; first: (B, T) bool
         :returns: ({"pi_logits": dict, "vpred_raw": (B, T, 1), "vpred":
             denormalised (B, T, 1)}, state_out)"""
-        latent, state_out = self.net(img, first, state)
-        return self._heads(latent, action_mask), state_out
-
-    def _heads(self, latent, action_mask: Optional[Dict] = None) -> Dict:
-        vpred_raw = self.value_head(latent)
-        return {
-            "pi_logits": self.pi_head(latent, mask=action_mask),
-            "vpred_raw": vpred_raw,
-            "vpred": self.value_head.denormalize(vpred_raw),
-        }
+        x, state_out = self.recurrent(self.embed(img), first, state)
+        return self.heads_from_recurrent(x, action_mask), state_out
 
     # the split points of the JAX package's pipeline-parallel step: forward
     # equals heads_from_recurrent(recurrent_layer(embed(img)))
@@ -192,9 +187,16 @@ class MinecraftAgentPolicy(nn.Module):
         """Pre-recurrence trunk: preprocess → CNN → [pre_lstm_ln] latents."""
         return self.net.embed(img)
 
-    def heads_from_recurrent(self, x):
+    def heads_from_recurrent(self, x, action_mask: Optional[Dict] = None) -> Dict:
         """Post-recurrence tail: relu → lastlayer → final_ln → heads."""
-        return self._heads(self.net.latent(x))
+        with span(HEADS_SPAN):
+            latent = self.net.latent(x)
+            vpred_raw = self.value_head(latent)
+            return {
+                "pi_logits": self.pi_head(latent, mask=action_mask),
+                "vpred_raw": vpred_raw,
+                "vpred": self.value_head.denormalize(vpred_raw),
+            }
 
     def recurrent(self, x, first, state):
         """The recurrent blocks (the state passes through where there are none)."""
@@ -275,12 +277,13 @@ class InverseActionNet(nn.Module):
         """uint8 (B, T, H, W, C) → (B, T, hidsize) latents before the blocks;
         with ``time_slice``, the latents of those steps only, equal to that
         slice of the whole window's."""
-        x = self.img_preprocess(img)
-        if self.conv3d_layer is None:
-            return self.img_process(x if time_slice is None else x[:, time_slice])
-        if time_slice is not None:
-            return self.img_process.forward_nchw(*self.conv3d_front_slice(x, time_slice))
-        return self.img_process.forward_nchw(*self.conv3d_front(x))
+        with span(CNN_SPAN):
+            x = self.img_preprocess(img)
+            if self.conv3d_layer is None:
+                return self.img_process(x if time_slice is None else x[:, time_slice])
+            if time_slice is not None:
+                return self.img_process.forward_nchw(*self.conv3d_front_slice(x, time_slice))
+            return self.img_process.forward_nchw(*self.conv3d_front(x))
 
     def conv3d_front_slice(self, x: torch.Tensor, time_slice: slice):
         """:meth:`conv3d_front`'s output frames ``time_slice`` alone, from the
@@ -297,11 +300,11 @@ class InverseActionNet(nn.Module):
         y = layer(xs.permute(0, 4, 1, 2, 3), padding=(0, *pad_hw))  # (B, C', t, H', W')
         return y.transpose(1, 2).flatten(0, 1), y.shape[0], y.shape[2]
 
-    def forward(self, img, first, state):
-        x, state_out = self.recurrent_layer(self.embed(img), first, state)
+    def tail(self, x):
+        """The blocks' output → the action head's input."""
         x = F.relu(x)
         self.lastlayer(x)  # reference quirk: computed, then overwritten (policy.py:390-391)
-        return self.final_ln(x), state_out
+        return self.final_ln(x)
 
 
 class InverseActionPolicy(nn.Module):
@@ -318,11 +321,13 @@ class InverseActionPolicy(nn.Module):
     def forward(self, img, first, state, action_mask: Optional[Dict] = None):
         """:param img: (B, T, H, W, C) uint8 video frames; first: (B, T) bool
         :returns: ({"pi_logits": dict}, state_out)"""
-        latent, state_out = self.net(img, first, state)
-        return {"pi_logits": self.pi_head(latent, mask=action_mask)}, state_out
+        x, state_out = self.recurrent(self.net.embed(img), first, state)
+        with span(HEADS_SPAN):
+            return {"pi_logits": self.pi_head(self.net.tail(x), mask=action_mask)}, state_out
 
     def recurrent(self, x, first, state):
-        return self.net.recurrent_layer(x, first, state)
+        with span(BLOCKS_SPAN):
+            return self.net.recurrent_layer(x, first, state)
 
     def embed_time_slice(self, img, time_slice: slice):
         return self.net.embed(img, time_slice)
@@ -330,7 +335,8 @@ class InverseActionPolicy(nn.Module):
     def heads_from_recurrent(self, x):
         """The forward's tail from the blocks' output (``lastlayer``, whose
         result the forward discards, is not run)."""
-        return {"pi_logits": self.pi_head(self.net.final_ln(F.relu(x)))}
+        with span(HEADS_SPAN):
+            return {"pi_logits": self.pi_head(self.net.final_ln(F.relu(x)))}
 
     def predict(self, img, first, state, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):

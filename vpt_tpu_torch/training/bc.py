@@ -73,7 +73,7 @@ from vpt_tpu_torch.ops.int8 import qat_mask
 from vpt_tpu_torch.parallel import mesh as pmesh
 from vpt_tpu_torch.spaces import DictType
 from vpt_tpu_torch.utils.metrics import MetricsLogger
-from vpt_tpu_torch.utils.profiling import compiled_flops
+from vpt_tpu_torch.utils.profiling import compiled_flops, count_h2d, span
 
 # the batch entries a step consumes, and their tensor types
 TRAIN_KEYS = {"frames": torch.uint8, "buttons": torch.int64, "camera": torch.int64,
@@ -205,12 +205,13 @@ class ClippedAdam:
 
     def step(self) -> torch.Tensor:
         """Clip and apply the gradients; returns their global norm before the clip."""
-        for p in self.params:
-            if p.grad is None:  # as in optax, a parameter the loss does not reach still decays
-                p.grad = torch.zeros_like(p)
-        norm = pmesh.clip_grad_norm_(self.params, self.max_grad_norm)  # torch's own for plain tensors
-        self.adam.step()
-        return norm
+        with span("vpt_torch.bc.optimizer"):
+            for p in self.params:
+                if p.grad is None:  # as in optax, a parameter the loss does not reach still decays
+                    p.grad = torch.zeros_like(p)
+            norm = pmesh.clip_grad_norm_(self.params, self.max_grad_norm)  # torch's own for plain tensors
+            self.adam.step()
+            return norm
 
     def state_dict(self) -> Dict:
         """Adam's whole state in the single-device layout (one group in
@@ -475,9 +476,11 @@ class BCTrainer(CheckpointMixin):
     # ------------------------------------------------------------------- step
 
     def to_device(self, batch) -> Dict[str, torch.Tensor]:
-        if not isinstance(batch["frames"], torch.Tensor):
-            batch = batch_to_tensors(batch)
-        return {k: batch[k].to(self.device, dtype) for k, dtype in TRAIN_KEYS.items()}
+        with span("vpt_torch.bc.to_device"):
+            if not isinstance(batch["frames"], torch.Tensor):
+                batch = batch_to_tensors(batch)
+            count_h2d(*(batch[k] for k in TRAIN_KEYS))
+            return {k: batch[k].to(self.device, dtype) for k, dtype in TRAIN_KEYS.items()}
 
     def masked_nll(self, batch: Dict[str, torch.Tensor], state):
         """(Σ −logp·mask, state_out) of one chunk (on a mesh under sp, of
@@ -500,12 +503,14 @@ class BCTrainer(CheckpointMixin):
         self.init()
         batch = self.to_device(batch)
         self.optimizer.zero_grad()
-        nll, state_out, n = self._scored_nll(batch, state)
-        # normalised by B·T: at T=1 this is the reference's sum(-logprob)/BATCH_SIZE
-        loss = nll / n
-        loss.backward()
-        if self.model is not None:
-            self.model.sync_grads()
+        with span("vpt_torch.bc.forward"):
+            nll, state_out, n = self._scored_nll(batch, state)
+            # normalised by B·T: at T=1 this is the reference's sum(-logprob)/BATCH_SIZE
+            loss = nll / n
+        with span("vpt_torch.bc.backward"):
+            loss.backward()
+            if self.model is not None:
+                self.model.sync_grads()
         grad_norm = self.optimizer.step()
         self.step_count += 1
         return map_state(torch.Tensor.detach, state_out), self._global_loss(loss), grad_norm
