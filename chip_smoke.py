@@ -227,7 +227,8 @@ there is no CUDA device.
 
 times kernels B1 and B2 alone, in float32 and bfloat16, at every shape of at
 most 512 keys that PERF.md's kernel table holds (the 2x chunk, the IDM's
-labeling and training batches, the PPO minibatch), beside their plain
+labeling and training batches, the PPO minibatch, the 3x policy's BC
+chunk at d = 192), beside their plain
 versions, SDPA and their bounds (phases 1 and 2's build, then the timings of
 phases 3 and 6), and prints them as its last line.  It
 drives whichever vpt_tpu_torch package it imports, so run from an unpacked
@@ -677,10 +678,10 @@ def check_b1(dev):
     }
 
 
-def shape_times(timer, dev, B, H, t, maxlen, use_mask, label):
+def shape_times(timer, dev, B, H, t, maxlen, use_mask, label, d=128):
     """{dtype: the timing keys} of time_b1 or time_b2 at (B, H, t, T = t +
-    maxlen, d = 128) with the relative bias, in float32 and bfloat16."""
-    q, k, v, mask, R, b_nd = attention_inputs(dev, B, H, t, maxlen, 128, torch.float32, 0)
+    maxlen, d) with the relative bias, in float32 and bfloat16."""
+    q, k, v, mask, R, b_nd = attention_inputs(dev, B, H, t, maxlen, d, torch.float32, 0)
     mask = mask if use_mask else None
     extra = ()
     if timer is time_b2:
@@ -3785,11 +3786,14 @@ def probe_first_call(dev):
     return found
 
 
-# --time-kernels' shapes besides the 2x chunk: (kernel, label, B, H, t, mask), all T = t + 128 <= 512
-TIMED_SHAPES = (("B1", "IDM window", IDM_WINDOW_BATCH, 32, IDM_WINDOW, False),
-                ("B2", "IDM window", IDM_TRAIN_B, 32, IDM_WINDOW, False),
-                ("B1", "PPO minibatch", PPO_STREAMS // PPO_MINIBATCHES, 16, PPO_STEPS, True),
-                ("B2", "PPO minibatch", PPO_STREAMS // PPO_MINIBATCHES, 16, PPO_STEPS, True))
+# --time-kernels' shapes besides the 2x chunk: (kernel, label, B, H, t, d, mask), all T = t + 128 <= 512;
+# the 3x chunk is the 3x policy's BC step at 8 streams (d = 192)
+TIMED_SHAPES = (("B1", "IDM window", IDM_WINDOW_BATCH, 32, IDM_WINDOW, 128, False),
+                ("B2", "IDM window", IDM_TRAIN_B, 32, IDM_WINDOW, 128, False),
+                ("B1", "PPO minibatch", PPO_STREAMS // PPO_MINIBATCHES, 16, PPO_STEPS, 128, True),
+                ("B2", "PPO minibatch", PPO_STREAMS // PPO_MINIBATCHES, 16, PPO_STEPS, 128, True),
+                ("B1", "3x chunk", 8, 16, 128, 192, True),
+                ("B2", "3x chunk", 8, 16, 128, 192, True))
 
 
 def time_kernels(dev):
@@ -3803,9 +3807,9 @@ def time_kernels(dev):
         name = str(dtype)[6:]
         times[f"B1 {name}"] = dict(zip(TIME_KEYS, time_b1(qq, kk, vv, mask, R, b_nd)))
         times[f"B2 {name}"] = dict(zip(TIME_KEYS, time_b2(qq, kk, vv, mask, R, b_nd, oo)))
-    for kernel, label, B, H, t, use_mask in TIMED_SHAPES:
+    for kernel, label, B, H, t, d, use_mask in TIMED_SHAPES:
         timer = time_b1 if kernel == "B1" else time_b2
-        for name, row in shape_times(timer, dev, B, H, t, 128, use_mask, label).items():
+        for name, row in shape_times(timer, dev, B, H, t, 128, use_mask, label, d).items():
             times[f"{kernel} {name} {label}"] = row
     return times
 

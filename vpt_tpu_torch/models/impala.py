@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vpt_tpu_torch.models.layers import FanInInitLayer, GroupNorm, remat_call
+from vpt_tpu_torch.models.layers import REMAT_CNN_SPAN, FanInInitLayer, GroupNorm, remat_call
 
 
 def fold_frames(x_bthwc: torch.Tensor) -> torch.Tensor:
@@ -110,5 +110,5 @@ class ImpalaCNN(nn.Module):
         module's per-stack setting."""
         remat = self.remat if remat is None else remat
         for stack in self.stacks:
-            x = remat_call(stack, x) if remat else stack(x)
+            x = remat_call(stack, x, span_name=REMAT_CNN_SPAN) if remat else stack(x)
         return self.dense(x.reshape(x.shape[0], -1))  # NCHW flatten is channel-major

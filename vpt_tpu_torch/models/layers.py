@@ -25,17 +25,38 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vpt_tpu_torch.ops.int8 import QuantLinear, fake_quant_kernel
+from vpt_tpu_torch.utils.profiling import count, span
 
 LN_EPS = 1e-5  # torch LayerNorm/GroupNorm default epsilon
 
+# the recompute's spans (utils/profiling.py): the CNN's (a frame chunk's, or
+# an Impala stack's) and a residual block's, which holds kernel B1
+REMAT_CNN_SPAN, REMAT_BLOCK_SPAN = "vpt_torch.remat.cnn", "vpt_torch.remat.block"
 
-def remat_call(fn, *args):
+
+def remat_call(fn, *args, span_name: str):
     """``fn(*args)``, its activations recomputed in the backward instead of
     kept (non-reentrant ``torch.utils.checkpoint``; the counterpart of flax's
-    ``nn.remat``).  With grad off nothing is kept anyway: a plain call."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    ``nn.remat``).  With grad off nothing is kept anyway: a plain call.
+
+    The checkpoint calls ``fn`` first for the forward, then again in the
+    backward; each later call, the recompute alone, runs inside the span
+    ``span_name`` and counts one under ``remat_recomputes`` while a profiler
+    records."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    forwarded = False
+
+    def run(*a):
+        nonlocal forwarded
+        if not forwarded:
+            forwarded = True
+            return fn(*a)
+        count("remat_recomputes")
+        with span(span_name):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 @torch.no_grad()

@@ -43,7 +43,7 @@ from vpt_tpu_torch.config import PolicyConfig
 from vpt_tpu_torch.device import torch_dtype
 from vpt_tpu_torch.models.heads import DictActionHead, HeadSpec, ScaledMSEHead, dict_kl, dict_logprob, dict_sample
 from vpt_tpu_torch.models.impala import ImpalaCNN, fold_frames
-from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm, remat_call
+from vpt_tpu_torch.models.layers import REMAT_CNN_SPAN, FanInInitLayer, LayerNorm, remat_call
 from vpt_tpu_torch.models.transformer import (
     ResidualRecurrentBlocks,
     lstm_initial_state,
@@ -120,7 +120,7 @@ class ImgObsProcess(nn.Module):
         if not (chunks > 1 and n % chunks == 0 and n > chunks):
             return self.cnn.forward_nchw(x)
         if self.remat:
-            return torch.cat([remat_call(self._cnn_chunk, xc) for xc in x.chunk(chunks)])
+            return torch.cat([remat_call(self._cnn_chunk, xc, span_name=REMAT_CNN_SPAN) for xc in x.chunk(chunks)])
         return torch.cat([self._cnn_chunk(xc) for xc in x.chunk(chunks)])
 
 

@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from vpt_tpu_torch.models.layers import FanInInitLayer, LayerNorm, normed_dense, remat_call
+from vpt_tpu_torch.models.layers import REMAT_BLOCK_SPAN, FanInInitLayer, LayerNorm, normed_dense, remat_call
 from vpt_tpu_torch.ops.attention import NEG_BIAS, attention_alpha, merge_heads, split_heads
 from vpt_tpu_torch.ops.masks import clipped_causal_mask, initial_state_mask
 from vpt_tpu_torch.ops.windowed_attention import windowed_attention_fwd
@@ -389,6 +389,6 @@ class ResidualRecurrentBlocks(nn.Module):
         )
         state_out = []
         for block, s in zip(self.blocks, state):
-            x, s = remat_call(block, x, first, s) if self.remat else block(x, first, s)
+            x, s = remat_call(block, x, first, s, span_name=REMAT_BLOCK_SPAN) if self.remat else block(x, first, s)
             state_out.append(s)
         return x, state_out

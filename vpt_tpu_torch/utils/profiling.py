@@ -7,10 +7,12 @@ vpt_tpu/utils/profiling.py).
   * ``span``, ``count``, ``count_h2d`` and ``counters``: the program's own
     spans (``vpt_torch.<layer>.<part>``: the agent's dispatch and collect,
     the labeler's staging and wait, the BC step's parts, the policy's CNN,
-    blocks and heads) and integer counters (``h2d_bytes``,
-    ``h2d_pageable_bytes``), recorded only while a ``torch.profiler``
-    session records.  With no profiler a span is one check of well under
-    a microsecond and a shared null context, and a count adds nothing.  A
+    blocks and heads, the backward's recompute of a remat'd CNN chunk or
+    stack and of a block) and integer counters (``h2d_bytes``,
+    ``h2d_pageable_bytes``, ``remat_recomputes``), recorded only while a
+    ``torch.profiler`` session records.  With no profiler a span is one
+    check of well under a microsecond and a shared null context, and a
+    count adds nothing.  A
     span is a ``record_function`` range, so it lands in the session's
     Chrome trace on the clock of its kernels and copies; the trace keeps a
     span's name and times but not its arguments, so spans of one request
