@@ -9,7 +9,8 @@ Phases, each of which fails the run if it fails:
      meanwhile, the native host resize, csrc/host_resize.cpp, with g++: the
      run fails unless it loads), and count the tensor-core instructions
      (HMMA, HGMMA) of each kernel in the built library's SASS (cuobjdump): a
-     kernel with none fails the run;
+     kernel with none fails the run, but for the passes that multiply no
+     matrices (B2's sum of the d b_nd partials, C1's split of the weights);
   3. kernel B1 (windowed attention forward) against its plain PyTorch
      version at the 2x chunk shape (B=4, H=16, t=128, T=256, d=128) and at
      d = 64, 192 and 256, with mask and relative bias, with neither, with the
@@ -43,13 +44,14 @@ Phases, each of which fails the run if it fails:
      convolution disagreement);
      (b) five optimizer steps at B=4, T=128 with the state carried across
      chunks, per-stream resets and a padded tail, launching B1 and B2 once
-     per block and step;
+     per block and step and C1 14 times a step (every conv of the CNN's
+     forward but the first, which takes the 3 RGB channels);
      (c) remat with the CNN in 8 frame chunks: one step at B=2 against the
      same chunked step without remat (loss 1e-6 relative, grads at (a)'s
      rules) and the chunked step against the whole CNN's (loss 1e-4, grads
      on relative L2 as in 9(a)); then three steps at the JAX default batch,
      B=8, T=128: ms a step and the peak; B1 twice a block and step (the
-     recompute), B2 once;
+     recompute), B2 once, C1 224 times (14 a chunk, forward and recompute);
   8. the 4x inverse dynamics model (IDM_4X_KWARGS: hidsize 4096, 32 heads,
      2 blocks, Impala width 16, conv3d front; random weights from seed 0):
      (a) its logits and one IDMTrainer.train_step (B=1, an 8-frame window) on
@@ -57,17 +59,19 @@ Phases, each of which fails the run if it fails:
      (b) StreamingIDMLabeler over 512 synthetic 640x360 frames (window 128,
      stride 64, 4 windows a forward), in float32 and in bfloat16: every frame
      labeled once, in order, each label its owning window's direct
-     prediction, B1 launched once per block and forward; frames/s, the host
+     prediction, B1 launched once per block and forward, C1 15 times a
+     forward in float32 (every conv behind the conv3d) and never in
+     bfloat16; frames/s, the host
      resize and the device forward each timed alone, the peak memory and the
      forward's split (conv3d, Impala CNN, blocks, head);
      (c) four IDM train steps at B=3 windows of T=128 in float32 (B1 and B2
-     once per block and step), ms/step, frames/s, peak memory and the
-     step's split;
+     once per block and step, C1 15 times a step), ms/step, frames/s, peak
+     memory and the step's split;
      (d) IDMAgent.predict_actions on 512 frames (T = 640 keys, past the
      kernels' 512-key chunk), its logits against the same forward with the
      plain attention on the card, B1 once per block;
      (e) three IDM train steps at 8 windows of 128 with remat and the CNN in
-     8 chunks: ms a step and the peak;
+     8 chunks: ms a step and the peak, C1 240 times a step;
      and (b)'s device forward with bfloat16 parameters;
   9. KL-anchored PPO on the 2x policy (random weights from seed 0):
      (a) 2 streams x 16 steps collected on the card, then one update
@@ -213,6 +217,12 @@ Phases, each of which fails the run if it fails:
      7(a)'s limits, then a step whose launches are counted, B1 and B2 once
      each;
      and the phase's seconds.
+ 17. kernel C1 (the f32 3x3 convolution forward, csrc/conv3x3_fwd.cu) at the
+     13 convolutions of the cells' Impala CNNs (C1_SHAPES) on 8 frames, with
+     a bias and the ReLU: against its plain version (cuDNN's f32 conv with
+     TF32 off, then ReLU) within C1_CHECK_TOL of the output's scale, and
+     against float64 within twice the plain version's error; one launch a
+     call.
 Phases 3 and 6 also check both kernels past 512 keys (T = 640 and 1152) and
 time them at the IDM's long-call shape and at the PPO minibatch's.  The CPU
 side of every train step held against the card (7(a), 8(a), 9(a), 11(c),
@@ -230,7 +240,9 @@ most 512 keys that PERF.md's kernel table holds (the 2x chunk, the IDM's
 labeling and training batches, the PPO minibatch, the 3x policy's BC
 chunk at d = 192), beside their plain
 versions, SDPA and their bounds (phases 1 and 2's build, then the timings of
-phases 3 and 6), and prints them as its last line.  It
+phases 3 and 6), and kernel C1 at the 13 f32 3x3 convolutions of the
+cells' Impala CNNs (C1_SHAPES) beside its plain version, cuDNN's f32 fprop
+with TF32 off and its bound, and prints them as its last line.  It
 drives whichever vpt_tpu_torch package it imports, so run from an unpacked
 older commit with this file copied in, it times that commit's kernels by the
 same clock, for a comparison inside one call.
@@ -266,6 +278,10 @@ StreamingIDMLabeler run of its own, its BC step beside no 7(b) time).
 
 builds, then runs phase 16 alone (on a fresh process its SDPA and plain
 timings pay first calls that phase 6 pays in the whole script).
+
+    python3 chip_smoke.py --c1
+
+builds, then runs phase 17 alone.
 """
 
 import argparse
@@ -292,7 +308,7 @@ HBM_BYTES_PER_S = 3.35e12
 PRODUCT_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 SPIN_CYCLES_PER_S = 2.0e9  # the H100 SXM's top SM clock is 1.98 GHz: a spin of this many cycles lasts >= 1 s
 TENSOR_CORE_OPS = re.compile(r"\b(HMMA|HGMMA)\b")
-KERNELS = ("windowed_attention_fwd", "windowed_attention_bwd")
+KERNELS = ("windowed_attention_fwd", "windowed_attention_bwd", "conv3x3_fwd")
 F32_TOL, BF16_TOL = 1e-4, 3e-2
 STEP_TOL = 2e-3  # per-step logits and vpred, float32, 2x width (as the full-geometry parity tests)
 # train step, card against CPU, float32: loss and grad norm relative; each
@@ -335,6 +351,12 @@ TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 # output, 128 channels at 128x128 for the 2x policy, 256 for the 4x IDM) is then 1.1-2.1 GB a buffer in f32,
 # not 8.6-17 GB, while each convolution still takes 128 frames, a full T=128 chunk of one stream.
 REMAT_CHUNKS = 8
+# C1's launches a forward of the main path's f32 CNNs: every 3x3 conv of the 2x policy's Impala stack but
+# its first (3 RGB channels), and all 15 of the 4x IDM's (behind its conv3d, from 128 channels)
+C1_POLICY_CONVS, C1_IDM_CONVS = 14, 15
+# phase 17: frames a shape, and C1's largest gap to its plain version over the output's largest
+# magnitude (the card tests' bound against float64 at ragged shapes; one TF32 product a multiply reads ~1e-4)
+C1_CHECK_N, C1_CHECK_TOL = 8, 1e-5
 BC_REMAT_B, BC_REMAT_STEPS = 8, 3  # the JAX package's BC default batch (BCHyperparams.batch_size)
 IDM_REMAT_B, IDM_REMAT_STEPS = 8, 3  # the JAX package's IDM default batch (IDMHyperparams.batch_size)
 REMAT_LOSS_RTOL = 1e-6  # a step with remat against the same step without, on the card
@@ -353,10 +375,18 @@ def log(msg):
 
 
 def reset_launch_counts():
-    """Zero the attention wrapper's counts of B1's and B2's launches."""
+    """Zero the wrappers' counts of B1's, B2's and C1's launches."""
+    from vpt_tpu_torch.ops import conv
     from vpt_tpu_torch.ops import windowed_attention as wa
 
-    wa.launches = wa.bwd_launches = 0
+    wa.launches = wa.bwd_launches = conv.launches = 0
+
+
+def check_c1_launches(label, launches, expect):
+    """C1's launches in a main-path phase: exactly as many as its f32 convs
+    (a conv routed back to cuDNN would launch none)."""
+    if launches != expect:
+        raise AssertionError(f"{label}: C1 launched {launches} times, expected {expect}")
 
 
 def release_memory():
@@ -508,11 +538,12 @@ def demangled(names):
 
 def kernels_without_tensor_cores(counts):
     """The kernels of a library's counts that run no tensor-core instruction,
-    but for B2's pass that sums the d b_nd partials, which multiplies no
-    matrices; a library with no kernel at all fails too."""
+    but for the passes that multiply no matrices: B2's sum of the d b_nd
+    partials and C1's split of the weights into TF32 halves; a library with
+    no kernel at all fails too."""
     if not counts:
         return ["(no kernel in the listing)"]
-    return [f for f, n in counts.items() if n == 0 and "db_reduce" not in f]
+    return [f for f, n in counts.items() if n == 0 and "db_reduce" not in f and "split_weights" not in f]
 
 
 def check_tensor_cores(names):
@@ -1287,10 +1318,11 @@ def train_card_vs_cpu(dev, label="train_step", pair=None, **trainer_kw):
     return gpu, cpu
 
 
-def train_steps(trainer, dev, B=4, T=128, steps=5, label="BC train"):
+def train_steps(trainer, dev, B=4, T=128, steps=5, label="BC train", c1_per_step=None):
     """Phase 7(b) (and 11(c)): `steps` optimizer steps at (B, T) with the
     state carried, per-stream resets and a padded tail; B1 and B2 launch
-    once per block and step."""
+    once per block and step, and C1 `c1_per_step` times where given."""
+    from vpt_tpu_torch.ops import conv
     from vpt_tpu_torch.ops import windowed_attention as wa
 
     batches = [bc_batch(dev, B, T, trainer.cfg.img_shape[0], 100 + s,
@@ -1310,14 +1342,14 @@ def train_steps(trainer, dev, B=4, T=128, steps=5, label="BC train"):
         state, loss, norm = trainer.train_step(batch, state)
         losses.append(loss.item())  # synchronises
         times.append(time.perf_counter() - t0)
-    f_launches, b_launches = wa.launches, wa.bwd_launches
+    f_launches, b_launches, c1_launches = wa.launches, wa.bwd_launches, conv.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = 1e3 * sum(times[1:]) / (steps - 1)
     moved = max((p.detach() - b).abs().max().item() for p, b in zip(trainer.trainable_parameters(), before))
     log(f"{label} ({B}x{T}, 2x, f32): losses {[round(x, 6) for x in losses]}, last grad norm {norm.item():.4f}; "
         f"{step_ms:.1f} ms/step from the second step ({B * T / step_ms * 1e3:.1f} frames/s), "
         f"first step {times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB; largest parameter change {moved:.3e}; "
-        f"launches over {steps} steps: B1 {f_launches}, B2 {b_launches}")
+        f"launches over {steps} steps: B1 {f_launches}, B2 {b_launches}, C1 {c1_launches}")
     n_blocks = trainer.cfg.n_recurrence_layers if trainer.cfg.recurrence_type == "transformer" else 0
     if not all(np.isfinite(losses)) or not moved > 0:
         raise AssertionError(f"training did not run: losses {losses}, largest change {moved}")
@@ -1326,6 +1358,8 @@ def train_steps(trainer, dev, B=4, T=128, steps=5, label="BC train"):
     if (f_launches, b_launches) != (n_blocks * steps, n_blocks * steps):
         raise AssertionError(f"B1 launched {f_launches} and B2 {b_launches} times in {steps} steps, "
                              f"expected {n_blocks * steps} each")
+    if c1_per_step is not None:
+        check_c1_launches(f"{label}, {steps} steps", c1_launches, c1_per_step * steps)
 
     step_split(trainer, batches[0], B, T)
     return b_launches // steps, step_ms, peak_gb
@@ -1391,9 +1425,11 @@ def bc_remat_vs_plain(dev):
     return remat
 
 
-def remat_steps(trainer, batches, label, step):
+def remat_steps(trainer, batches, label, step, c1_per_step):
     """`step(batch)` on each batch (a trainer with remat): ms a step from the
-    second, frames/s and the peak; B1 twice and B2 once a block and step."""
+    second, frames/s and the peak; B1 twice and B2 once a block and step, C1
+    `c1_per_step` times."""
+    from vpt_tpu_torch.ops import conv
     from vpt_tpu_torch.ops import windowed_attention as wa
 
     B, T = batches[0]["mask"].shape
@@ -1405,19 +1441,20 @@ def remat_steps(trainer, batches, label, step):
         t0 = time.perf_counter()
         losses.append(step(batch).item())  # synchronises
         times.append(time.perf_counter() - t0)
-    launches = (wa.launches, wa.bwd_launches)
+    launches, c1_launches = (wa.launches, wa.bwd_launches), conv.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = 1e3 * sum(times[1:]) / (len(times) - 1)
     log(f"{label} ({B}x{T}, f32, remat, {REMAT_CHUNKS} CNN chunks): losses {[round(x, 6) for x in losses]}; "
         f"{step_ms:.1f} ms/step from the second step ({B * T / step_ms * 1e3:.1f} frames/s), first step "
         f"{times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB; launches over {len(batches)} steps: B1 "
-        f"{launches[0]}, B2 {launches[1]}")
+        f"{launches[0]}, B2 {launches[1]}, C1 {c1_launches}")
     n_blocks = trainer.cfg.n_recurrence_layers * len(batches)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: losses {losses}")
     if launches != (2 * n_blocks, n_blocks):
         raise AssertionError(f"{label}: B1 launched {launches[0]} and B2 {launches[1]} times, expected "
                              f"{(2 * n_blocks, n_blocks)}")
+    check_c1_launches(f"{label} with remat, {len(batches)} steps", c1_launches, c1_per_step * len(batches))
     return step_ms, peak_gb
 
 
@@ -1433,7 +1470,7 @@ def bc_remat_steps(trainer, dev, B=BC_REMAT_B, T=128, steps=BC_REMAT_STEPS):
         ctx["state"], loss, _ = trainer.train_step(batch, ctx["state"])
         return loss
 
-    return remat_steps(trainer, batches, "BC train", step)
+    return remat_steps(trainer, batches, "BC train", step, 2 * REMAT_CHUNKS * C1_POLICY_CONVS)
 
 
 def idm_batch(B, T, seed, masked_tail=None):
@@ -1575,6 +1612,7 @@ def idm_labeling(dev, frames, compute_dtype, **agent_kw):
     from vpt_tpu_torch.agent import IDMAgent, StreamingIDMLabeler
     from vpt_tpu_torch.config import IDM_4X_KWARGS
     from vpt_tpu_torch.models.policy import policy_initial_state
+    from vpt_tpu_torch.ops import conv
     from vpt_tpu_torch.ops import windowed_attention as wa
 
     agent = IDMAgent(IDM_4X_KWARGS, {}, device=dev, compute_dtype=compute_dtype, seed=0, **agent_kw)
@@ -1596,11 +1634,14 @@ def idm_labeling(dev, frames, compute_dtype, **agent_kw):
     labels.extend(labeler.finish())
     seconds = time.perf_counter() - t0
     launches, forwards, peak_gb = wa.launches, len(calls), torch.cuda.max_memory_allocated() / 1e9
+    c1_launches = conv.launches
     n = len(frames)
     if [i for i, _ in labels] != list(range(n)):
         raise AssertionError("the labeler did not label every frame once, in order")
     if launches != n_blocks * forwards:
         raise AssertionError(f"B1 launched {launches} times in {forwards} forwards, expected {n_blocks} a forward")
+    check_c1_launches(f"IDM labeling ({kind}), {forwards} forwards", c1_launches,
+                      C1_IDM_CONVS * forwards if compute_dtype == "float32" else 0)
 
     t0 = time.perf_counter()
     resized = np.stack([labeler._resize(f) for f in frames])
@@ -1625,7 +1666,7 @@ def idm_labeling(dev, frames, compute_dtype, **agent_kw):
     frames_per_forward = IDM_WINDOW_BATCH * IDM_WINDOW
     log(f"IDM labeling ({kind}): {n} frames of 640x360, window {IDM_WINDOW}, stride {IDM_STRIDE}, "
         f"{IDM_WINDOW_BATCH} windows a forward: {n / seconds:.1f} frames/s end to end ({seconds:.2f} s, "
-        f"{forwards} forwards, B1 launches {launches}); peak memory {peak_gb:.2f} GB; every label its owning "
+        f"{forwards} forwards, B1 launches {launches}, C1 {c1_launches}); peak memory {peak_gb:.2f} GB; every label its owning "
         f"window's direct prediction")
     log(f"  alone: host resize {1e3 * resize_s / n:.3f} ms a frame ({n / resize_s:.1f} frames/s); device "
         f"forward of {IDM_WINDOW_BATCH} windows {1e3 * forward_s:.1f} ms ({frames_per_forward / forward_s:.1f} "
@@ -1652,7 +1693,8 @@ def idm_forward_ms(dev, stack, calls=3, **agent_kw):
 
 def idm_train_steps(trainer, B=IDM_TRAIN_B, T=IDM_WINDOW, steps=IDM_TRAIN_STEPS):
     """Phase 8(c): `steps` IDM train steps at (B, T), float32; B1 and B2
-    launch once per block and step."""
+    launch once per block and step, C1 once a conv and step."""
+    from vpt_tpu_torch.ops import conv
     from vpt_tpu_torch.ops import windowed_attention as wa
 
     batches = [idm_batch(B, T, 200 + s, masked_tail=(B - 1, T - 40) if s == steps - 1 else None)
@@ -1667,20 +1709,21 @@ def idm_train_steps(trainer, B=IDM_TRAIN_B, T=IDM_WINDOW, steps=IDM_TRAIN_STEPS)
         loss, norm = trainer.train_step(batch)
         losses.append(loss.item())  # synchronises
         times.append(time.perf_counter() - t0)
-    f_launches, b_launches = wa.launches, wa.bwd_launches
+    f_launches, b_launches, c1_launches = wa.launches, wa.bwd_launches, conv.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = 1e3 * sum(times[1:]) / (steps - 1)
     moved = max((p.detach() - b).abs().max().item() for p, b in zip(trainer.policy.parameters(), before))
     log(f"IDM train ({B}x{T}, 4x, f32): losses {[round(x, 6) for x in losses]}, last grad norm {norm.item():.4f}; "
         f"{step_ms:.1f} ms/step from the second step ({B * T / step_ms * 1e3:.1f} frames/s), first step "
         f"{times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB; largest parameter change {moved:.3e}; "
-        f"launches over {steps} steps: B1 {f_launches}, B2 {b_launches}")
+        f"launches over {steps} steps: B1 {f_launches}, B2 {b_launches}, C1 {c1_launches}")
     n_blocks = trainer.cfg.n_recurrence_layers if trainer.cfg.recurrence_type == "transformer" else 0
     if not all(np.isfinite(losses)) or not moved > 0:
         raise AssertionError(f"IDM training did not run: losses {losses}, largest change {moved}")
     if (f_launches, b_launches) != (n_blocks * steps, n_blocks * steps):
         raise AssertionError(f"B1 launched {f_launches} and B2 {b_launches} times in {steps} IDM steps, "
                              f"expected {n_blocks * steps} each")
+    check_c1_launches(f"IDM train, {steps} steps", c1_launches, C1_IDM_CONVS * steps)
 
     step_split(trainer, batches[0], B, T)
     return f_launches // steps, b_launches // steps
@@ -1695,7 +1738,8 @@ def idm_remat_steps(dev, B=IDM_REMAT_B, T=IDM_WINDOW, steps=IDM_REMAT_STEPS):
     trainer = IDMTrainer(IDM_4X_KWARGS, {}, hp=IDMHyperparams(batch_size=B, window=T), remat=True,
                          cnn_scan_chunks=REMAT_CHUNKS, seed=0, device=dev)
     batches = [idm_batch(B, T, 400 + s) for s in range(steps)]
-    return remat_steps(trainer, batches, "IDM train", lambda batch: trainer.train_step(batch)[0])
+    return remat_steps(trainer, batches, "IDM train", lambda batch: trainer.train_step(batch)[0],
+                       2 * REMAT_CHUNKS * C1_IDM_CONVS)
 
 
 def idm_long_call(dev, n_frames=512):
@@ -2585,7 +2629,8 @@ def check_int8_qat(dev, float_labeling):
     trainer, cpu = train_card_vs_cpu(dev, label="QAT train_step", qat_dense=True)
     del cpu
     log(f"  QAT: {sum(getattr(m, 'fake_quant', False) for m in trainer.policy.modules())} dense layers fake-quantized")
-    per_step = train_steps(trainer, dev, steps=3, label="QAT BC train")[0]  # B1 and B2 alike, checked there
+    per_step = train_steps(trainer, dev, steps=3, label="QAT BC train",  # B1 and B2 alike, checked there
+                           c1_per_step=C1_POLICY_CONVS)[0]
     del trainer
     release_memory()
     trainer = idm_card_vs_cpu(dev, label="QAT IDM", qat_dense=True)
@@ -3796,9 +3841,104 @@ TIMED_SHAPES = (("B1", "IDM window", IDM_WINDOW_BATCH, 32, IDM_WINDOW, 128, Fals
                 ("B2", "3x chunk", 8, 16, 128, 192, True))
 
 
+# kernel C1 at the main path's f32 3x3 convolutions, at the cells' frames a
+# forward: the IDM's 8 windows of 128 frames, the 2x BC batch of 4 x 128 and a
+# 3x BC frame chunk (8 x 128 in 2 chunks): (label, N, C_in, C_out, H = W)
+C1_SHAPES = (("IDM 128->256 at 128x128", 1024, 128, 256, 128), ("IDM 256->256 at 64x64", 1024, 256, 256, 64),
+             ("IDM 256->512 at 64x64", 1024, 256, 512, 64), ("IDM 512->512 at 32x32", 1024, 512, 512, 32),
+             ("IDM 512->512 at 16x16", 1024, 512, 512, 16), ("2x 128->128 at 64x64", 512, 128, 128, 64),
+             ("2x 128->256 at 64x64", 512, 128, 256, 64), ("2x 256->256 at 32x32", 512, 256, 256, 32),
+             ("2x 256->256 at 16x16", 512, 256, 256, 16), ("3x 192->192 at 64x64", 512, 192, 192, 64),
+             ("3x 192->384 at 64x64", 512, 192, 384, 64), ("3x 384->384 at 32x32", 512, 384, 384, 32),
+             ("3x 384->384 at 16x16", 512, 384, 384, 16))
+C1_TIME_ITERS = 5  # calls a timing: the IDM's first conv takes ~0.1 s on C1 and ~0.2 s on cuDNN
+
+
+def conv_inputs(dev, n, c, k, hw, seed):
+    """A conv layer's input as the CNN gives it (a ReLU's or a norm's
+    output; here the ReLU of normal draws) and fan-in-scaled weights."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn((n, c, hw, hw), generator=g, device=dev))
+    w = torch.randn((k, c, 3, 3), generator=g, device=dev) / (3 * c ** 0.5)
+    return x, w
+
+
+def c1_work(x, w):
+    """C1's least work: bytes (x and w read once, y written once) and the
+    products' FLOPs, 2·N·C_out·C_in·9·H·W."""
+    from vpt_tpu_torch.ops import conv
+
+    n, _, h, width = x.shape
+    nbytes = (x.numel() + w.numel() + n * w.shape[0] * h * width) * 4
+    return nbytes, conv.conv_flops(x.shape, w.shape)
+
+
+def time_c1(x, w, label):
+    """C1's time beside its plain version's (F.conv2d, then ReLU), cuDNN's
+    f32 fprop alone (TF32 off, as the port runs f32) and its bound."""
+    import torch.nn.functional as F
+
+    from vpt_tpu_torch.ops import conv
+
+    ms, alone = cuda_time_ms(lambda: conv.conv3x3_fwd(x, w), iters=C1_TIME_ITERS)
+    if not alone:
+        raise AssertionError("the spin ended before C1's launches were queued: no device-only time")
+    plain_ms, plain_alone = cuda_time_ms(lambda: conv.conv3x3_fwd_plain(x, w), iters=C1_TIME_ITERS)
+    library_ms, library_alone = cuda_time_ms(lambda: F.conv2d(x, w, padding=1), iters=C1_TIME_ITERS)
+    nbytes, flops = c1_work(x, w)
+    bound_ms, bound_by = bound(nbytes, flops, 0, torch.float32)
+    log(f"C1 {label} (N={x.shape[0]}): {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms"
+        f"{timed_note(plain_alone)}, cuDNN {library_ms:.3f} ms{timed_note(library_alone)} ({ms / library_ms:.3f}x); "
+        f"bound {bound_ms:.3f} ms by {bound_by} ({nbytes / 1e9:.2f} GB, {flops / 1e12:.2f} TFLOP)")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def check_c1(dev):
+    """Phase 17: C1 at C1_SHAPES on C1_CHECK_N frames, with a bias and the
+    ReLU, against its plain version and against float64, once a call; then
+    timed at the cells' frames.  Returns C1's entry of the kernels line."""
+    from vpt_tpu_torch.ops import conv
+
+    checked, worst = {}, 0.0
+    for i, (label, _, c, k, hw) in enumerate(C1_SHAPES):
+        x, w = conv_inputs(dev, C1_CHECK_N, c, k, hw, 17 + i)
+        b = 0.1 * torch.randn((w.shape[0],), generator=torch.Generator(device=dev).manual_seed(i), device=dev)
+        launches = conv.launches
+        got = conv.conv3x3_fwd(x, w, b)
+        if conv.launches != launches + 1:
+            raise AssertionError(f"C1 {label}: {conv.launches - launches} launches, expected 1")
+        plain = conv.conv3x3_fwd_plain(x, w, b)
+        ref = conv.conv3x3_fwd_plain(x.double(), w.double(), b.double())
+        scale = ref.abs().max().item()
+        gap = (got - plain).abs().max().item() / scale
+        err, plain_err = ((y.double() - ref).abs().max().item() / scale for y in (got, plain))
+        log(f"C1 {label} (N={C1_CHECK_N}): against the plain version {gap:.2e} of the output's scale (tol "
+            f"{C1_CHECK_TOL}); against float64 {err:.2e}, the plain version's {plain_err:.2e}")
+        if not (gap <= C1_CHECK_TOL and err <= 2 * plain_err):
+            raise AssertionError(f"C1 {label}: {gap:.2e} from its plain version, {err:.2e} from float64 "
+                                 f"(the plain version's {plain_err:.2e})")
+        checked[label] = {"gap": gap, "err": err, "plain_err": plain_err}
+        worst = max(worst, gap)
+        del x, w, b, got, plain, ref
+    release_memory()
+    times = {}
+    for label, n, c, k, hw in C1_SHAPES:
+        x, w = conv_inputs(dev, n, c, k, hw, 0)
+        times[label] = dict(zip(TIME_KEYS, time_c1(x, w, label)))
+        del x, w
+        release_memory()
+    return {"name": "conv3x3_fwd", "route": "cuda", "source": "vpt_tpu_torch/csrc/conv3x3_fwd.cu",
+            "replaces": "none: the JAX package leaves convolutions to XLA",
+            "launches": {"bc_step": C1_POLICY_CONVS, "bc_remat_step": 2 * REMAT_CHUNKS * C1_POLICY_CONVS,
+                         "idm_labeling_forward": C1_IDM_CONVS, "idm_train_step": C1_IDM_CONVS,
+                         "idm_remat_step": 2 * REMAT_CHUNKS * C1_IDM_CONVS, "bf16_labeling_forward": 0},
+            "max_rel_gap": worst, "checked": checked, "shapes": times}
+
+
 def time_kernels(dev):
     """--time-kernels: B1's and B2's times in both types at the 2x chunk
-    shape ("B1 float32", ...) and at TIMED_SHAPES ("B1 float32 IDM window", ...)."""
+    shape ("B1 float32", ...) and at TIMED_SHAPES ("B1 float32 IDM window",
+    ...), and C1's at C1_SHAPES ("C1 float32 IDM 128->256 at 128x128", ...)."""
     q, k, v, mask, R, b_nd = attention_inputs(dev, 4, 16, 128, 128, 128, torch.float32, 0)
     dO = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
     times = {}
@@ -3811,6 +3951,12 @@ def time_kernels(dev):
         timer = time_b1 if kernel == "B1" else time_b2
         for name, row in shape_times(timer, dev, B, H, t, 128, use_mask, label, d).items():
             times[f"{kernel} {name} {label}"] = row
+    release_memory()
+    for label, n, c, k, hw in C1_SHAPES:
+        x, w = conv_inputs(dev, n, c, k, hw, 0)
+        times[f"C1 float32 {label}"] = dict(zip(TIME_KEYS, time_c1(x, w, label)))
+        del x, w
+        release_memory()
     return times
 
 
@@ -3866,7 +4012,7 @@ def profile_phases(dev, out_dir):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--time-kernels", action="store_true", help="time kernels B1 and B2 alone and stop")
+    parser.add_argument("--time-kernels", action="store_true", help="time kernels B1, B2 and C1 alone and stop")
     parser.add_argument("--profile", action="store_true",
                         help="trace the chunked forward, the BC and IDM steps and the PPO update and stop")
     parser.add_argument("--profile-dir", default="profile_tables", help="where --profile writes its full tables")
@@ -3875,6 +4021,7 @@ def main():
     parser.add_argument("--distribution", action="store_true", help="run phase 14 alone and stop")
     parser.add_argument("--entry-points", action="store_true", help="run phase 15 alone and stop")
     parser.add_argument("--head-dims", action="store_true", help="run phase 16 alone and stop")
+    parser.add_argument("--c1", action="store_true", help="run phase 17 alone and stop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3929,6 +4076,9 @@ def main():
         print(json.dumps({"head_dims": times, "launches": launches, "streamed_smem_bytes": smem,
                           "device": smi.splitlines()[0]}), flush=True)
         return 0
+    if args.c1:
+        print(json.dumps({"c1": check_c1(dev), "device": smi.splitlines()[0]}), flush=True)
+        return 0
     check_tensor_cores(KERNELS)
 
     def phase_done(phases):
@@ -3945,7 +4095,7 @@ def main():
     phase_done("6")
     trainer, cpu = train_card_vs_cpu(dev)
     del cpu
-    b2["launches"], plain_step_ms, _ = train_steps(trainer, dev)
+    b2["launches"], plain_step_ms, _ = train_steps(trainer, dev, c1_per_step=C1_POLICY_CONVS)
     del trainer
     release_memory()
     trainer = bc_remat_vs_plain(dev)
@@ -3996,9 +4146,11 @@ def main():
         b["streamed_smem_bytes"] = {k: {p: n for p, n in v.items() if p.startswith(name)}
                                     for k, v in streamed_smem_bytes.items()}
     phase_done("16")
+    c1 = check_c1(dev)
+    phase_done("17")
 
     log(smi.splitlines()[0])  # again beside the results, for a reader of the log's tail
-    log(json.dumps({"kernels": [b1, b2]}))
+    log(json.dumps({"kernels": [b1, b2, c1]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

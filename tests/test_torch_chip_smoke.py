@@ -80,20 +80,104 @@ def test_bias_is_priced_at_the_float32_tensor_core_rate_in_both_types():
 def test_time_kernels_reports_what_the_comparison_reads(monkeypatch):
     """`--time-kernels` prints {"kernel_times": time_kernels(dev)}: B1 and B2
     in both types at the 2x chunk and at the IDM's, the PPO minibatch's and
-    the 3x chunk's shapes, each with the kernels line's timing keys.  Run on the CPU
+    the 3x chunk's shapes, and C1 in float32 at the 13 convolutions of
+    C1_SHAPES, each with the kernels line's timing keys.  Run on the CPU
     at a small shape, with one untimed call standing in for the CUDA events."""
-    attention_inputs = cs.attention_inputs
+    attention_inputs, conv_inputs = cs.attention_inputs, cs.conv_inputs
     monkeypatch.setattr(cs, "attention_inputs",
                         lambda dev, B, H, t, maxlen, d, dtype, seed: attention_inputs(dev, 1, 2, 8, 8, 64, dtype, seed))
-    monkeypatch.setattr(cs, "cuda_time_ms", lambda fn: (fn(), (1.0, True))[1])
+    monkeypatch.setattr(cs, "conv_inputs", lambda dev, n, c, k, hw, seed: conv_inputs(dev, 1, 8, 8, 4, seed))
+    monkeypatch.setattr(cs, "cuda_time_ms", lambda fn, iters=20: (fn(), (1.0, True))[1])
     with torch.enable_grad():  # another module of the suite turns grad mode off when pytest imports it
         times = cs.time_kernels(torch.device("cpu"))
     labels = [""] + [f" {label}" for label in ("IDM window", "PPO minibatch", "3x chunk")]
-    assert set(times) == {f"{k} {t}{label}" for k in ("B1", "B2") for t in ("float32", "bfloat16") for label in labels}
+    assert len(cs.C1_SHAPES) == 13
+    assert set(times) == ({f"{k} {t}{label}" for k in ("B1", "B2") for t in ("float32", "bfloat16") for label in labels}
+                          | {f"C1 float32 {shape[0]}" for shape in cs.C1_SHAPES})
     for row in times.values():
         assert set(row) == {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
         assert row["ms"] == row["plain_ms"] == row["library_ms"] == 1.0
         assert row["bound_ms"] > 0 and row["bound_by"] in ("bytes", "operations")
+
+
+
+def test_c1_work_reads_each_tensor_once_and_counts_the_products():
+    x, w = cs.conv_inputs(torch.device("cpu"), 2, 8, 16, 4, 0)
+    nbytes, flops = cs.c1_work(x, w)
+    assert nbytes == 4 * (2 * 8 * 16 + 16 * 8 * 9 + 2 * 16 * 16)
+    assert flops == 2 * 2 * 16 * 8 * 9 * 16
+    # f32 products at three TF32 products' rate: at the IDM's first conv they, not the bytes, bound C1
+    assert cs.bound(nbytes, flops, 0, torch.float32) == (pytest.approx(nbytes / 3.35e12 * 1e3), "bytes")
+    idm = dict(zip(("n", "c", "k", "hw"), cs.C1_SHAPES[0][1:]))
+    x = torch.empty((idm["n"], idm["c"], idm["hw"], idm["hw"]), device="meta")
+    w = torch.empty((idm["k"], idm["c"], 3, 3), device="meta")
+    nbytes, flops = cs.c1_work(x, w)
+    assert cs.bound(nbytes, flops, 0, torch.float32) == (pytest.approx(flops / (495e12 / 3) * 1e3), "operations")
+
+def _c1_phase(monkeypatch, kernel):
+    """Phase 17 on the CPU at a small shape: `kernel` in C1's place, one
+    untimed call standing in for the CUDA events."""
+    from vpt_tpu_torch.ops import conv
+
+    conv_inputs = cs.conv_inputs
+    monkeypatch.setattr(cs, "conv_inputs", lambda dev, n, c, k, hw, seed: conv_inputs(dev, 2, 8, 8, 4, seed))
+    monkeypatch.setattr(cs, "cuda_time_ms", lambda fn, iters=20: (fn(), (1.0, True))[1])
+    monkeypatch.setattr(cs, "release_memory", lambda: None)
+    monkeypatch.setattr(conv, "conv3x3_fwd", kernel)
+    return cs.check_c1(torch.device("cpu"))
+
+
+def _launching(fn):
+    from vpt_tpu_torch.ops import conv
+
+    def kernel(x, w, b=None, relu=True):
+        conv.launches += 1
+        return fn(x, w, b, relu)
+    return kernel
+
+
+def test_c1_phase_checks_every_shape_and_reports_its_kernels_entry(monkeypatch):
+    from vpt_tpu_torch.ops import conv
+
+    entry = _c1_phase(monkeypatch, _launching(conv.conv3x3_fwd_plain))
+    assert entry["name"] == "conv3x3_fwd" and entry["source"] == "vpt_tpu_torch/csrc/conv3x3_fwd.cu"
+    labels = {shape[0] for shape in cs.C1_SHAPES}
+    assert set(entry["checked"]) == set(entry["shapes"]) == labels
+    assert entry["max_rel_gap"] == 0.0
+    assert entry["launches"] == {"bc_step": 14, "bc_remat_step": 224, "idm_labeling_forward": 15,
+                                 "idm_train_step": 15, "idm_remat_step": 240, "bf16_labeling_forward": 0}
+    for row in entry["shapes"].values():
+        assert set(row) == set(cs.TIME_KEYS)
+
+
+@pytest.mark.parametrize("fault", ["tf32_error", "no_launch"])
+def test_c1_phase_fails_a_wrong_kernel(monkeypatch, fault):
+    """A result off by one TF32 rounding of the output, or a call that
+    launches nothing (the conv left to cuDNN), fails phase 17."""
+    from vpt_tpu_torch.ops import conv
+
+    if fault == "tf32_error":
+        kernel = _launching(lambda x, w, b, relu: conv.conv3x3_fwd_plain(x, w, b, relu) * (1 + 2.0 ** -11))
+    else:
+        kernel = conv.conv3x3_fwd_plain
+    with pytest.raises(AssertionError):
+        _c1_phase(monkeypatch, kernel)
+
+
+def test_c1_launch_counts_must_match():
+    cs.check_c1_launches("BC train", 70, 5 * cs.C1_POLICY_CONVS)
+    with pytest.raises(AssertionError, match="C1 launched 0 times, expected 70"):
+        cs.check_c1_launches("BC train", 0, 5 * cs.C1_POLICY_CONVS)
+
+
+def test_c1s_weight_split_multiplies_no_matrices():
+    """C1's pass that splits the weights into TF32 halves runs no tensor-core
+    instruction, as B2's partial-sum reduction; its product kernel must."""
+    counts = {"_ZN12_GLOBAL__N_120split_weights_kernelEPKfPfiiiil": 0,
+              "_ZN12_GLOBAL__N_118conv3x3_fwd_kernelILi128ELi1EEEvPKfS2_S2_PfNS_8GeometryEi": 0}
+    assert cs.kernels_without_tensor_cores(counts) == [
+        "_ZN12_GLOBAL__N_118conv3x3_fwd_kernelILi128ELi1EEEvPKfS2_S2_PfNS_8GeometryEi"]
+    assert "conv3x3_fwd" in cs.KERNELS
 
 
 LISTING = """

@@ -1,5 +1,6 @@
 """Kernels B1 (csrc/windowed_attention_fwd.cu) and B2
-(csrc/windowed_attention_bwd.cu) against their plain PyTorch versions on the
+(csrc/windowed_attention_bwd.cu) against their plain PyTorch versions, and
+kernel C1 (csrc/conv3x3_fwd.cu) against float64 and cuDNN, on the
 card.  These tests need CUDA and nvcc and skip elsewhere; the file imports
 neither JAX nor vpt_tpu, so on a machine with a card it runs without the
 suite's conftest:
@@ -20,7 +21,9 @@ and round dq, dk, dv to bf16 once; an entry may round the other way)."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from vpt_tpu_torch.ops import conv
 from vpt_tpu_torch.ops import windowed_attention as wa
 from vpt_tpu_torch.ops.masks import clipped_causal_mask
 
@@ -417,3 +420,113 @@ def test_streamed_instance_shared_memory_does_not_depend_on_d(cuda, T, dtype):
     at_320 = wa.launch_smem_bytes(T, 320, 10, 128, dtype)
     assert at_320 == wa.launch_smem_bytes(T, 4096, 10, 128, dtype)
     assert all(0 < n <= 232448 for n in at_320.values()), at_320
+
+
+# Kernel C1 (ops/conv.py, csrc/conv3x3_fwd.cu), the f32 3x3 convolutions of
+# the cells' Impala CNNs: (C_in, C_out, H = W) of the 4x IDM, the 2x and the
+# 3x policy, at N = 2 frames.  C1 runs three TF32 products a multiply, so
+# its error against float64 is held to that of cuDNN's f32 (TF32 off): at
+# most twice it, and under a tenth of TF32's.
+C1_SHAPES = [(128, 256, 128), (256, 256, 64), (256, 512, 64), (512, 512, 32), (512, 512, 16),
+             (128, 128, 64), (128, 256, 64), (256, 256, 32), (256, 256, 16),
+             (192, 192, 64), (192, 384, 64), (384, 384, 32), (384, 384, 16)]
+
+
+def _conv_inputs(dev, n, c, k, hw, seed, bias=False, w_hw=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn((n, c, hw, w_hw or hw), generator=g, device=dev))
+    w = torch.randn((k, c, 3, 3), generator=g, device=dev) / (3 * c ** 0.5)
+    b = torch.randn((k,), generator=g, device=dev) if bias else None
+    return x, w, b
+
+
+@pytest.fixture
+def cudnn_f32():
+    """cuDNN's f32 convolutions with TF32 off, as the port runs f32."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _max_err(y, ref):
+    return (y.double() - ref).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,hw", C1_SHAPES)
+@pytest.mark.parametrize("bias", [False, True])
+def test_c1_keeps_float32_accuracy_at_the_main_path_shapes(cuda, cudnn_f32, c, k, hw, bias):
+    x, w, b = _conv_inputs(cuda, 2, c, k, hw, 0, bias)
+    ref = torch.relu(F.conv2d(x.double(), w.double(), None if b is None else b.double(), padding=1))
+    launches = conv.launches
+    got = conv.conv3x3_fwd(x, w, b)
+    assert conv.launches == launches + 1
+    cudnn = torch.relu(F.conv2d(x, w, b, padding=1))
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = torch.relu(F.conv2d(x, w, b, padding=1))
+    again = conv.conv3x3_fwd(x, w, b)  # nothing depends on the TF32 flag, and two calls agree bit for bit
+    torch.backends.cudnn.allow_tf32 = False
+    e_c1, e_cudnn, e_tf32 = _max_err(got, ref), _max_err(cudnn, ref), _max_err(tf32, ref)
+    assert e_c1 <= 2 * e_cudnn and e_c1 < 0.1 * e_tf32, (e_c1, e_cudnn, e_tf32)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,hw", C1_SHAPES)
+def test_c1_gradients_equal_cudnns_conv_then_relu(cuda, cudnn_f32, c, k, hw):
+    """The Function's gradients against autograd of F.relu(F.conv2d(...)):
+    its backward is the same cuDNN dgrad and wgrad on the gradient masked by
+    the ReLU's output.  An output that rounds to the other sign of zero on
+    C1 and cuDNN flips one ReLU decision; those positions take C1's decision
+    on both sides (and must lie within rounding of zero)."""
+    x, w, b = _conv_inputs(cuda, 2, c, k, hw, 1, bias=True)
+    dy = torch.randn((2, k, hw, hw), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+    out = conv.conv3x3_fwd(xs, ws, bs)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out * dy).sum(), (xs, ws, bs))
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    pre = F.conv2d(xr, wr, br, padding=1)
+    flips = (pre > 0) != (out > 0)
+    if flips.any():
+        assert pre.detach()[flips].abs().max().item() < 1e-5
+    want = torch.autograd.grad((pre * (out > 0) * dy).sum(), (xr, wr, br))
+    for g_got, g_want in zip(got, want):
+        scale = g_want.abs().max().item()
+        assert _max_err(g_got, g_want.double()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,h,w_", [(20, 40, 12, 12), (8, 70, 20, 20), (24, 100, 36, 20), (16, 32, 9, 4),
+                                      (32, 200, 5, 256)])
+@pytest.mark.parametrize("bias,relu", [(False, True), (True, False)])
+def test_c1_takes_ragged_shapes(cuda, cudnn_f32, c, k, h, w_, bias, relu):
+    """Channels that fill no whole chunk or tile, images that fill no whole
+    pixel tile, the narrowest and widest rows: against float64 within
+    1e-5 of the output's scale (the main path's error is ~1e-6 of it)."""
+    x, w, b = _conv_inputs(cuda, 3, c, k, h, 3, bias, w_hw=w_)
+    ref = F.conv2d(x.double(), w.double(), None if b is None else b.double(), padding=1)
+    ref = torch.relu(ref) if relu else ref
+    got = conv.conv3x3_fwd(x, w, b, relu)
+    assert _max_err(got, ref) <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["bfloat16", "kernel", "width", "channels", "weight_device", "bias_shape"])
+def test_c1_rejects_what_it_does_not_take(cuda, bad):
+    x, w, b = _conv_inputs(cuda, 2, 16, 16, 8, 4, bias=True)
+    if bad == "bfloat16":
+        x = x.bfloat16()
+    elif bad == "kernel":
+        w = torch.randn((16, 16, 5, 5), device=cuda)
+    elif bad == "width":
+        x = x[..., :6]
+    elif bad == "channels":
+        x, w = x[:, :4], w[:, :4]
+    elif bad == "weight_device":
+        w = w.cpu()
+    else:
+        b = b[:8]
+    with pytest.raises((ValueError, TypeError)):
+        conv.conv3x3_fwd(x, w, b)

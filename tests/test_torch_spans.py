@@ -149,7 +149,11 @@ def test_counters_count_host_to_device_bytes_pinned_against_pageable(programs, m
         trainer.train_step(batch, trainer.initial_state(2))
         bc = profiling.counters(reset=True)
     frames = 2 * RAW_HW[0] * RAW_HW[1] * 3
-    assert step == {"h2d_bytes": frames + 2, "h2d_pageable_bytes": frames + 2}  # and the streams' episode starts
+    # beside the bytes, the CNN's conv forwards count their FLOPs (tests/test_torch_conv.py)
+    assert set(step) == set(bc) == {"h2d_bytes", "h2d_pageable_bytes", "conv_flops"}
+    h2d = ("h2d_bytes", "h2d_pageable_bytes")
+    # the frames and the streams' episode starts
+    assert {k: step[k] for k in h2d} == {"h2d_bytes": frames + 2, "h2d_pageable_bytes": frames + 2}
     total = sum(batch[k].numel() * batch[k].element_size() for k in TRAIN_KEYS)
-    assert bc == {"h2d_bytes": total, "h2d_pageable_bytes": total - batch["frames"].numel()}
+    assert {k: bc[k] for k in h2d} == {"h2d_bytes": total, "h2d_pageable_bytes": total - batch["frames"].numel()}
     assert profiling.counters() == {}

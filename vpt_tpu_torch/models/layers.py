@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vpt_tpu_torch.ops import conv
 from vpt_tpu_torch.ops.int8 import QuantLinear, fake_quant_kernel
 from vpt_tpu_torch.utils.profiling import count, span
 
@@ -196,7 +197,12 @@ class FanInInitLayer(nn.Module):
     precedence over the group and layer norms, as in vpt_tpu.  ``quantize``
     makes a linear layer's ``layer`` the int8 ``QuantLinear``; ``fake_quant``
     (QAT, ``set_fake_quant``) runs a float linear layer on its weight's int8
-    fake-quantized view.
+    fake-quantized view.  This is the models' one conv routing point: a conv
+    forward that ``ops.conv.routes_to_c1`` takes (a CUDA f32 3×3, stride 1,
+    padding 1, 8 or more input channels) runs on kernel C1, the bias and
+    ReLU in its epilogue; every conv and conv3d forward counts its FLOPs
+    under ``conv_flops``, C1's also under ``conv_tc_flops``, while a
+    profiler records.
     """
 
     def __init__(
@@ -272,13 +278,29 @@ class FanInInitLayer(nn.Module):
         w = fake_quant_kernel(self.layer.weight) if self.fake_quant else self.layer.weight
         w = w.to(dt)
         b = None if self.layer.bias is None else self.layer.bias.to(dt)
+        x = x.to(dt)
         if self.layer_type == "linear":
-            x = F.linear(x.to(dt), w, b)
-        elif self.layer_type == "conv":
-            x = F.conv2d(x.to(dt), w, b, stride=self.stride, padding=self.padding if padding is None else padding)
-        else:
-            x = F.conv3d(x.to(dt), w, b, stride=self.stride, padding=self.padding if padding is None else padding)
+            x = F.linear(x, w, b)
+            return F.relu(x) if self.use_activation else x
+        padding = self.padding if padding is None else padding
+        if self.layer_type == "conv" and conv.routes_to_c1(x, w, self.stride, padding):
+            x = conv.conv3x3_fwd(x, w, b, relu=self.use_activation)
+            _count_conv(x, w, tensor_cores=True)
+            return x
+        x = (F.conv2d if self.layer_type == "conv" else F.conv3d)(x, w, b, stride=self.stride, padding=padding)
+        _count_conv(x, w, tensor_cores=False)
         return F.relu(x) if self.use_activation else x
+
+
+def _count_conv(out: torch.Tensor, w: torch.Tensor, tensor_cores: bool) -> None:
+    """Count a conv forward's FLOPs, 2·N·C_out·C_in·k·(output positions),
+    under ``conv_flops``, and C1's under ``conv_tc_flops`` too, while a
+    profiler records."""
+    if torch.autograd._profiler_enabled():
+        flops = 2 * out.numel() * (w.numel() // w.shape[0])
+        count("conv_flops", flops)
+        if tensor_cores:
+            count("conv_tc_flops", flops)
 
 
 def set_fake_quant(model: nn.Module, mask) -> int:

@@ -9,8 +9,10 @@ vpt_tpu/utils/profiling.py).
     the labeler's staging and wait, the BC step's parts, the policy's CNN,
     blocks and heads, the backward's recompute of a remat'd CNN chunk or
     stack and of a block) and integer counters (``h2d_bytes``,
-    ``h2d_pageable_bytes``, ``remat_recomputes``), recorded only while a
-    ``torch.profiler`` session records.  With no profiler a span is one
+    ``h2d_pageable_bytes``, ``remat_recomputes``, and ``conv_flops`` and
+    ``conv_tc_flops``: the FLOPs of every conv forward of the CNN and of
+    those kernel C1 ran, counted at ``models.layers.FanInInitLayer``),
+    recorded only while a ``torch.profiler`` session records.  With no profiler a span is one
     check of well under a microsecond and a shared null context, and a
     count adds nothing.  A
     span is a ``record_function`` range, so it lands in the session's
