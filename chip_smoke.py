@@ -1578,8 +1578,8 @@ def owned_labels(agent, resized, window, stride, window_batch):
 @torch.inference_mode()
 def idm_forward_split(policy, img):
     """ms of the IDM forward's parts, each ended by a synchronise: conv3d
-    front, Impala CNN (and its projection), blocks, head (relu, lastlayer,
-    final_ln, action heads)."""
+    front, Impala CNN (and its projection), blocks, head (relu, final_ln,
+    action heads)."""
     from vpt_tpu_torch.models.policy import policy_initial_state
 
     net = policy.net
@@ -1597,9 +1597,7 @@ def idm_forward_split(policy, img):
     x, _ = net.recurrent_layer(x, torch.zeros((b, t), dtype=torch.bool, device=img.device),
                                policy_initial_state(net.cfg, b, device=img.device))
     mark()
-    x = torch.nn.functional.relu(x)
-    net.lastlayer(x)
-    policy.pi_head(net.final_ln(x))
+    policy.pi_head(net.tail(x))
     mark()
     return {k: 1e3 * (marks[i + 1] - marks[i]) for i, k in enumerate(("conv3d", "impala_cnn", "blocks", "head"))}
 

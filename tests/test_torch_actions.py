@@ -3,6 +3,8 @@ camera quantizer, the action transformer, the cv2-exact resize and the
 device-side action decode.  All comparisons are exact except the decoded
 camera degrees (float32 on both sides, tolerance 1e-5)."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

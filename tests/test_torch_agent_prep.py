@@ -11,6 +11,8 @@ on the CPU, at tests/test_torch_policy.py's tiny config:
     dims, as tests/test_agent.py::test_params_dtype_bf16_serving holds
     vpt_tpu's, and serves finite actions; the IDM agent likewise."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

@@ -12,6 +12,8 @@
 tests/test_torch_data.py (it decodes video: libav).
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import argparse
 import importlib.util
 import os

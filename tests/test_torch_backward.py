@@ -18,6 +18,8 @@ it.
 The CUDA kernel itself is held against the plain version in
 tests/test_torch_kernels.py, which needs a card."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

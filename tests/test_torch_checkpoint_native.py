@@ -17,6 +17,8 @@ the CPU at tiny configs.
     ``train(resume=True)`` goes on from the snapshot's update count.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import io
 import json
 import os

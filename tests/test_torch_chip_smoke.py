@@ -4,6 +4,8 @@ d=128, 10 relative-bias bases over a band of 128), against a count by hand,
 and its tensor-core instruction counter against a short cuobjdump listing.
 Meta tensors stand in for the inputs: only their shapes and types count."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import pytest
 import torch
 

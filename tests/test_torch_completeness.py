@@ -8,6 +8,8 @@ another order); normalised entropies rtol 1e-6; everything else exactly.
 The loader skips where the native library cannot be built (no libav); the
 composite then checks its numpy fallback."""
 
+import torch_cpu
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -151,13 +153,13 @@ def test_native_composite_alpha_falls_back_to_numpy(monkeypatch):
 # -------------------------------------------------------- single-step loader
 
 def test_step_data_loader_matches_vpt_tpu(tmp_path):
-    from test_torch_data import _dataset, _jax_native_available
+    from test_torch_data import _dataset
 
     try:
         video.build()
     except RuntimeError as e:
         pytest.skip(f"native video library of the port cannot be built: {e}")
-    if not _jax_native_available():
+    if torch_cpu.jax_native_video() is None:
         pytest.skip("native video library of vpt_tpu unavailable (libav)")
     _dataset(tmp_path)
     kw = dict(n_workers=2, batch_size=2, n_epochs=2, seed=5)

@@ -18,6 +18,8 @@ parallelism with FSDP2 and tensor parallelism, on four gloo ranks on the CPU
     streams in 2 automatic groups, each rank its row of each group.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import os
 
 import numpy as np

@@ -9,6 +9,8 @@ bit.  The Function's gradients: ``gradcheck`` in float64 at its default
 tolerances; under ``remat_call`` the same float32 arithmetic recomputed,
 so bit for bit too."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import math
 from types import SimpleNamespace
 

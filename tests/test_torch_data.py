@@ -11,9 +11,10 @@ library), except the per-step training losses: rtol 1e-5, atol 1e-6
 (float32 sums in another order).  The tests skip where the native library
 cannot be built (no libav)."""
 
+import torch_cpu
+
 import io
 import json
-import time
 
 import jax
 import numpy as np
@@ -38,40 +39,13 @@ def _grad_mode():
         yield
 
 
-def _jax_native_available(attempts=5, wait_s=2.0):
-    """vpt_tpu's native library, loaded again where a first load failed.
-
-    vpt_tpu builds ``libvpt_host.so`` with ``make`` in place at first use, and
-    several test modules load it while they are imported, so parallel test
-    workers can race: one may load the file while another's ``make`` is still
-    writing it, and vpt_tpu then caches that load error for the process.  The
-    build finishes within seconds, so a cached load error is cleared and the
-    load tried again.  A failed build (no libav) is not retried, nor is any
-    error where vpt_tpu no longer caches it under these names."""
-    for attempt in range(attempts):
-        if jax_video.native_available():
-            return True
-        if attempt + 1 == attempts or not _cached_load_error():
-            return False
-        time.sleep(wait_s)
-        jax_video._lib = jax_video._lib_error = None
-    return False
-
-
-def _cached_load_error():
-    """Whether vpt_tpu cached an error of loading a library that was built."""
-    error = getattr(jax_video, "_lib_error", None)
-    return (hasattr(jax_video, "_lib") and isinstance(error, str)
-            and not error.startswith("could not build native library"))
-
-
 @pytest.fixture(scope="module")
 def native():
     try:
         video.build()  # the port's own copy first: built in a temp file and renamed, never seen half-written
     except RuntimeError as e:
         pytest.skip(f"native video library of the port cannot be built: {e}")
-    if not _jax_native_available():
+    if torch_cpu.jax_native_video() is None:
         pytest.skip(f"native video library of vpt_tpu unavailable (libav): {jax_video._lib_error}")
 
 
@@ -86,6 +60,7 @@ def _step(keys=(), dx=0.0, dy=0.0, buttons=(), new_buttons=(), hotbar=0, gui=Fal
 
 def _write_fixture(path, name, steps, frame_fn=None):
     video_path, json_path = str(path / f"{name}.mp4"), str(path / f"{name}.jsonl")
+    torch_cpu.jax_native_video()  # other test files write their datasets here too
     with jax_video.VideoWriter(video_path, W, H, fps=20) as w:
         for i in range(len(steps)):
             w.write(np.full((H, W, 3), (i * 10) % 255, np.uint8) if frame_fn is None else frame_fn(i))

@@ -17,6 +17,8 @@ single process: their sampled actions are equal, their log-probabilities and
 values within 1e-5.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import json
 import os
 from unittest import mock

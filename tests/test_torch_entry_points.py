@@ -22,6 +22,8 @@ configs, each called in process through ``main(argv)``:
     ``--device cpu`` is given.
 """
 
+import torch_cpu
+
 import importlib.util
 import json
 import os
@@ -63,7 +65,9 @@ def load_script(path, name):
 
 
 def run_jax_tool(path, argv):
-    """``main()`` of a JAX tool with ``sys.argv`` patched."""
+    """``main()`` of a JAX tool with ``sys.argv`` patched, vpt_tpu's native
+    video library loaded first where it can be."""
+    torch_cpu.jax_native_video()
     module = load_script(path, "jax_" + os.path.basename(path)[:-3])
     with mock.patch.object(sys, "argv", [path] + list(argv)):
         return module.main()
@@ -76,6 +80,17 @@ def native_video():
         video.build()
     except RuntimeError as e:
         pytest.skip(f"native video library of the port cannot be built: {e}")
+
+
+def jax_native_video():
+    """vpt_tpu's native video library, for a test that reaches it after
+    ``native_video()``: libav is there, so a library that will not load is a
+    failure, not a skip."""
+    from vpt_tpu.data import video as jax_video
+
+    lib = torch_cpu.jax_native_video()
+    assert lib is not None, f"vpt_tpu's native video library does not load: {jax_video._lib_error}"
+    return lib
 
 
 def write_recording(base, n_frames, width=160, height=90, seed=0):
@@ -237,6 +252,7 @@ def test_idm_cli_rows_and_metrics_equal_vpt_tpu(files, recording, mode, capsys, 
     extra = ["--n-batches", "2"] if mode == "print" else ["--stride", "4", "--window-batch", "2"]
     n = cli.main(argv + extra + ["--out", ours, "--device", "cpu"])
     ours_metrics = _metrics_line(capsys.readouterr().out)
+    jax_native_video()
     jax_script = load_script("run_inverse_dynamics_model.py", "jax_run_inverse_dynamics_model")
     jax_script.main(files["idm.model"], files["idm.weights"], base + ".mp4", base + ".jsonl",
                     2 if mode == "print" else None, 8, out=theirs, strict_resolution=False,

@@ -11,6 +11,8 @@ and frame annotation (data/annotate.py) against vpt_tpu's, on the CPU:
     skips where the native video library cannot be built (no libav).
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import json
 
 import jax

@@ -12,6 +12,8 @@ tests/test_torch_training.py: the loss of each of three steps rtol 1e-5, the
 grad norm rtol 1e-4, every parameter after the three steps within 3·lr.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import os
 
 import numpy as np

@@ -25,6 +25,8 @@ On the card the same wrappers launch B1 and B2 (chip_smoke.py phase 16,
 tests/test_torch_kernels.py).
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

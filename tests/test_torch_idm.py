@@ -13,6 +13,8 @@ and inputs from a numpy seed, on the CPU:
   * the labeling CLI end to end (skips without libav).
 """
 
+import torch_cpu
+
 import json
 
 import jax
@@ -239,6 +241,7 @@ def test_labeling_cli_matches_vpt_tpu_labeler(agents, tmp_path):
         video.build()
     except RuntimeError as e:
         pytest.skip(f"native video library of the port cannot be built: {e}")
+    assert torch_cpu.jax_native_video() is not None, f"vpt_tpu's native video library does not load: {jax_video._lib_error}"
     jax_agent, agent = agents
     frames = _frames(19, seed=9)
     path = str(tmp_path / "v.mp4")

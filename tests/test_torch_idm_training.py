@@ -11,6 +11,8 @@ Tolerances (float32 sums in another order in the two frameworks):
 The data tests skip where the native video library cannot be built (no
 libav)."""
 
+import torch_cpu
+
 import json
 
 import jax
@@ -114,7 +116,7 @@ def test_three_train_steps_match_vpt_tpu():
     for name, p in pt.policy.state_dict().items():
         np.testing.assert_allclose(p.numpy(), np.asarray(after[name]).reshape(p.shape), rtol=0, atol=3 * LR,
                                    err_msg=name)
-    # lastlayer is computed and discarded: no gradient reaches it, as in vpt_tpu (only the decay moves it)
+    # the port does not run lastlayer, so no gradient reaches it, as in vpt_tpu (only the decay moves it)
     assert pt.policy.net.lastlayer.layer.weight.grad is None or not pt.policy.net.lastlayer.layer.weight.grad.any()
 
 
@@ -137,7 +139,7 @@ def native():
         video.build()
     except RuntimeError as e:
         pytest.skip(f"native video library of the port cannot be built: {e}")
-    if not jax_video.native_available():
+    if torch_cpu.jax_native_video() is None:
         pytest.skip(f"native video library of vpt_tpu unavailable (libav): {jax_video._lib_error}")
 
 

@@ -5,6 +5,8 @@ points refuse to run without CUDA unless the caller asks for the CPU.  The
 imports run in fresh interpreters, since this test process has both
 packages loaded."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import ast
 import os
 import pkgutil

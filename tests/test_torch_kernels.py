@@ -18,6 +18,8 @@ B2, per gradient tensor, on max-abs error: float32 1e-4 * (1 + max|ref|)
 3e-2 * (1 + max|ref|) (both sides compute in f32 from the same bf16 inputs
 and round dq, dk, dv to bf16 once; an entry may round the other way)."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,8 @@ Held here:
     environment, and ``resolve_device`` gives ``cuda:LOCAL_RANK`` to a rank.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import importlib.util
 import multiprocessing
 import os

@@ -6,6 +6,8 @@ module (sums in another order).  The blocks also show stepwise = chunkwise
 with mid-chunk resets and ring = linear, as tests/test_kv_cache.py and
 tests/test_ring_cache.py do for the JAX package."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

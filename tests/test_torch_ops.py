@@ -7,6 +7,8 @@ forward in interpret mode, at rtol 2e-4 / atol 2e-5 (float32 sums in another
 order).  The CUDA kernel itself is held against the plain version in
 tests/test_torch_kernels.py, which needs a card."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

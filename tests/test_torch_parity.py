@@ -8,6 +8,8 @@ transposed kernel.  (The published checkpoints would be the final oracle;
 they are not available in this image.)
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,8 @@ forward (chunked and stepped) on weights carried by ``from_jax_variables``
 at tolerance 2e-3 (as tests/test_full_geometry_parity.py), MineRLAgent
 rollouts with resets, and checkpoint I/O."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import pickle
 
 import jax

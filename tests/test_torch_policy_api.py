@@ -10,6 +10,8 @@ split forward against the whole one, and ``v`` against
 ``get_output_for_observation``, 1e-6 (the same arithmetic); the KL of a
 distribution with itself 1e-6; the converters exactly."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ pp.py, training/pp_bc.py): the tiny policy's two blocks, one a stage.
   * ``split_policy_params``/``merge_policy_params`` round-trip a state_dict.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import os
 
 import pytest

@@ -14,6 +14,8 @@ table tool (vpt_tpu_torch/tools/profile_ops.py), on the CPU:
   * the op table's categories and shares on canned kernel names, and its
     refusal of a trace without CUDA kernels."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import json
 import os
 from types import SimpleNamespace

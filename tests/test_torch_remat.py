@@ -11,6 +11,8 @@ tests/test_torch_policy.py, grads within 1e-5 of vpt_tpu's.  A trainer's
 step with remat against the same step without: loss and grad norm rtol
 1e-6, parameters after the step within 1e-6."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -28,6 +28,8 @@ element.  Port against port: the same arithmetic recomputed, so the loss
 and the gradient norm within 1e-6 relative and every parameter within
 1e-6, tests/test_torch_remat.py's numbers."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import glob
 import json
 import os

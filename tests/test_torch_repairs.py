@@ -23,6 +23,8 @@ One launch of two ranks computes every multi-rank case (``run_ranks`` of
 tests/test_torch_mesh.py); the tests read its results.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import contextlib
 import io
 import json

@@ -6,6 +6,8 @@ sums in the same order) and within 1.0 of the cv2-exact ``resize_uint8_exact``
 (csrc/host_resize.cpp) bit-equal to the port's and vpt_tpu's
 ``resize_uint8_exact`` over a seeded fuzz of sizes."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

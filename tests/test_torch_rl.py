@@ -26,6 +26,8 @@ permutation irrelevant).  Tolerances:
     atol 1e-5 (as tests/test_rl.py).
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import io
 import json
 import os

@@ -14,6 +14,8 @@ tests/test_rollout_runner.py checks vpt_tpu's):
     policy parity tolerance of tests/test_torch_policy.py).
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

@@ -12,6 +12,8 @@ each rank's loss covers its own half.
     CPU's convolutions block a batch of fewer frames another way).
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import os
 
 import numpy as np

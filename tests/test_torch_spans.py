@@ -11,6 +11,8 @@ tiny widths on the CPU:
   * the ``h2d_*`` counters count the bytes of an agent step's and a BC
     step's copies to the device, pinned against pageable."""
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import glob
 import json
 import os

@@ -23,6 +23,8 @@ The video cases skip where the port's native video library cannot be built
 (no libav).
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import http.server
 import json
 import os
@@ -259,6 +261,7 @@ def test_record_demonstrations_command_writes_the_jax_tools_rows(files, tmp_path
         record_demonstrations.main(common + ["--out-dir", str(ours), "--device", "cpu"])
     import vpt_tpu.agent as jax_agent
 
+    ep.jax_native_video()
     jax_tool = ep.load_script("tools/record_demonstrations.py", "jax_record_demonstrations")
     with mock.patch.object(jax_agent, "MineRLAgent", ep._deterministic(jax_agent.MineRLAgent, [])):
         jax_tool.main(files["policy.model"], files["policy.weights"], str(theirs), steps=3, mock_env=True)

@@ -14,6 +14,8 @@ Tolerances (float32 sums in another order in the two frameworks):
     rtol 1e-5, atol 1e-7; inject_episode_firsts and a .weights round trip: exact.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,8 @@ Tolerances:
     tests/test_torch_checkpoint_native.py's.
 """
 
+import torch_cpu  # noqa: F401  (first: torch at this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -253,11 +253,11 @@ class MineRLAgent:
             return img, np.zeros((b, 1), bool) if first is None else np.asarray(first, bool).reshape(b, 1)
 
     def dispatch_action(self, minerl_obs, first: Optional[np.ndarray] = None, stochastic: bool = True):
-        """Enqueue one policy step and return a handle without waiting."""
-        with span("vpt_torch.agent.dispatch"):
-            img, first = self._prepare(minerl_obs, first)
-            packed, self.hidden_state = self._step(img, first, stochastic, self.hidden_state)
-            return packed, isinstance(minerl_obs, list)
+        """Enqueue one policy step on ``hidden_state`` and return a handle
+        without waiting."""
+        handle, self.hidden_state = self.dispatch_action_with_state(
+            minerl_obs, self.hidden_state, first, stochastic)
+        return handle
 
     def initial_group_state(self):
         """Fresh recurrent state for one ``batch_size``-wide stream group, for
@@ -267,9 +267,9 @@ class MineRLAgent:
 
     def dispatch_action_with_state(self, minerl_obs, state, first: Optional[np.ndarray] = None,
                                    stochastic: bool = True):
-        """:meth:`dispatch_action` on the caller's recurrent state instead of
-        ``hidden_state``; returns (handle, state after the step).  The ring
-        cache's slot is written into ``state`` in place."""
+        """Enqueue one policy step on the caller's recurrent state; returns
+        (handle, state after the step).  The ring cache's slot is written
+        into ``state`` in place."""
         with span("vpt_torch.agent.dispatch"):
             img, first = self._prepare(minerl_obs, first)
             packed, state = self._step(img, first, stochastic, state)

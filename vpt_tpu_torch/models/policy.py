@@ -10,8 +10,9 @@ Flow (policy, reference policy.py:193-218):
 Flow (IDM, reference policy.py:374-392): a conv3d front end over
 (B, C, T, H, W) before the Impala stack, unmasked attention, no value head,
 and ``final_ln`` applied to the activations *before* ``lastlayer``, whose
-result is computed and discarded (the reference's quirk, kept so that the
-parameter exists for checkpoints).
+result the reference computes and discards.  The port does not run
+``lastlayer``; the module stays so that reference checkpoints load key for
+key.
 
 The recurrent state (per-block KV caches and state masks, or LSTM carries;
 None for ``recurrence_type="none"``) is an explicit argument and return
@@ -301,10 +302,9 @@ class InverseActionNet(nn.Module):
         return y.transpose(1, 2).flatten(0, 1), y.shape[0], y.shape[2]
 
     def tail(self, x):
-        """The blocks' output → the action head's input."""
-        x = F.relu(x)
-        self.lastlayer(x)  # reference quirk: computed, then overwritten (policy.py:390-391)
-        return self.final_ln(x)
+        """The blocks' output → the action head's input (the reference's
+        ``lastlayer`` result is overwritten unused, policy.py:390-391)."""
+        return self.final_ln(F.relu(x))
 
 
 class InverseActionPolicy(nn.Module):
@@ -333,10 +333,9 @@ class InverseActionPolicy(nn.Module):
         return self.net.embed(img, time_slice)
 
     def heads_from_recurrent(self, x):
-        """The forward's tail from the blocks' output (``lastlayer``, whose
-        result the forward discards, is not run)."""
+        """The forward's tail from the blocks' output."""
         with span(HEADS_SPAN):
-            return {"pi_logits": self.pi_head(self.net.final_ln(F.relu(x)))}
+            return {"pi_logits": self.pi_head(self.net.tail(x))}
 
     def predict(self, img, first, state, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
